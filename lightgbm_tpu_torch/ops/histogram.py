@@ -1,0 +1,185 @@
+"""Gradient/hessian histograms — kernel K1 and its plain version.
+
+Counterpart of ``lightgbm_tpu/ops/histogram.py`` (``hist_from_rows``,
+``build_histogram``, ``subtract_histogram``) and of the Pallas kernel in
+``lightgbm_tpu/ops/pallas_hist.py``. The histogram holds (sum_grad,
+sum_hess) per (feature, bin) only; counts are estimated downstream from
+the hessian ratio, as in the JAX package.
+
+- :func:`window_hist` — the histogram of one row window of a row-major
+  ``[n, F]`` bin buffer and its ``[n, 2]`` payload. On a CUDA tensor it
+  launches ``csrc/hist.cu`` (or raises); on a CPU tensor it runs
+  :func:`hist_plain`. The window is ``[start, start + cnt)``, or the
+  left (``side=1``) or right (``side=2``) child of such a window once it
+  was partitioned, with the left count read from the device tensor
+  ``n_left`` — so the grower needs no read-back in between.
+- :func:`hist_from_rows` — the same for a whole ``[S, F]`` block.
+- :func:`hist_plain` — a flat ``index_add_`` over ``f * B + bin``, the
+  counterpart of the JAX ``_hist_scatter``.
+
+``window_hist.launches`` counts the kernel launches (one per call on a
+CUDA tensor).
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from . import _cuda
+
+__all__ = ["window_hist", "hist_from_rows", "build_histogram",
+           "hist_plain", "subtract_histogram", "launch_plan",
+           "plain_kernels"]
+
+THREADS = 256
+TILE_ROWS = 1024
+SMEM_BUDGET = 110 * 1024   # two blocks per SM at the Higgs shape
+
+
+class _Force:
+    plain = False
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Run both kernels' plain versions even on CUDA tensors, for the
+    lifetime of the ``with`` block. Only ``chip_smoke.py`` uses it, to
+    train the comparison model; nothing on the main path does."""
+    old = _Force.plain
+    _Force.plain = True
+    try:
+        yield
+    finally:
+        _Force.plain = old
+
+
+def hist_plain(rows: torch.Tensor, payload: torch.Tensor,
+               num_bins: int) -> torch.Tensor:
+    """``[S, F]`` bins, ``[S, 2]`` f32 payload -> ``[F, B, 2]`` f32."""
+    S, F = rows.shape
+    C = payload.shape[1]
+    out = torch.zeros((F * num_bins, C), dtype=torch.float32,
+                      device=rows.device)
+    if S == 0:
+        return out.reshape(F, num_bins, C)
+    b = rows.to(torch.int64)
+    keep = b < num_bins           # out-of-range bins are dropped
+    idx = (torch.arange(F, device=rows.device) * num_bins)[None, :] + b
+    pay = payload.to(torch.float32)[:, None, :].expand(S, F, C)
+    out.index_add_(0, idx[keep], pay[keep])
+    return out.reshape(F, num_bins, C)
+
+
+def launch_plan(cnt: int, F: int, B: int, bin_bytes: int,
+                num_sms: int) -> tuple:
+    """``(Fg, tile_rows, nblocks, rows_per_block)`` for a window of at
+    most ``cnt`` rows: features per block sized to the shared-memory
+    budget, then as many row ranges as two blocks per SM cover."""
+    tile = TILE_ROWS
+    fg = (SMEM_BUDGET - tile * 8) // (B * 8 + tile * bin_bytes)
+    while fg < 1 and tile > 32:
+        tile //= 2
+        fg = (SMEM_BUDGET - tile * 8) // (B * 8 + tile * bin_bytes)
+    if fg < 1:
+        raise ValueError(
+            f"num_bins={B} is too wide for K1's shared-memory histogram")
+    fg = min(fg, F)
+    tiles = max(1, -(-cnt // tile))
+    nblocks = min(tiles, 2 * num_sms)
+    rpb = -(-tiles // nblocks) * tile
+    nblocks = max(1, -(-cnt // rpb))
+    return fg, tile, nblocks, rpb
+
+
+def _num_sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _check_args(bins, payload, n_left, side):
+    if bins.dim() != 2 or not bins.is_contiguous():
+        raise ValueError("bins must be a contiguous [n, F] tensor")
+    if bins.dtype not in (torch.uint8, torch.uint16):
+        raise TypeError(f"bins must be uint8 or uint16, got {bins.dtype}")
+    if payload.dtype != torch.float32 or payload.dim() != 2 \
+            or payload.shape != (bins.shape[0], 2) \
+            or not payload.is_contiguous():
+        raise ValueError("payload must be a contiguous [n, 2] float32 "
+                         "tensor with the rows of bins")
+    if payload.device != bins.device:
+        raise ValueError("bins and payload are on different devices")
+    if side not in (0, 1, 2):
+        raise ValueError(f"side must be 0, 1 or 2, got {side}")
+    if side and (n_left is None or n_left.dtype != torch.int32
+                 or n_left.numel() != 1 or n_left.device != bins.device):
+        raise ValueError("side 1/2 needs n_left: a one-element int32 "
+                         "tensor on the bins' device")
+
+
+def window_hist(bins: torch.Tensor, payload: torch.Tensor, num_bins: int,
+                start: int, cnt: int, n_left: torch.Tensor = None,
+                side: int = 0) -> torch.Tensor:
+    """Histogram ``[F, B, 2]`` f32 of a window of ``bins``/``payload``.
+
+    ``side`` 0: rows ``[start, start + cnt)``; 1: rows
+    ``[start, start + n_left)``; 2: rows ``[start + n_left, start +
+    cnt)``, with ``n_left`` a one-element int32 tensor on the device."""
+    _check_args(bins, payload, n_left, side)
+    F = bins.shape[1]
+    if not 0 <= start <= start + cnt <= bins.shape[0]:
+        raise ValueError("window out of range")
+    if bins.device.type == "cpu" or (_Force.plain
+                                     and bins.device.type == "cuda"):
+        if side:
+            nl = int(n_left.item())
+            start, cnt = (start, nl) if side == 1 else (start + nl,
+                                                        cnt - nl)
+        return hist_plain(bins[start:start + cnt],
+                          payload[start:start + cnt], num_bins)
+    if bins.device.type != "cuda":
+        raise ValueError(f"no histogram kernel for device {bins.device}")
+    out = torch.empty((F, num_bins, 2), dtype=torch.float32,
+                      device=bins.device)
+    if cnt == 0:
+        return out.zero_()
+    bb = bins.element_size()
+    fg, tile, nblocks, rpb = launch_plan(cnt, F, num_bins, bb,
+                                         _num_sms(bins.device))
+    partials = torch.empty((nblocks * F * num_bins * 2,),
+                           dtype=torch.float32, device=bins.device)
+    lib = _cuda.library("hist")
+    err = lib.hist_build(
+        bins.data_ptr(), bb, payload.data_ptr(), int(start), int(cnt),
+        n_left.data_ptr() if side else None, side, F, num_bins, fg, tile,
+        nblocks, rpb, THREADS, partials.data_ptr(), out.data_ptr(),
+        _cuda.stream_ptr(bins.device))
+    _cuda.check(err, "hist_build")
+    window_hist.launches += 1
+    return out
+
+
+window_hist.launches = 0
+
+
+def hist_from_rows(rows: torch.Tensor, payload: torch.Tensor,
+                   num_bins: int) -> torch.Tensor:
+    """Histogram of a whole ``[S, F]`` row block (``hist_from_rows`` /
+    ``hist_from_rows_pallas`` of the JAX package, float path)."""
+    return window_hist(rows, payload, num_bins, 0, rows.shape[0])
+
+
+def build_histogram(bins: torch.Tensor, grad: torch.Tensor,
+                    hess: torch.Tensor, row_weight: torch.Tensor,
+                    mask: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """Histogram of the rows selected by ``mask`` (``[n]`` bool) with
+    per-row weights, over a row-major ``[n, F]`` bin matrix."""
+    m = mask.to(grad.dtype) * row_weight.to(grad.dtype)
+    payload = torch.stack([grad * m, hess * m], dim=-1).contiguous()
+    return hist_from_rows(bins, payload, num_bins)
+
+
+def subtract_histogram(parent: torch.Tensor,
+                       child: torch.Tensor) -> torch.Tensor:
+    """The histogram-subtraction trick: sibling = parent - child."""
+    return parent - child
