@@ -7,19 +7,35 @@ Phases, in order; any failure exits non-zero:
 
 1. build   — compile the kernels from lightgbm_tpu_torch/csrc/ with nvcc
              (sm_90a), one nvcc per source, all started together;
-2. k1      — the histogram kernel against its plain version at the main
-             path's shapes (the root window and a ~100k-row window):
-             allclose, sibling subtraction, bit-identical reruns;
-3. k2      — the partition kernel against its plain version (root, mid,
-             ragged, all-left and all-right windows): exact;
-4. train   — the main path through the public API at the Higgs shape
+2. k1      — the histogram kernel's float path against its plain
+             version at the main path's shapes (the root window and a
+             ~100k-row window, u16 windows): allclose, sibling
+             subtraction, bit-identical reruns;
+3. k1_int  — the histogram kernel's int path (int8 payload, exact int32
+             sums) against its plain version: the root window with
+             payloads from discretize(), a 100k window, u16 windows, the
+             child windows of a partition (sides 1/2) and a 150k-row
+             window of 127s in few bins (past 2^24): bit-exact, and
+             bit-identical reruns;
+4. k2      — the partition kernel against its plain version (root, mid,
+             ragged, all-left and all-right windows, u16 rows, and the
+             quantized path's 2-byte int8 payload rows): exact;
+5. train   — the main path through the public API at the Higgs shape
              (10.5M x 28 training rows + 500k held out, 255 leaves, 255
              bins, binary): 1 warm-up + 5 timed iterations, predict,
              save/load round trip; launch counters; one profiled
              iteration; AUC against the same training with the kernels'
-             plain versions forced; then a small run with uint16 bins
-             (max_bin=400) held to the same standard;
-5. report  — the card's name and power limit, then one JSON line with
+             plain versions forced;
+6. train_quant — quantized-gradient training on the same data
+             (use_quantized_grad, 4 bins, stochastic rounding, leaf
+             renewal, seed 0): the same measurements, the int path's
+             launch counter, and a plain-kernel twin with the same seed
+             (first tree identical, AUC within 0.002); AUC not below the
+             float path's less 0.01;
+7. small runs — uint16 bins (max_bin=400) held to the float standard,
+             and a deterministic quantized run (200k x 28, no stochastic
+             rounding) whose every tree equals its plain twin's;
+8. report  — the card's name and power limit, then one JSON line with
              every kernel's launches, times, bound and library time.
 
 The last line of stdout is {"ok": true, "device": {...}}. Exits non-zero
@@ -43,6 +59,10 @@ import numpy as np
 # H100 SXM published peaks (NVIDIA data sheet; dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# scalar int32 adds: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (the
+# data sheet lists no scalar int32 rate; FP32's 67e12 counts an FMA as
+# two operations on 128 lanes)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 HIGGS_ROWS = 10_500_000
 VALID_ROWS = 500_000
@@ -174,6 +194,114 @@ def phase_k1(torch, dev, root_rows, reps):
     return shapes
 
 
+def _quant_pay(torch, dev, S, gen):
+    """An int8 [S, 2] payload as the quantized path makes it: random
+    gradients and hessians through discretize() with stochastic
+    rounding (4 levels)."""
+    from lightgbm_tpu_torch.ops.quantize import discretize
+    g = torch.randn(S, generator=gen, device=dev)
+    h = torch.rand(S, generator=gen, device=dev) * 0.25
+    noise = torch.rand((S, 2), generator=gen, device=dev)
+    return discretize(g, h, None, 4, noise)[0].contiguous()
+
+
+def _int_library(torch, rows, pay, B):
+    """One PyTorch call for the same function: an integer scatter_add_
+    over flat (feature, bin, channel) indices (inputs prepared outside
+    the timing)."""
+    S, F = rows.shape
+    dev = rows.device
+    flat = (torch.arange(F, device=dev, dtype=torch.int64) * B)[None] \
+        + rows.to(torch.int64)
+    idx = (flat[:, :, None] * 2 + torch.arange(2, device=dev)).reshape(-1)
+    vals = pay.to(torch.int32)[:, None, :].expand(S, F, 2).reshape(-1)
+    out = torch.zeros(F * B * 2, dtype=torch.int32, device=dev)
+
+    def library():
+        out.zero_()
+        out.scatter_add_(0, idx, vals)
+    return library, out
+
+
+def phase_k1_int(torch, dev, root_rows, reps):
+    """K1's int path: bit-exact against its plain version (an integer
+    index_add_) and bit-identical on rerun, at the quantized path's
+    windows."""
+    from lightgbm_tpu_torch.ops.histogram import hist_plain, window_hist
+    from lightgbm_tpu_torch.ops.partition import partition_window
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    shapes = []
+    for label, S, F, B in (("root", root_rows, FEATURES, BINS),
+                           ("mid", 100_003, FEATURES, BINS),
+                           ("u16", 50_000, 8, 300),
+                           ("wide_u16", 50_000, 40, 300),
+                           ("blocked_127", 150_000, 4, 16)):
+        rows = torch.randint(0, B, (S, F), generator=gen, device=dev,
+                             dtype=torch.int32)
+        if label == "blocked_127":
+            # 127 in both channels, ~95% of the rows in bin 3: a bin sums
+            # past 2^24, where an f32 accumulator stops being exact
+            hot = torch.rand((S, F), generator=gen, device=dev) < 0.95
+            rows = torch.where(hot, torch.full_like(rows, 3), rows)
+            pay = torch.full((S, 2), 127, dtype=torch.int8, device=dev)
+        else:
+            pay = _quant_pay(torch, dev, S, gen)
+        rows = rows.to(torch.uint8 if B <= 256 else torch.uint16)
+        k = window_hist(rows, pay, B, 0, S)
+        p = hist_plain(rows, pay, B)
+        if k.dtype != torch.int32 or not torch.equal(k, p):
+            err = int((k.long() - p.long()).abs().max())
+            raise AssertionError(f"K1 int {label}: kernel != plain, max "
+                                 f"err {err}")
+        if not torch.equal(k, window_hist(rows, pay, B, 0, S)):
+            raise AssertionError(f"K1 int {label}: two launches differ")
+        if label == "blocked_127":
+            want = torch.stack([torch.bincount(rows[:, f].long(),
+                                               minlength=B)
+                                for f in range(F)]) * 127
+            if not torch.equal(k.long(), want[..., None].expand(F, B, 2)):
+                raise AssertionError("K1 int blocked_127: != 127 x counts")
+            if int(k.max()) <= 2 ** 24:
+                raise AssertionError("K1 int blocked_127: no sum past 2^24")
+        # the children of a partitioned window (sides 1 and 2, n_left on
+        # the device) and the exact sibling subtraction
+        dst_r, dst_p = torch.empty_like(rows), torch.empty_like(pay)
+        nl = partition_window(rows, dst_r, pay, dst_p, None, None, 0, S, 0,
+                              B // 2, False, -1)
+        n_l = int(nl.item())
+        left = window_hist(dst_r, dst_p, B, 0, S, nl, 1)
+        right = window_hist(dst_r, dst_p, B, 0, S, nl, 2)
+        if not (torch.equal(left, hist_plain(dst_r[:n_l], dst_p[:n_l], B))
+                and torch.equal(right, hist_plain(dst_r[n_l:], dst_p[n_l:],
+                                                  B))
+                and torch.equal(k - left, right)):
+            raise AssertionError(f"K1 int {label}: child windows or "
+                                 "sibling subtraction inexact")
+        ms = cuda_ms(lambda: window_hist(rows, pay, B, 0, S), reps, torch)
+        plain_ms = cuda_ms(lambda: hist_plain(rows, pay, B), reps, torch)
+        library, lib_out = _int_library(torch, rows, pay, B)
+        library()
+        if not torch.equal(lib_out.reshape(F, B, 2), k):
+            raise AssertionError(f"K1 int {label}: scatter_add_ != kernel")
+        lib_ms = cuda_ms(library, max(3, reps // 3), torch)
+        nbytes = S * F * rows.element_size() + S * 2 + F * B * 2 * 4
+        ops = S * F * 2
+        bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+        bound_ms = 1e3 * max(bytes_s, ops_s)
+        shapes.append(dict(shape=label, rows=S, features=F, bins=B,
+                           max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, bound_ms=bound_ms,
+                           bound_by="bytes" if bytes_s >= ops_s
+                           else "operations"))
+        log(f"[k1_int] {label} S={S} F={F} B={B} ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={bound_ms:.4f} exact, sides exact, bit-identical "
+            "reruns")
+        del rows, pay, k, p, dst_r, dst_p, left, right, library, lib_out
+    return shapes
+
+
 def phase_k2(torch, dev, root_rows, reps):
     from lightgbm_tpu_torch.ops.partition import (partition_plain,
                                                   partition_window)
@@ -186,11 +314,18 @@ def phase_k2(torch, dev, root_rows, reps):
              ("all_right", 65_537, -1, F, B),
              # u16 rows of 16 bytes (copied by words) and of 18 (by
              # elements)
-             ("u16", 70_001, 150, 8, 300), ("u16_odd", 70_003, 150, 9, 300))
+             ("u16", 70_001, 150, 8, 300), ("u16_odd", 70_003, 150, 9, 300),
+             # the quantized path's rows: a 2-byte int8 (grad, hess) pair
+             ("root_int8", root_rows, 127, F, B),
+             ("ragged_int8", 100_003, 200, F, B),
+             ("u16_int8", 70_001, 150, 8, 300),
+             ("u16_odd_int8", 70_003, 150, 9, 300))
     for label, S, thr, F, B in cases:
         pad = 1000  # the window sits inside larger buffers
         n = S + 2 * pad
         rows, pay = _rand_window(torch, dev, n, F, B, gen)
+        if label.endswith("_int8"):
+            pay = _quant_pay(torch, dev, n, gen)
         ids = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
         nan_bin = 7 if label == "mid" else -1
         outs = []
@@ -218,9 +353,12 @@ def phase_k2(torch, dev, root_rows, reps):
 
         ms = cuda_ms(run(partition_window), reps, torch)
         plain_ms = cuda_ms(run(partition_plain), reps, torch)
-        nbytes = 2 * S * (F * rows.element_size() + 12)
+        nbytes = 2 * S * (F * rows.element_size() + 2 * pay.element_size()
+                          + 4)
         bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        shapes.append(dict(shape=label, rows=S, features=F, n_left=nl,
+        shapes.append(dict(shape=label, rows=S, features=F,
+                           payload=str(pay.dtype).replace("torch.", ""),
+                           n_left=nl,
                            max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                            library_ms=None, bound_ms=bound_ms,
                            bound_by="bytes"))
@@ -230,27 +368,31 @@ def phase_k2(torch, dev, root_rows, reps):
     return shapes
 
 
-def phase_train(torch, lgb, dev, n_train, iters):
-    from lightgbm_tpu_torch.metrics import auc, binary_logloss
-    from lightgbm_tpu_torch.ops.histogram import plain_kernels, window_hist
+def _reset_counts():
+    from lightgbm_tpu_torch.ops.histogram import window_hist
     from lightgbm_tpu_torch.ops.partition import partition_window
-    t0 = time.perf_counter()
-    X, y = make_higgs_like(n_train + VALID_ROWS, FEATURES)
-    Xt, yt, Xv, yv = X[:n_train], y[:n_train], X[n_train:], y[n_train:]
-    log(f"[train] data rows={n_train}+{VALID_ROWS} features={FEATURES} "
-        f"gen_s={time.perf_counter() - t0:.2f}")
-    params = {"objective": "binary", "num_leaves": 255, "max_bin": BINS,
-              "learning_rate": 0.1, "verbosity": -1,
-              "device_type": dev.type}
-    torch.cuda.reset_peak_memory_stats()
     window_hist.launches = 0
+    window_hist.int_launches = 0
     partition_window.launches = 0
-    t0 = time.perf_counter()
-    ds = lgb.Dataset(Xt, label=yt, params={"max_bin": BINS,
-                                           "device_type": dev.type})
-    ds.construct()
+
+
+def _read_counts():
+    from lightgbm_tpu_torch.ops.histogram import window_hist
+    from lightgbm_tpu_torch.ops.partition import partition_window
+    return dict(hist=window_hist.launches,
+                hist_int=window_hist.int_launches,
+                partition=partition_window.launches)
+
+
+def _drive(torch, lgb, dev, params, ds, Xv, yv, iters, tag):
+    """Train 1 warm-up + ``iters`` timed iterations through the public
+    API with every launch count set to 0 just before and read just
+    after; predict the held-out rows, score them and round-trip the
+    model through its text."""
+    from lightgbm_tpu_torch.metrics import auc, binary_logloss
     torch.cuda.synchronize()
-    construct_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
     t0 = time.perf_counter()
     bst = lgb.train(params, ds, num_boost_round=1)
     torch.cuda.synchronize()
@@ -265,15 +407,12 @@ def phase_train(torch, lgb, dev, n_train, iters):
     p = bst.predict(Xv)
     torch.cuda.synchronize()
     predict_s = time.perf_counter() - t0
-    k1, k2 = window_hist.launches, partition_window.launches
+    counts = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     leaves = [t.num_leaves for t in bst._models]
-    if dev.type == "cuda" and (k1 != sum(leaves) or k1 == 0 or k2 == 0
-                               or k2 != sum(n - 1 for n in leaves)):
-        raise AssertionError(f"launch counters K1={k1} K2={k2} do not "
-                             f"match the trees' leaves {leaves}")
-    if p.shape != (VALID_ROWS,) or not np.all(np.isfinite(p)):
-        raise AssertionError("predictions are not finite [n] values")
+    if p.shape != (len(yv),) or not np.all(np.isfinite(p)):
+        raise AssertionError(f"{tag}: predictions are not finite [n] "
+                             "values")
     yv_t = torch.as_tensor(yv, device=dev)
     p_t = torch.as_tensor(p, device=dev)
     auc_k = auc(p_t, yv_t)
@@ -285,46 +424,143 @@ def phase_train(torch, lgb, dev, n_train, iters):
                          params={"device_type": dev.type}).predict(Xv)
     rt = float(np.abs(p2 - p).max())
     if rt > 1e-6:
-        raise AssertionError(f"save/load round trip moved predictions by "
-                             f"{rt}")
-    log(f"[train] construct_s={construct_s:.3f} warmup_s={warm_s:.3f} "
+        raise AssertionError(f"{tag}: save/load round trip moved "
+                             f"predictions by {rt}")
+    log(f"[{tag}] warmup_s={warm_s:.3f} "
         f"iter_s={[round(s, 4) for s in iter_s]} "
         f"median_iter_s={statistics.median(iter_s):.4f} "
-        f"predict_s={predict_s:.4f} "
-        f"leaves={leaves} k1_launches={k1} k2_launches={k2} "
-        f"peak_mem_bytes={peak} auc={auc_k:.6f} logloss={ll_k:.6f} "
-        f"roundtrip_max_abs={rt:.3g}")
-    prof = profile_iteration(torch, bst) if dev.type == "cuda" else None
+        f"predict_s={predict_s:.4f} leaves={leaves} "
+        f"launches={json.dumps(counts)} peak_mem_bytes={peak} "
+        f"auc={auc_k:.6f} logloss={ll_k:.6f} roundtrip_max_abs={rt:.3g}")
+    return dict(bst=bst, counts=counts, leaves=leaves, iter_s=iter_s,
+                auc=auc_k, logloss=ll_k, peak=peak, predict_s=predict_s)
 
-    # the same 6 iterations with both kernels' plain versions forced
+
+def _check_counts(tag, counts, leaves, hist_key):
+    """The path's K1 launches (``hist_key``: float or int path) are one
+    per leaf (root + one child per split), the other K1 path's none,
+    and K2's one per split."""
+    other = "hist_int" if hist_key == "hist" else "hist"
+    if (counts[hist_key] != sum(leaves) or counts[hist_key] == 0
+            or counts[other] != 0 or counts["partition"] == 0
+            or counts["partition"] != sum(n - 1 for n in leaves)):
+        raise AssertionError(f"{tag}: launch counts {counts} do not match "
+                             f"the trees' leaves {leaves}")
+
+
+def _plain_twin(torch, lgb, dev, params, ds, Xv, yv, rounds, tag):
+    """The same training with both kernels' plain versions forced."""
+    from lightgbm_tpu_torch.metrics import auc
+    from lightgbm_tpu_torch.ops.histogram import plain_kernels
     t0 = time.perf_counter()
     with plain_kernels():
-        bst_p = lgb.train(params, ds, num_boost_round=1 + iters)
+        bst_p = lgb.train(params, ds, num_boost_round=rounds)
         pp = bst_p.predict(Xv)
     plain_s = time.perf_counter() - t0
-    auc_p = auc(torch.as_tensor(pp, device=dev), yv_t)
-    r_k = (int(bst._models[0].split_feature[0]),
-           int(bst._models[0].threshold_bin[0]))
-    r_p = (int(bst_p._models[0].split_feature[0]),
-           int(bst_p._models[0].threshold_bin[0]))
-    log(f"[train] plain run: seconds={plain_s:.2f} auc={auc_p:.6f} "
-        f"root_split kernel={r_k} plain={r_p}")
-    if auc_k < auc_p - 0.002:
-        raise AssertionError(f"AUC {auc_k} below plain {auc_p} - 0.002")
+    auc_p = auc(torch.as_tensor(pp, device=dev),
+                torch.as_tensor(yv, device=dev))
+    log(f"[{tag}] plain run: seconds={plain_s:.2f} auc={auc_p:.6f}")
+    return bst_p, auc_p
+
+
+def _root_split(bst):
+    t = bst._models[0]
+    return int(t.split_feature[0]), int(t.threshold_bin[0])
+
+
+TREE_STRUCTURE = ("split_feature", "threshold", "decision_type",
+                  "left_child", "right_child", "leaf_count",
+                  "internal_count")
+
+
+def _same_structure(a, b):
+    return a.num_leaves == b.num_leaves and all(
+        np.array_equal(getattr(a, k), getattr(b, k))
+        for k in TREE_STRUCTURE)
+
+
+def phase_train(torch, lgb, dev, n_train, iters):
+    t0 = time.perf_counter()
+    X, y = make_higgs_like(n_train + VALID_ROWS, FEATURES)
+    Xt, yt, Xv, yv = X[:n_train], y[:n_train], X[n_train:], y[n_train:]
+    log(f"[train] data rows={n_train}+{VALID_ROWS} features={FEATURES} "
+        f"gen_s={time.perf_counter() - t0:.2f}")
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": BINS,
+              "learning_rate": 0.1, "verbosity": -1,
+              "device_type": dev.type}
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(Xt, label=yt, params={"max_bin": BINS,
+                                           "device_type": dev.type})
+    ds.construct()
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    log(f"[train] construct_s={construct_s:.3f}")
+    r = _drive(torch, lgb, dev, params, ds, Xv, yv, iters, "train")
+    _check_counts("train", r["counts"], r["leaves"], "hist")
+    prof = profile_iteration(torch, r["bst"])
+
+    # the same 6 iterations with both kernels' plain versions forced
+    bst_p, auc_p = _plain_twin(torch, lgb, dev, params, ds, Xv, yv,
+                               1 + iters, "train")
+    r_k, r_p = _root_split(r["bst"]), _root_split(bst_p)
+    log(f"[train] root_split kernel={r_k} plain={r_p}")
+    if r["auc"] < auc_p - 0.002:
+        raise AssertionError(f"AUC {r['auc']} below plain {auc_p} - 0.002")
     if r_k != r_p:
         raise AssertionError("the first tree's root split differs from "
                              "the plain run's")
-    return dict(k1=k1, k2=k2, iter_s=iter_s, auc=auc_k, auc_plain=auc_p,
-                logloss=ll_k, peak=peak, construct_s=construct_s,
-                profile=prof)
+    del r["bst"], bst_p
+    return dict(r, auc_plain=auc_p, construct_s=construct_s, profile=prof,
+                ds=ds, Xv=Xv, yv=yv)
+
+
+def phase_train_quant(torch, lgb, dev, tr, iters):
+    """Quantized-gradient training on the main path's data and dataset:
+    the int path of K1 on every histogram, int8 payload rows in K2."""
+    ds, Xv, yv = tr["ds"], tr["Xv"], tr["yv"]
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": BINS,
+              "learning_rate": 0.1, "verbosity": -1,
+              "use_quantized_grad": True, "num_grad_quant_bins": 4,
+              "stochastic_rounding": True, "quant_train_renew_leaf": True,
+              "seed": 0, "device_type": dev.type}
+    r = _drive(torch, lgb, dev, params, ds, Xv, yv, iters, "train_quant")
+    _check_counts("train_quant", r["counts"], r["leaves"], "hist_int")
+    prof = profile_iteration(torch, r["bst"])
+
+    # the twin: the same seed, so the same rounding draws, and int32
+    # histograms that are exact in any order
+    bst_p, auc_p = _plain_twin(torch, lgb, dev, params, ds, Xv, yv,
+                               1 + iters, "train_quant")
+    a, b = r["bst"]._models[0], bst_p._models[0]
+    lv_err = float(np.abs(a.leaf_value - b.leaf_value).max()) \
+        if a.num_leaves == b.num_leaves else float("inf")
+    same = [int(_same_structure(x, y))
+            for x, y in zip(r["bst"]._models, bst_p._models)]
+    log(f"[train_quant] root_split kernel={_root_split(r['bst'])} "
+        f"plain={_root_split(bst_p)} first-tree leaf value max abs diff="
+        f"{lv_err:.3g}, trees identical in structure to the plain run's: "
+        f"{same}; float path auc={tr['auc']:.6f}")
+    if not _same_structure(a, b) or not np.allclose(
+            a.leaf_value, b.leaf_value, rtol=1e-4, atol=1e-5):
+        raise AssertionError("train_quant: the first tree differs from the "
+                             "plain run's")
+    if abs(r["auc"] - auc_p) > 0.002:
+        raise AssertionError(f"train_quant: AUC {r['auc']} not within "
+                             f"0.002 of the plain run's {auc_p}")
+    if r["auc"] < tr["auc"] - 0.01:
+        raise AssertionError(f"train_quant: AUC {r['auc']} below the float "
+                             f"path's {tr['auc']} - 0.01")
+    del r["bst"], bst_p
+    return dict(r, auc_plain=auc_p, profile=prof, same_trees=same)
 
 
 def profile_iteration(torch, bst):
     """One more boosting iteration under torch.profiler: the card's busy
     time (the sum of the device-side events' times; one stream, so they
-    do not overlap) against the iteration's wall time, and the kernels
-    that take most of it. Runs after the model above was scored, so it does
-    not change what was checked."""
+    do not overlap) against the iteration's wall time, the kernels that
+    take most of it, and the host ops that take most of the host's.
+    Runs after the model above was scored, so it does not change what
+    was checked."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -334,11 +570,12 @@ def profile_iteration(torch, bst):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     from torch.autograd import DeviceType
-    rows = []
+    rows, host = [], []
     for e in prof.key_averages():
         # device-side events only (kernels, memcpy, memset): the CPU ops
         # that launched them carry the same time as "self device time"
         if getattr(e, "device_type", None) != DeviceType.CUDA:
+            host.append((e.self_cpu_time_total / 1e3, e.count, e.key))
             continue
         dt = getattr(e, "self_device_time_total", None)
         if dt is None:
@@ -346,17 +583,25 @@ def profile_iteration(torch, bst):
         if dt > 0:
             rows.append((dt / 1e3, e.count, e.key))
     rows.sort(reverse=True)
+    host.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
     out = dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
                idle_share=1.0 - busy_ms / (wall * 1e3) if rows else None,
                top=[dict(name=k[:60], calls=c, ms=ms)
-                    for ms, c, k in rows[:10]])
+                    for ms, c, k in rows[:10]],
+               host_top=[dict(name=k[:60], calls=c, ms=ms)
+                         for ms, c, k in host[:8]])
     log("[profile] one iteration under torch.profiler: wall_ms="
         f"{out['wall_ms']:.1f} device_busy_ms={busy_ms:.1f} idle_share="
         + ("not measured (no device time in the trace)"
            if out["idle_share"] is None else f"{out['idle_share']:.3f}"))
     for r in out["top"]:
         log(f"[profile]   {r['ms']:9.3f} ms {r['calls']:6d}x {r['name']}")
+    # where the host's time goes: CPU ops by self time (a read-back's
+    # wait for the card shows under the op that reads back)
+    for r in out["host_top"]:
+        log(f"[profile]   host {r['ms']:9.3f} ms {r['calls']:6d}x "
+            f"{r['name']}")
     return out
 
 
@@ -403,6 +648,35 @@ def phase_train_u16(torch, lgb, dev):
                              "- 0.002")
 
 
+def phase_train_quant_small(torch, lgb, dev):
+    """A small deterministic quantized run (200k x 28, round to nearest,
+    no renewal): the int32 histograms are exact whatever the order, so
+    every tree, leaf values included, equals its plain twin's."""
+    X, y = make_higgs_like(250_000, FEATURES, seed=2)
+    Xt, yt, Xv, yv = X[:200_000], y[:200_000], X[200_000:], y[200_000:]
+    params = {"objective": "binary", "num_leaves": 63, "max_bin": BINS,
+              "verbosity": -1, "use_quantized_grad": True,
+              "stochastic_rounding": False, "device_type": dev.type}
+    ds = lgb.Dataset(Xt, label=yt, params=params)
+    _reset_counts()
+    bst = lgb.train(params, ds, num_boost_round=5)
+    counts = _read_counts()
+    _check_counts("train_quant_small", counts,
+                  [t.num_leaves for t in bst._models], "hist_int")
+    ref, _ = _plain_twin(torch, lgb, dev, params, ds, Xv, yv, 5,
+                         "train_quant_small")
+    same = [int(_same_structure(a, b)
+                and np.array_equal(a.leaf_value, b.leaf_value))
+            for a, b in zip(bst._models, ref._models)]
+    log(f"[train_quant_small] 200000x28, 5 trees of "
+        f"{[t.num_leaves for t in bst._models]} leaves, launches="
+        f"{json.dumps(counts)}, trees identical to the plain run's "
+        f"(leaf values included): {same}")
+    if len(bst._models) != len(ref._models) or not all(same):
+        raise AssertionError("train_quant_small: trees differ from the "
+                             "plain run's")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=HIGGS_ROWS,
@@ -432,9 +706,13 @@ def main(argv=None):
 
     phase_build(torch)
     k1 = phase_k1(torch, dev, args.rows, args.reps)
+    k1i = phase_k1_int(torch, dev, args.rows, args.reps)
     k2 = phase_k2(torch, dev, args.rows, args.reps)
     tr = phase_train(torch, lgb, dev, args.rows, args.iters)
+    trq = phase_train_quant(torch, lgb, dev, tr, args.iters)
+    del tr["ds"]
     phase_train_u16(torch, lgb, dev)
+    phase_train_quant_small(torch, lgb, dev)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -443,20 +721,28 @@ def main(argv=None):
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else "nvidia-smi: no output", flush=True)
 
-    def entry(name, source, replaces, launches, shapes):
+    def entry(name, source, replaces, by_path, shapes):
         top = shapes[0]  # the root window: the main path's largest launch
         return dict(name=name, route="cuda", source=source,
-                    replaces=replaces, launches=launches,
+                    replaces=replaces, launches=sum(by_path.values()),
+                    launches_by_path=by_path,
                     max_abs_err=max(s["max_abs_err"] for s in shapes),
                     ms=top["ms"], plain_ms=top["plain_ms"],
                     bound_ms=top["bound_ms"], bound_by=top["bound_by"],
                     library_ms=top["library_ms"], shapes=shapes)
 
+    def launches(key):
+        return {"train": tr["counts"][key], "train_quant": trq["counts"][key]}
+
     print(json.dumps({"kernels": [
         entry("hist", "lightgbm_tpu_torch/csrc/hist.cu",
-              "lightgbm_tpu/ops/pallas_hist.py:145", tr["k1"], k1),
+              "lightgbm_tpu/ops/pallas_hist.py:145", launches("hist"), k1),
+        entry("hist_int", "lightgbm_tpu_torch/csrc/hist.cu",
+              "lightgbm_tpu/ops/pallas_hist.py:196", launches("hist_int"),
+              k1i),
         entry("partition", "lightgbm_tpu_torch/csrc/partition.cu",
-              "lightgbm_tpu/ops/partition_kernel.py:97", tr["k2"], k2),
+              "lightgbm_tpu/ops/partition_kernel.py:97",
+              launches("partition"), k2),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -183,7 +183,6 @@ NOT_IMPLEMENTED: Dict[str, tuple] = {
     "path_smooth": (0.0, _Q1.format(13)),
     "interaction_constraints": ("", _Q1.format(13)),
     "categorical_feature": ("", _Q1.format(13)),
-    "use_quantized_grad": (False, _Q1.format(14)),
     "linear_tree": (False, _Q1.format(16)),
     "histogram_pool_size": (-1.0, _Q1.format(16)),
     "grower": ("compact", _Q1.format(16)),
@@ -320,8 +319,16 @@ class Config:
     scale_pos_weight: float = 1.0
     sigmoid: float = 1.0
     boost_from_average: bool = True
-    # accepted and without effect, as in the JAX package
+    # quantized-gradient training (LightGBM's GradientDiscretizer):
+    # int8 gradients/hessians, exact int32 histograms
+    use_quantized_grad: bool = False
+    num_grad_quant_bins: int = 4
+    quant_train_renew_leaf: bool = False
+    stochastic_rounding: bool = True
+    # seeds the stochastic rounding of quantized training (None: 0, as
+    # in the JAX package); nothing else reads it yet
     seed: Optional[int] = None
+    # accepted and without effect, as in the JAX package
     num_threads: int = 0
     deterministic: bool = False
     feature_pre_filter: bool = True
@@ -342,6 +349,7 @@ class Config:
         "bin_construct_sample_cnt": (1, None),
         "sigmoid": (0.0, None, "gt"),
         "scale_pos_weight": (0.0, None, "gt"),
+        "num_grad_quant_bins": (2, None),
     }
 
     def __post_init__(self) -> None:

@@ -8,14 +8,18 @@
 // the back, each side in its original order:
 //   left  row -> dst[nl_before + rank]
 //   right row -> dst[n_left + nr_before + rank]
-// A row is its F bins (u8/u16), optionally its (grad, hess) f32 pair and
-// its int32 row id. The decision is the numerical split rule of the JAX
+// A row is its F bins (u8/u16), optionally its payload and its int32 row
+// id. The payload is the row's (grad, hess) pair: 8 bytes (an f32 pair) on
+// the float path, 2 bytes (an int8 pair, moved as one 16-bit word) on the
+// quantized path, as the JAX grower packs the int8 pair into one u16 sort
+// column. The decision is the numerical split rule of the JAX
 // grower (ops/grow.py chunk_goleft): the NaN bin follows default_left,
 // every other bin goes left when bin <= threshold_bin.
 //
 // What bounds it on the H100: bytes. The window is read once to decide
 // (pass 1), once more to move (pass 3), and written once: about
-// cnt * (F + 12) bytes each way at the Higgs shape. The shape is that of
+// cnt * (F + 4 + payload bytes) bytes each way (F + 12 on the float path,
+// F + 6 on the quantized one). The shape is that of
 // LightGBM's CUDA learner (cuda_data_partition.cu: GenDataToLeftBitVector +
 // SplitInner), not the TPU butterfly, which exists only because a TPU has
 // no per-lane scatter:
@@ -113,8 +117,8 @@ __global__ void part_scan(int* __restrict__ block_counts, int nblocks,
 template <typename BinT>
 __global__ void part_scatter(const BinT* __restrict__ bins_src,
                              BinT* __restrict__ bins_dst,
-                             const float2* __restrict__ pay_src,
-                             float2* __restrict__ pay_dst,
+                             const void* __restrict__ pay_src,
+                             void* __restrict__ pay_dst, int pay_bytes,
                              const int* __restrict__ ids_src,
                              int* __restrict__ ids_dst, long long cnt, int F,
                              int f, int t, int dl, int nan_bin,
@@ -157,7 +161,12 @@ __global__ void part_scatter(const BinT* __restrict__ bins_src,
         BinT* d = bins_dst + dst * F;
         for (int j = 0; j < F; ++j) d[j] = s[j];
       }
-      if (pay_src != nullptr) pay_dst[dst] = pay_src[r];
+      if (pay_bytes == 8)
+        static_cast<float2*>(pay_dst)[dst] =
+            static_cast<const float2*>(pay_src)[r];
+      else if (pay_bytes == 2)
+        static_cast<uint16_t*>(pay_dst)[dst] =
+            static_cast<const uint16_t*>(pay_src)[r];
       if (ids_src != nullptr) ids_dst[dst] = ids_src[r];
     }
     lefts_before += round_tot;
@@ -167,7 +176,8 @@ __global__ void part_scatter(const BinT* __restrict__ bins_src,
 
 template <typename BinT>
 cudaError_t launch(const void* bins_src, void* bins_dst, const void* pay_src,
-                   void* pay_dst, const void* ids_src, void* ids_dst,
+                   void* pay_dst, int pay_bytes, const void* ids_src,
+                   void* ids_dst,
                    long long cnt, int F, int f, int t, int dl, int nan_bin,
                    int* scratch, int nblocks, int* n_left,
                    cudaStream_t stream) {
@@ -186,8 +196,7 @@ cudaError_t launch(const void* bins_src, void* bins_dst, const void* pay_src,
       reinterpret_cast<uintptr_t>(bins_dst) % 4 == 0;
   const int row_words = aligned ? (int)(row_bytes / 4) : 0;
   part_scatter<BinT><<<nblocks, kThreads, 0, stream>>>(
-      bs, bd, static_cast<const float2*>(pay_src),
-      static_cast<float2*>(pay_dst), static_cast<const int*>(ids_src),
+      bs, bd, pay_src, pay_dst, pay_bytes, static_cast<const int*>(ids_src),
       static_cast<int*>(ids_dst), cnt, F, f, t, dl, nan_bin, scratch, n_left,
       row_words);
   return cudaGetLastError();
@@ -200,10 +209,13 @@ extern "C" int partition_tile_rows() { return kTile; }
 // Partition the window [0, cnt) of the source pointers into the
 // destination pointers (each already offset to the window's first row).
 // `scratch` holds ceil(cnt / partition_tile_rows()) ints; `n_left` one int.
-// pay_* and ids_* may be null. Returns the first CUDA error (0 = success).
+// pay_bytes is a payload row's width: 8 (f32 pair), 2 (int8 pair) or 0 (no
+// payload; pay_* are then ignored). ids_* may be null. Returns the first
+// CUDA error (0 = success).
 extern "C" int partition_window(const void* bins_src, void* bins_dst,
                                 int bin_bytes, const void* pay_src,
-                                void* pay_dst, const void* ids_src,
+                                void* pay_dst, int pay_bytes,
+                                const void* ids_src,
                                 void* ids_dst, long long cnt, int F, int f,
                                 int t, int dl, int nan_bin, void* scratch,
                                 int scratch_len, void* n_left, void* stream) {
@@ -211,16 +223,18 @@ extern "C" int partition_window(const void* bins_src, void* bins_dst,
   int* nl = static_cast<int*>(n_left);
   if (cnt <= 0) return (int)cudaMemsetAsync(nl, 0, sizeof(int), s);
   const long long nb = (cnt + kTile - 1) / kTile;
-  if (nb > scratch_len || nb > 0x7fffffffLL || f < 0 || f >= F)
+  if (nb > scratch_len || nb > 0x7fffffffLL || f < 0 || f >= F ||
+      (pay_bytes != 0 && pay_bytes != 2 && pay_bytes != 8) ||
+      (pay_bytes != 0 && (pay_src == nullptr || pay_dst == nullptr)))
     return (int)cudaErrorInvalidValue;
   int* sc = static_cast<int*>(scratch);
   if (bin_bytes == 1)
-    return (int)launch<uint8_t>(bins_src, bins_dst, pay_src, pay_dst, ids_src,
-                                ids_dst, cnt, F, f, t, dl, nan_bin, sc,
-                                (int)nb, nl, s);
+    return (int)launch<uint8_t>(bins_src, bins_dst, pay_src, pay_dst,
+                                pay_bytes, ids_src, ids_dst, cnt, F, f, t,
+                                dl, nan_bin, sc, (int)nb, nl, s);
   if (bin_bytes == 2)
     return (int)launch<uint16_t>(bins_src, bins_dst, pay_src, pay_dst,
-                                 ids_src, ids_dst, cnt, F, f, t, dl, nan_bin,
-                                 sc, (int)nb, nl, s);
+                                 pay_bytes, ids_src, ids_dst, cnt, F, f, t,
+                                 dl, nan_bin, sc, (int)nb, nl, s);
   return (int)cudaErrorInvalidValue;
 }

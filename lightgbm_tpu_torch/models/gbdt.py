@@ -7,10 +7,20 @@ of its fused step (``_fused_iter_step``):
 - boost_from_average: the objective's initial score starts every row's
   score and is folded into the first iteration's tree as a leaf-value
   bias, so a saved model is self-contained;
-- each iteration: gradients from the current score, the non-finite guard
-  of the default ``nonfinite_policy="raise"``, one tree
-  (:class:`ops.grow.Grower`), shrinkage by ``learning_rate``, and the
-  score update ``score += learning_rate * leaf_value[row_leaf]``;
+- each iteration: gradients from the current score, one tree
+  (:class:`ops.grow.Grower`), the non-finite guard of the default
+  ``nonfinite_policy="raise"`` over the gradients, the hessians and the
+  tree's fitted leaf values (as the JAX package's ``_leaf_value_guard``;
+  it raises naming what was not finite), shrinkage by
+  ``learning_rate``, and the score update ``score += learning_rate *
+  leaf_value[row_leaf]``;
+- quantized-gradient training (``use_quantized_grad``): with
+  ``stochastic_rounding`` each iteration draws one ``[n, 2]`` uniform
+  tensor for the rounding from a ``torch.Generator`` on the training
+  device seeded from ``seed`` (0 when unset, the JAX default). JAX's
+  threefry stream (``fold_in(base_key, iteration)``) cannot be
+  reproduced in torch, so the draws differ from the JAX package's; the
+  tests hand the grower JAX's draw instead;
 - a tree that cannot split ends training; it is kept as a constant tree
   that carries only the folded bias (AsConstantTree).
 
@@ -31,6 +41,12 @@ from ..ops.split import SplitParams
 from .tree import Tree, tree_from_arrays
 
 __all__ = ["GBDTBooster"]
+
+# the non-finite guard's flag bits (the JAX package's _NF_* bits)
+_NF_GRAD, _NF_HESS, _NF_LEAF = 1, 2, 4
+_NF_KINDS = ((_NF_GRAD, "gradients"), (_NF_HESS, "hessians"),
+             (_NF_LEAF, "leaf values"))
+
 
 class GBDTBooster:
     """Gradient boosting over a constructed :class:`~basic.Dataset`."""
@@ -69,20 +85,38 @@ class GBDTBooster:
                     max_delta_step=cfg.max_delta_step,
                     min_data_in_leaf=float(cfg.min_data_in_leaf),
                     min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
-                    min_gain_to_split=cfg.min_gain_to_split)),
+                    min_gain_to_split=cfg.min_gain_to_split),
+                quantized=cfg.use_quantized_grad,
+                quant_bins=cfg.num_grad_quant_bins,
+                renew_leaf=cfg.quant_train_renew_leaf),
             train_set.device_bins(), train_set.feat_num_bins(),
             train_set.feat_nan_bin())
+        self._rounding_gen = None
+        if cfg.use_quantized_grad and cfg.stochastic_rounding:
+            self._rounding_gen = torch.Generator(device=dev)
+            self._rounding_gen.manual_seed(
+                cfg.seed if cfg.seed is not None else 0)
 
     def train_one_iter(self) -> bool:
         """One boosting iteration; True when no tree could grow (the
         constant tree is kept and training should stop)."""
         cfg = self.cfg
         g, h = self.objective.grad_hess(self.score, self.label, self.weight)
-        if not bool(torch.isfinite(g).all() & torch.isfinite(h).all()):
+        gh_flag = torch.where(torch.isfinite(g).all(), 0, _NF_GRAD) \
+            | torch.where(torch.isfinite(h).all(), 0, _NF_HESS)
+        noise = None
+        if self._rounding_gen is not None:
+            noise = torch.rand((self.n, 2), generator=self._rounding_gen,
+                               device=self.device)
+        arrays, row_leaf = self.grower.grow(g, h, noise)
+        # the iteration's one read-back of the guard
+        flag = int(gh_flag.item()) \
+            | (0 if np.isfinite(arrays.leaf_value).all() else _NF_LEAF)
+        if flag:
+            kinds = ", ".join(name for bit, name in _NF_KINDS if flag & bit)
             raise FloatingPointError(
-                f"non-finite gradients or hessians at iteration "
-                f"{self.iter_} (nonfinite_policy='raise')")
-        arrays, row_leaf = self.grower.grow(g, h)
+                f"non-finite {kinds} detected at iteration {self.iter_} "
+                "(nonfinite_policy='raise')")
         tree = tree_from_arrays(arrays, self.train_set.mappers,
                                 self.train_set.used_feature_indices())
         bias = float(self.init_score[0]) \

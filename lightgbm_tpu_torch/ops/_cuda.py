@@ -34,13 +34,13 @@ _L = ctypes.c_longlong
 # C entry points of each kernel library: name -> (restype, argtypes)
 KERNELS: Dict[str, Dict[str, tuple]] = {
     "hist": {
-        "hist_build": (_I, [_P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _P, _P, _P]),
+        "hist_build": (_I, [_P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _P, _P, _P]),
     },
     "partition": {
         "partition_tile_rows": (_I, []),
-        "partition_window": (_I, [_P, _P, _I, _P, _P, _P, _P, _L, _I, _I,
-                                  _I, _I, _I, _P, _I, _P, _P]),
+        "partition_window": (_I, [_P, _P, _I, _P, _P, _I, _P, _P, _L, _I,
+                                  _I, _I, _I, _I, _P, _I, _P, _P]),
     },
 }
 

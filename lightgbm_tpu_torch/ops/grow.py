@@ -22,6 +22,26 @@ grower's; its mechanics are a GPU's:
   the next leaf (first maximum of the stored gains, as ``jnp.argmax``).
 - ``row_leaf`` comes from the row ids of the final windows.
 
+Quantized-gradient training (``GrowConfig.quantized``, the JAX
+``cfg.quantized`` path) runs the same loop on int8 pairs:
+
+- :func:`ops.quantize.discretize` scales and rounds the tree's
+  gradients and hessians to an int8 ``[n, 2]`` payload (stochastically
+  with the caller's ``noise``); the ping-pong payload buffers hold int8
+  pairs (2 bytes a row, moved by K2 as one 16-bit word), K1 runs its int
+  path and the histogram cache is int32, so sibling subtraction is exact;
+- the root totals are the dequantized feature-0 row of the root
+  histogram (every row hits feature 0 once), not float sums, as in JAX;
+- every split search gets dequantized histograms;
+- with ``renew_leaf`` the leaf outputs are refitted at the end from the
+  float (not quantized) gradient and hessian sums of each leaf's rows
+  (RenewIntGradTreeOutput).
+
+Int32 range: an entry of a window's histogram is at most ``cnt *
+quant_bins`` in magnitude (``cnt * 127`` for any int8 payload), so the
+exact int32 sums hold for ``n < 2**31 / quant_bins`` rows (16.9M for any
+payload), the JAX package's limit too.
+
 The TPU workarounds of the JAX grower (packed u32 bin words, group
 sorts, K-row chunking, the nibble-matmul histogram) have no counterpart.
 """
@@ -35,6 +55,7 @@ import torch
 
 from .histogram import subtract_histogram, window_hist
 from .partition import partition_window
+from .quantize import dequantize, discretize
 from .split import F_, FIELDS, SplitParams, find_best_split, leaf_output
 
 __all__ = ["GrowConfig", "TreeArrays", "Grower", "grow_tree"]
@@ -47,6 +68,11 @@ class GrowConfig(NamedTuple):
     num_bins: int
     max_depth: int = -1
     split: SplitParams = SplitParams()
+    # quantized-gradient training (use_quantized_grad,
+    # num_grad_quant_bins, quant_train_renew_leaf)
+    quantized: bool = False
+    quant_bins: int = 4
+    renew_leaf: bool = False
 
 
 class TreeArrays(NamedTuple):
@@ -128,9 +154,9 @@ def _apply_split(t: dict, rec: np.ndarray, leaf: int, R: int, ns: int,
 class Grower:
     """Grows trees over one dataset's row-major ``[n, F]`` bin tensor.
 
-    The ping-pong buffers (``2 * n * (F + 12)`` bytes) and the per-leaf
-    histogram cache (``L * F * B * 8`` bytes) are allocated once and
-    reused by every tree."""
+    The ping-pong buffers (``2 * n * (F + 12)`` bytes, ``2 * n * (F + 6)``
+    when quantized) and the per-leaf histogram cache (``L * F * B * 8``
+    bytes, f32 or int32) are allocated once and reused by every tree."""
 
     def __init__(self, cfg: GrowConfig, bins: torch.Tensor,
                  feat_num_bins, feat_nan_bin, feature_mask=None):
@@ -147,10 +173,12 @@ class Grower:
             else np.asarray(feature_mask, bool)
         self.fmask = torch.as_tensor(fm, device=dev)
         self.bins2 = torch.empty((2, n, F), dtype=bins.dtype, device=dev)
-        self.pay2 = torch.empty((2, n, 2), dtype=torch.float32, device=dev)
+        q = cfg.quantized
+        self.pay2 = torch.empty((2, n, 2), device=dev,
+                                dtype=torch.int8 if q else torch.float32)
         self.ids2 = torch.empty((2, n), dtype=torch.int32, device=dev)
-        self.hists = torch.empty((L, F, B, 2), dtype=torch.float32,
-                                 device=dev)
+        self.hists = torch.empty((L, F, B, 2), device=dev,
+                                 dtype=torch.int32 if q else torch.float32)
         self.best = torch.empty((L, NF), dtype=torch.float32, device=dev)
         self.row_ids = torch.arange(n, dtype=torch.int32, device=dev)
 
@@ -158,24 +186,42 @@ class Grower:
         return find_best_split(hist2, g, h, c, self.fnb, self.fnan,
                                self.fmask, self.cfg.split)
 
-    def grow(self, grad: torch.Tensor, hess: torch.Tensor):
-        """Grow one tree on f32 ``[n]`` gradients/hessians. Returns
-        ``(TreeArrays, row_leaf [n] int64 tensor on the device)``."""
+    def grow(self, grad: torch.Tensor, hess: torch.Tensor,
+             noise: torch.Tensor = None):
+        """Grow one tree on f32 ``[n]`` gradients/hessians. ``noise`` is
+        the ``[n, 2]`` uniform draw of stochastic rounding when quantized
+        (None: round to nearest). Returns ``(TreeArrays, row_leaf [n]
+        int64 tensor on the device)``."""
         cfg, n, p = self.cfg, self.n, self.cfg.split
         L, B = cfg.num_leaves, cfg.num_bins
         self.bins2[0].copy_(self.bins)
         pay = self.pay2[0]
-        pay[:, 0] = grad
-        pay[:, 1] = hess
         self.ids2[0].copy_(self.row_ids)
 
         # ---- root ----
+        if cfg.quantized:
+            q, scale2 = discretize(grad, hess, None, cfg.quant_bins, noise)
+            pay.copy_(q)
+
+            def hist_f(h):
+                return dequantize(h, scale2)
+        else:
+            pay[:, 0] = grad
+            pay[:, 1] = hess
+
+            def hist_f(h):
+                return h
         root_hist = window_hist(self.bins2[0], pay, B, 0, n)
         self.hists[0] = root_hist
-        tg = pay[:, 0].sum()
-        th = pay[:, 1].sum()
+        if cfg.quantized:
+            # every row hits feature 0 once
+            tg, th = hist_f(root_hist[0]).sum(dim=0).unbind()
+        else:
+            tg = pay[:, 0].sum()
+            th = pay[:, 1].sum()
         tc = torch.full((), float(n), dtype=torch.float32, device=self.dev)
-        rec = self._search(root_hist[None], tg[None], th[None], tc[None])
+        rec = self._search(hist_f(root_hist)[None], tg[None], th[None],
+                           tc[None])
         self.best[0] = rec[0]
         host = torch.cat([rec[0], torch.stack([leaf_output(tg, th, p), th])
                           ]).cpu().numpy()
@@ -217,7 +263,7 @@ class Grower:
             cnt2 = torch.cat([nlf, float(cnt) - nlf])
             pb = self.best[leaf]
             rec2 = self._search(
-                torch.stack([lh, rh]),
+                hist_f(torch.stack([lh, rh])),
                 torch.stack([pb[F_["left_sum_g"]], pb[F_["right_sum_g"]]]),
                 torch.stack([pb[F_["left_sum_h"]], pb[F_["right_sum_h"]]]),
                 cnt2)
@@ -239,8 +285,12 @@ class Grower:
             gains[R] = best_h[R, F_["gain"]] if depth_ok else -np.inf
             ns += 1
 
-        row_leaf = self._row_leaf(t["num_leaves"], leaf_buf, leaf_begin,
+        nleaves = t["num_leaves"]
+        row_leaf = self._row_leaf(nleaves, leaf_buf, leaf_begin,
                                   leaf_count)
+        if cfg.quantized and cfg.renew_leaf:
+            t["leaf_value"][:nleaves] = self._renewed_leaf_values(
+                grad, hess, row_leaf, nleaves)
         return TreeArrays(**t), row_leaf
 
     def _row_leaf(self, nleaves, leaf_buf, leaf_begin, leaf_count):
@@ -261,6 +311,19 @@ class Grower:
         row_leaf = torch.empty(self.n, dtype=torch.int64, device=self.dev)
         row_leaf[ids] = lid
         return row_leaf
+
+    def _renewed_leaf_values(self, grad, hess, row_leaf, nleaves):
+        """RenewIntGradTreeOutput (the end of the JAX grower): every
+        leaf's output from the float sums of its rows' gradients and
+        hessians. The sums are taken in float64 (atomics on CUDA, so in
+        no fixed order): their float32 roundings do not depend on the
+        order short of a tie at a rounding boundary."""
+        gh = torch.stack([grad, hess], dim=1).to(torch.float64)
+        sums = torch.zeros((nleaves, 2), dtype=torch.float64,
+                           device=self.dev).index_add_(0, row_leaf, gh)
+        sums = sums.to(torch.float32)
+        out = leaf_output(sums[:, 0], sums[:, 1], self.cfg.split)
+        return out.cpu().numpy()
 
 
 def grow_tree(cfg: GrowConfig, bins: torch.Tensor, grad: torch.Tensor,

@@ -7,18 +7,23 @@ sum_hess) per (feature, bin) only; counts are estimated downstream from
 the hessian ratio, as in the JAX package.
 
 - :func:`window_hist` — the histogram of one row window of a row-major
-  ``[n, F]`` bin buffer and its ``[n, 2]`` payload. On a CUDA tensor it
+  ``[n, F]`` bin buffer and its ``[n, 2]`` payload: an f32 payload gives
+  an f32 histogram, an int8 payload (quantized-gradient training) an
+  exact int32 one (the JAX ``int_exact`` path). On a CUDA tensor it
   launches ``csrc/hist.cu`` (or raises); on a CPU tensor it runs
   :func:`hist_plain`. The window is ``[start, start + cnt)``, or the
   left (``side=1``) or right (``side=2``) child of such a window once it
   was partitioned, with the left count read from the device tensor
   ``n_left`` — so the grower needs no read-back in between.
-- :func:`hist_from_rows` — the same for a whole ``[S, F]`` block.
-- :func:`hist_plain` — a flat ``index_add_`` over ``f * B + bin``, the
-  counterpart of the JAX ``_hist_scatter``.
+- :func:`hist_from_rows` / :func:`hist_from_rows_int` — the same for a
+  whole ``[S, F]`` block.
+- :func:`hist_plain` — a flat ``index_add_`` over ``f * B + bin`` (in
+  float32, or exactly in int32 for an int8 payload), the counterpart of
+  the JAX ``_hist_scatter``.
 
-``window_hist.launches`` counts the kernel launches (one per call on a
-CUDA tensor).
+``window_hist.launches`` and ``window_hist.int_launches`` count the
+kernel's launches on the float and the int path (one per call on a CUDA
+tensor).
 """
 
 from __future__ import annotations
@@ -29,9 +34,9 @@ import torch
 
 from . import _cuda
 
-__all__ = ["window_hist", "hist_from_rows", "build_histogram",
-           "hist_plain", "subtract_histogram", "launch_plan",
-           "plain_kernels"]
+__all__ = ["window_hist", "hist_from_rows", "hist_from_rows_int",
+           "build_histogram", "hist_plain", "subtract_histogram",
+           "launch_plan", "plain_kernels"]
 
 THREADS = 256
 TILE_ROWS = 1024
@@ -55,33 +60,40 @@ def plain_kernels():
         _Force.plain = old
 
 
+def _acc_dtype(payload: torch.Tensor) -> torch.dtype:
+    return torch.int32 if payload.dtype == torch.int8 else torch.float32
+
+
 def hist_plain(rows: torch.Tensor, payload: torch.Tensor,
                num_bins: int) -> torch.Tensor:
-    """``[S, F]`` bins, ``[S, 2]`` f32 payload -> ``[F, B, 2]`` f32."""
+    """``[S, F]`` bins, ``[S, 2]`` payload -> ``[F, B, 2]``: f32 for an
+    f32 payload, exact int32 for an int8 one."""
     S, F = rows.shape
     C = payload.shape[1]
-    out = torch.zeros((F * num_bins, C), dtype=torch.float32,
-                      device=rows.device)
+    acc = _acc_dtype(payload)
+    out = torch.zeros((F * num_bins, C), dtype=acc, device=rows.device)
     if S == 0:
         return out.reshape(F, num_bins, C)
     b = rows.to(torch.int64)
     keep = b < num_bins           # out-of-range bins are dropped
     idx = (torch.arange(F, device=rows.device) * num_bins)[None, :] + b
-    pay = payload.to(torch.float32)[:, None, :].expand(S, F, C)
+    pay = payload.to(acc)[:, None, :].expand(S, F, C)
     out.index_add_(0, idx[keep], pay[keep])
     return out.reshape(F, num_bins, C)
 
 
 def launch_plan(cnt: int, F: int, B: int, bin_bytes: int,
-                num_sms: int) -> tuple:
+                num_sms: int, pay_bytes: int = 8) -> tuple:
     """``(Fg, tile_rows, nblocks, rows_per_block)`` for a window of at
-    most ``cnt`` rows: features per block sized to the shared-memory
-    budget, then as many row ranges as two blocks per SM cover."""
+    most ``cnt`` rows and a payload row of ``pay_bytes`` (8: f32 pair,
+    2: int8 pair): features per block sized to the shared-memory budget
+    (a ``[Fg, B, 2]`` table of 4-byte sums on either path), then as many
+    row ranges as two blocks per SM cover."""
     tile = TILE_ROWS
-    fg = (SMEM_BUDGET - tile * 8) // (B * 8 + tile * bin_bytes)
+    fg = (SMEM_BUDGET - tile * pay_bytes) // (B * 8 + tile * bin_bytes)
     while fg < 1 and tile > 32:
         tile //= 2
-        fg = (SMEM_BUDGET - tile * 8) // (B * 8 + tile * bin_bytes)
+        fg = (SMEM_BUDGET - tile * pay_bytes) // (B * 8 + tile * bin_bytes)
     if fg < 1:
         raise ValueError(
             f"num_bins={B} is too wide for K1's shared-memory histogram")
@@ -102,11 +114,12 @@ def _check_args(bins, payload, n_left, side):
         raise ValueError("bins must be a contiguous [n, F] tensor")
     if bins.dtype not in (torch.uint8, torch.uint16):
         raise TypeError(f"bins must be uint8 or uint16, got {bins.dtype}")
-    if payload.dtype != torch.float32 or payload.dim() != 2 \
+    if payload.dtype not in (torch.float32, torch.int8) \
+            or payload.dim() != 2 \
             or payload.shape != (bins.shape[0], 2) \
             or not payload.is_contiguous():
-        raise ValueError("payload must be a contiguous [n, 2] float32 "
-                         "tensor with the rows of bins")
+        raise ValueError("payload must be a contiguous [n, 2] float32 or "
+                         "int8 tensor with the rows of bins")
     if payload.device != bins.device:
         raise ValueError("bins and payload are on different devices")
     if side not in (0, 1, 2):
@@ -120,7 +133,8 @@ def _check_args(bins, payload, n_left, side):
 def window_hist(bins: torch.Tensor, payload: torch.Tensor, num_bins: int,
                 start: int, cnt: int, n_left: torch.Tensor = None,
                 side: int = 0) -> torch.Tensor:
-    """Histogram ``[F, B, 2]`` f32 of a window of ``bins``/``payload``.
+    """Histogram ``[F, B, 2]`` of a window of ``bins``/``payload``: f32
+    for an f32 payload, exact int32 for an int8 one.
 
     ``side`` 0: rows ``[start, start + cnt)``; 1: rows
     ``[start, start + n_left)``; 2: rows ``[start + n_left, start +
@@ -139,33 +153,51 @@ def window_hist(bins: torch.Tensor, payload: torch.Tensor, num_bins: int,
                           payload[start:start + cnt], num_bins)
     if bins.device.type != "cuda":
         raise ValueError(f"no histogram kernel for device {bins.device}")
-    out = torch.empty((F, num_bins, 2), dtype=torch.float32,
-                      device=bins.device)
+    int_path = payload.dtype == torch.int8
+    acc = _acc_dtype(payload)
+    out = torch.empty((F, num_bins, 2), dtype=acc, device=bins.device)
     if cnt == 0:
         return out.zero_()
     bb = bins.element_size()
     fg, tile, nblocks, rpb = launch_plan(cnt, F, num_bins, bb,
-                                         _num_sms(bins.device))
-    partials = torch.empty((nblocks * F * num_bins * 2,),
-                           dtype=torch.float32, device=bins.device)
+                                         _num_sms(bins.device),
+                                         2 * payload.element_size())
+    partials = torch.empty((nblocks * F * num_bins * 2,), dtype=acc,
+                           device=bins.device)
     lib = _cuda.library("hist")
     err = lib.hist_build(
-        bins.data_ptr(), bb, payload.data_ptr(), int(start), int(cnt),
-        n_left.data_ptr() if side else None, side, F, num_bins, fg, tile,
-        nblocks, rpb, THREADS, partials.data_ptr(), out.data_ptr(),
-        _cuda.stream_ptr(bins.device))
+        bins.data_ptr(), bb, payload.data_ptr(), int(int_path), int(start),
+        int(cnt), n_left.data_ptr() if side else None, side, F, num_bins,
+        fg, tile, nblocks, rpb, THREADS, partials.data_ptr(),
+        out.data_ptr(), _cuda.stream_ptr(bins.device))
     _cuda.check(err, "hist_build")
-    window_hist.launches += 1
+    if int_path:
+        window_hist.int_launches += 1
+    else:
+        window_hist.launches += 1
     return out
 
 
+# kernel launches on CUDA tensors: float path / int path
 window_hist.launches = 0
+window_hist.int_launches = 0
 
 
 def hist_from_rows(rows: torch.Tensor, payload: torch.Tensor,
                    num_bins: int) -> torch.Tensor:
     """Histogram of a whole ``[S, F]`` row block (``hist_from_rows`` /
     ``hist_from_rows_pallas`` of the JAX package, float path)."""
+    return window_hist(rows, payload, num_bins, 0, rows.shape[0])
+
+
+def hist_from_rows_int(rows: torch.Tensor, payload: torch.Tensor,
+                       num_bins: int) -> torch.Tensor:
+    """Quantized histogram of a whole ``[S, F]`` row block: int8
+    ``[S, 2]`` payload, exact int32 ``[F, B, 2]`` result
+    (``hist_from_rows_int`` of the JAX package)."""
+    if payload.dtype != torch.int8:
+        raise TypeError(f"hist_from_rows_int takes an int8 payload, got "
+                        f"{payload.dtype}")
     return window_hist(rows, payload, num_bins, 0, rows.shape[0])
 
 
@@ -181,5 +213,6 @@ def build_histogram(bins: torch.Tensor, grad: torch.Tensor,
 
 def subtract_histogram(parent: torch.Tensor,
                        child: torch.Tensor) -> torch.Tensor:
-    """The histogram-subtraction trick: sibling = parent - child."""
+    """The histogram-subtraction trick: sibling = parent - child (exact
+    on int32 histograms)."""
     return parent - child

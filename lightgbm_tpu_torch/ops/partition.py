@@ -10,10 +10,11 @@ grower (``ops/grow.py`` ``part_apply``).
   into the same window of the destination buffers: rows that go left
   (the numerical split rule of ``chunk_goleft``) to the front, the
   others to the back, each side in its original order. A row is its
-  bins, its (grad, hess) payload and its row id. Returns the window's
-  left count as a one-element int32 tensor on the device (no read-back).
-  On a CUDA tensor it launches ``csrc/partition.cu`` (or raises); on a
-  CPU tensor it runs :func:`partition_plain`.
+  bins, its (grad, hess) payload — an f32 pair (8 bytes) or, in
+  quantized training, an int8 pair (2 bytes) — and its row id. Returns
+  the window's left count as a one-element int32 tensor on the device
+  (no read-back). On a CUDA tensor it launches ``csrc/partition.cu``
+  (or raises); on a CPU tensor it runs :func:`partition_plain`.
 - :func:`route_pair` — the JAX kernel's ``(L, R)`` contract over a
   stacked ``[NC, K]`` int32 matrix, through the same kernel.
 
@@ -73,15 +74,18 @@ def _check(bins_src, bins_dst, pay_src, pay_dst, ids_src, ids_dst):
     if bins_src.shape != bins_dst.shape or bins_src.dtype != bins_dst.dtype:
         raise ValueError("bins buffers differ in shape or dtype")
     n = bins_src.shape[0]
-    for a, b, shape, dt in ((pay_src, pay_dst, (n, 2), torch.float32),
-                            (ids_src, ids_dst, (n,), torch.int32)):
+    for a, b, shape, dts in ((pay_src, pay_dst, (n, 2),
+                              (torch.float32, torch.int8)),
+                             (ids_src, ids_dst, (n,), (torch.int32,))):
         if (a is None) != (b is None):
             raise ValueError("a source buffer needs its destination")
         if a is None:
             continue
         for x in (a, b):
-            if x.shape != shape or x.dtype != dt or not x.is_contiguous():
-                raise ValueError(f"expected contiguous {dt} {shape}")
+            if x.shape != shape or x.dtype not in dts \
+                    or x.dtype != a.dtype or not x.is_contiguous():
+                raise ValueError(f"expected contiguous {shape} tensors of "
+                                 f"one of {dts}")
     devs = {x.device for x in (bins_src, bins_dst, pay_src, pay_dst,
                                ids_src, ids_dst) if x is not None}
     if len(devs) != 1:
@@ -97,7 +101,8 @@ def partition_window(bins_src: torch.Tensor, bins_dst: torch.Tensor,
                      nan_bin: int) -> torch.Tensor:
     """Stably partition window ``[begin, begin + cnt)`` of the source
     buffers into the destination buffers; returns ``n_left`` (int32
-    ``[1]`` on the device). ``pay_*``/``ids_*`` may be None."""
+    ``[1]`` on the device). ``pay_*`` (``[n, 2]`` f32 or int8) and
+    ``ids_*`` may be None."""
     _check(bins_src, bins_dst, pay_src, pay_dst, ids_src, ids_dst)
     n, F = bins_src.shape
     if not 0 <= begin <= begin + cnt <= n or not 0 <= f < F:
@@ -121,11 +126,12 @@ def partition_window(bins_src: torch.Tensor, bins_dst: torch.Tensor,
             return None
         return x.data_ptr() + begin * row_elems * x.element_size()
 
+    pay_bytes = 0 if pay_src is None else 2 * pay_src.element_size()
     err = lib.partition_window(
         at(bins_src, F), at(bins_dst, F), bb, at(pay_src, 2),
-        at(pay_dst, 2), at(ids_src, 1), at(ids_dst, 1), int(cnt), F,
-        int(f), int(t), int(bool(dl)), int(nan_bin), scratch.data_ptr(),
-        nb, n_left.data_ptr(), _cuda.stream_ptr(dev))
+        at(pay_dst, 2), pay_bytes, at(ids_src, 1), at(ids_dst, 1),
+        int(cnt), F, int(f), int(t), int(bool(dl)), int(nan_bin),
+        scratch.data_ptr(), nb, n_left.data_ptr(), _cuda.stream_ptr(dev))
     _cuda.check(err, "partition_window")
     partition_window.launches += 1
     return n_left

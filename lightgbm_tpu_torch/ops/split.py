@@ -72,6 +72,54 @@ def leaf_gain(sum_g, sum_h, p: SplitParams):
     return t * t / (sum_h + p.lambda_l2 + K_EPS)
 
 
+_SCAN_BLOCK = 16
+
+
+def _prefix_sums(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive prefix sums along ``dim``, taken in the order of XLA's
+    CPU cumsum (a reduce-window that XLA rewrites into 16-element
+    blocks): sequential within each block, the blocks' totals summed the
+    same way (recursively), and each block's carry added to its sums.
+
+    Float sums of different orders round differently, and two
+    thresholds that cut a leaf's rows identically tie exactly in real
+    arithmetic — common with quantized gradients, whose histograms hold
+    few distinct integer sums — so the order decides which one wins.
+    This order makes the port pick the JAX package's threshold on the
+    CPU."""
+    n = x.shape[dim]
+    if n <= _SCAN_BLOCK:
+        return _sequential_cumsum(x, dim)
+    x = x.movedim(dim, -2)                        # [..., n, k]
+    nb = -(-n // _SCAN_BLOCK)
+    pad = nb * _SCAN_BLOCK - n
+    if pad:
+        x = torch.cat([x, x.new_zeros(x.shape[:-2] + (pad, x.shape[-1]))],
+                      dim=-2)
+    blocks = x.reshape(x.shape[:-2] + (nb, _SCAN_BLOCK, x.shape[-1]))
+    within = _sequential_cumsum(blocks, -2)
+    carry = _prefix_sums(within[..., -1, :], dim=-2)   # [..., nb, k]
+    excl = torch.cat([torch.zeros_like(carry[..., :1, :]),
+                      carry[..., :-1, :]], dim=-2)
+    out = (within + excl[..., None, :]).reshape(x.shape)
+    return out[..., :n, :].movedim(-2, dim)
+
+
+def _sequential_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Float32 prefix sums along ``dim`` (not the innermost dimension),
+    each output the previous one plus the next input. ``torch.cumsum``
+    is exactly that on CUDA (one thread walks the dimension with a
+    float32 sum), but on the CPU it sums in float64 and rounds each
+    output, so there the adds are written out."""
+    if x.device.type != "cpu":
+        return torch.cumsum(x, dim=dim)
+    out = x.clone()
+    o = out.movedim(dim, 0)
+    for i in range(1, o.shape[0]):
+        o[i] += o[i - 1]
+    return out
+
+
 def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
                     parent_h: torch.Tensor, parent_cnt: torch.Tensor,
                     feat_num_bins: torch.Tensor, feat_nan_bin: torch.Tensor,
@@ -110,7 +158,7 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
     bins = torch.arange(B, device=dev)
     miss = ((bins[None, :] == nan_idx[:, None])
             & has_nan[:, None]).to(hist.dtype)              # [F, B]
-    cum = torch.cumsum(h3 - miss[None, :, :, None]
+    cum = _prefix_sums(h3 - miss[None, :, :, None]
                        * nan_stats[:, :, None, :], dim=2)
 
     def eval_dir(left, t_valid):

@@ -233,6 +233,14 @@ def test_wrappers_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="no partition kernel"):
         partition_window(rows, torch.empty_like(rows), None, None, None,
                          None, 0, 8, 0, 1, False, -1)
+    # the int path (int8 payload) and the int8-payload partition too
+    qpay = torch.zeros((8, 2), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="no histogram kernel"):
+        window_hist(rows, qpay, 4, 0, 8)
+    with pytest.raises(ValueError, match="no partition kernel"):
+        partition_window(rows, torch.empty_like(rows), qpay,
+                         torch.empty_like(qpay), None, None, 0, 8, 0, 1,
+                         False, -1)
     import shutil
     if shutil.which("nvcc") is None and not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="nvcc"):

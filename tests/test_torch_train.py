@@ -333,7 +333,7 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
     {"objective": "multiclass", "num_class": 3},
     {"objective": "lambdarank"},
     {"boosting": "dart"},
-    {"use_quantized_grad": True},
+    {"feature_fraction": 0.5},
     {"linear_tree": True},
     {"monotone_constraints": [1, 0, 0]},
     {"hist_method": "pallas"},
@@ -346,6 +346,28 @@ def test_unimplemented_parameters_raise(params):
     with pytest.raises(NotImplementedError, match="ROADMAP|TPU"):
         tlgb.train({"objective": "binary", **CPU, **params},
                    tlgb.Dataset(X, label=y), 1)
+
+
+@pytest.mark.parametrize("params", [
+    {}, {"use_quantized_grad": True, "quant_train_renew_leaf": True}])
+def test_nonfinite_leaf_values_raise_like_jax(params):
+    """L2 without boost_from_average on labels near +-1e38: every
+    gradient (score - label) is finite, but a leaf's float32 sum of them
+    overflows, so its fitted value is not. Both packages' guards flag
+    the leaf values (with renewal, the renewed ones)."""
+    rs = np.random.RandomState(0)
+    X = rs.randn(500, 4)
+    y = np.where(X[:, 0] > 0, 1e38, -1e38) * (0.5 + rs.rand(500))
+    p = {"objective": "regression", "boost_from_average": False,
+         "num_leaves": 4, "min_data_in_leaf": 5, "verbosity": -1,
+         **params}
+    with pytest.raises(jlgb.basic.LightGBMError, match="leaf values"):
+        jlgb.train({**p, "hist_method": "scatter"},
+                   jlgb.Dataset(X, label=y), 2)
+    with pytest.raises(FloatingPointError,
+                       match="non-finite leaf values detected at "
+                             "iteration 0"):
+        tlgb.train({**p, **CPU}, tlgb.Dataset(X, label=y), 2)
 
 
 def test_data_that_would_bundle_raises_unless_bundling_is_off():
