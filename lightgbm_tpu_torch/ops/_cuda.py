@@ -34,8 +34,9 @@ _L = ctypes.c_longlong
 # C entry points of each kernel library: name -> (restype, argtypes)
 KERNELS: Dict[str, Dict[str, tuple]] = {
     "hist": {
-        "hist_build": (_I, [_P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _P, _P, _P]),
+        "hist_build": (_I, [_P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _P, _P, _P, _P]),
+        "hist_smem_bytes": (_I, [_I, _I, _I, _I, _I, _I, _I]),
     },
     "partition": {
         "partition_tile_rows": (_I, []),

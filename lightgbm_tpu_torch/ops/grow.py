@@ -15,6 +15,9 @@ grower's; its mechanics are a GPU's:
 - Kernel K1 (:func:`ops.histogram.window_hist`) builds the histogram of
   the child that the search-time count estimates call smaller (the JAX
   ``est_left_small`` rule); the other child's is the parent's minus it.
+  On the float path K1 sums in fixed point scaled by the payload's max
+  magnitude: one amax over the tree's payload at the root, kept on the
+  device, serves every window of the tree.
 - Both children are searched in one batched call
   (:func:`ops.split.find_best_split`) and their records are read back
   with the exact left count in ONE transfer — the only host
@@ -211,7 +214,11 @@ class Grower:
 
             def hist_f(h):
                 return h
-        root_hist = window_hist(self.bins2[0], pay, B, 0, n)
+        # the float path's fixed-point scale bound for every window of the
+        # tree: one amax, kept on the device
+        absmax = None if cfg.quantized else pay.abs().amax(dim=0)
+        root_hist = window_hist(self.bins2[0], pay, B, 0, n,
+                                pay_absmax=absmax)
         self.hists[0] = root_hist
         if cfg.quantized:
             # every row hits feature 0 once
@@ -254,7 +261,8 @@ class Grower:
                 bool(r[F_["default_left"]]), int(self.fnan_host[f]))
             est_left_small = r[F_["left_count"]] <= r[F_["right_count"]]
             small = window_hist(self.bins2[dst], self.pay2[dst], B, begin,
-                                cnt, nl, 1 if est_left_small else 2)
+                                cnt, nl, 1 if est_left_small else 2,
+                                pay_absmax=absmax)
             other = subtract_histogram(self.hists[leaf], small)
             lh, rh = (small, other) if est_left_small else (other, small)
             self.hists[leaf] = lh

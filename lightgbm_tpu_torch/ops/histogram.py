@@ -14,7 +14,11 @@ the hessian ratio, as in the JAX package.
   :func:`hist_plain`. The window is ``[start, start + cnt)``, or the
   left (``side=1``) or right (``side=2``) child of such a window once it
   was partitioned, with the left count read from the device tensor
-  ``n_left`` — so the grower needs no read-back in between.
+  ``n_left`` — so the grower needs no read-back in between. The kernel
+  sums the float path in fixed point scaled by the payload's max
+  magnitude (``pay_absmax``, see ``csrc/hist.cu``), so its result is the
+  same from run to run.
+- :func:`launch_plan` — the kernel's launch by window size.
 - :func:`hist_from_rows` / :func:`hist_from_rows_int` — the same for a
   whole ``[S, F]`` block.
 - :func:`hist_plain` — a flat ``index_add_`` over ``f * B + bin`` (in
@@ -29,6 +33,7 @@ tensor).
 from __future__ import annotations
 
 import contextlib
+from typing import NamedTuple
 
 import torch
 
@@ -36,11 +41,30 @@ from . import _cuda
 
 __all__ = ["window_hist", "hist_from_rows", "hist_from_rows_int",
            "build_histogram", "hist_plain", "subtract_histogram",
-           "launch_plan", "plain_kernels"]
+           "Plan", "launch_plan", "smem_bytes", "plain_kernels"]
 
-THREADS = 256
+SMEM_BLOCK = 232_448      # dynamic shared memory one block may use (H100)
+SMEM_SM = 233_472         # shared memory of one SM
+SMEM_RESERVED = 1024      # what the card reserves per resident block
+THREADS_SM = 2048
+MAX_STAGES = 4
+# the launch plan's constants, chosen by timing plans on the window ladder
+# of an H100 (PERF.md): threads per block, tile buffers in the ring, and
+# rows per tile, from TILE_ROWS halved down to MIN_TILE_ROWS for windows
+# of fewer than num_sms / 2 tiles
+THREADS = 1024
+STAGES = 2
 TILE_ROWS = 1024
-SMEM_BUDGET = 110 * 1024   # two blocks per SM at the Higgs shape
+MIN_TILE_ROWS = 128
+
+
+class Plan(NamedTuple):
+    fg: int          # features per block (blockIdx.y takes a group)
+    tile_rows: int   # rows per staged tile
+    stages: int      # tile buffers in the ring
+    nblocks: int     # blocks along the rows
+    threads: int
+    smem: int        # dynamic shared memory per block, bytes
 
 
 class _Force:
@@ -82,27 +106,55 @@ def hist_plain(rows: torch.Tensor, payload: torch.Tensor,
     return out.reshape(F, num_bins, C)
 
 
-def launch_plan(cnt: int, F: int, B: int, bin_bytes: int,
-                num_sms: int, pay_bytes: int = 8) -> tuple:
-    """``(Fg, tile_rows, nblocks, rows_per_block)`` for a window of at
-    most ``cnt`` rows and a payload row of ``pay_bytes`` (8: f32 pair,
-    2: int8 pair): features per block sized to the shared-memory budget
-    (a ``[Fg, B, 2]`` table of 4-byte sums on either path), then as many
-    row ranges as two blocks per SM cover."""
-    tile = TILE_ROWS
-    fg = (SMEM_BUDGET - tile * pay_bytes) // (B * 8 + tile * bin_bytes)
-    while fg < 1 and tile > 32:
-        tile //= 2
-        fg = (SMEM_BUDGET - tile * pay_bytes) // (B * 8 + tile * bin_bytes)
-    if fg < 1:
+def _up(x: int, a: int) -> int:
+    return -(-x // a) * a
+
+
+def smem_bytes(F: int, fg: int, B: int, bin_bytes: int, int_path: bool,
+               tile_rows: int, stages: int) -> int:
+    """Dynamic shared memory of one block; mirrors ``layout()`` in
+    ``csrc/hist.cu``: the ``[fg, B, 2]`` table (4-byte entries on the int
+    path, 8-byte on the float path), the ring of (bins, payload) tile
+    buffers, the float path's fixed-point tile payload, the barriers."""
+    table = _up(fg * B * 2 * (4 if int_path else 8), 128)
+    bins_slot = _up(tile_rows * F * bin_bytes + 16, 128)
+    pay_slot = _up(tile_rows * (2 if int_path else 8) + 16, 128)
+    cpay = 0 if int_path else _up(tile_rows * 16, 128)
+    return table + stages * (bins_slot + pay_slot) + cpay + 128
+
+
+def launch_plan(cnt: int, F: int, B: int, bin_bytes: int, num_sms: int,
+                int_path: bool = False) -> Plan:
+    """K1's launch for a window of at most ``cnt`` rows: ``THREADS``
+    threads, a ring of ``STAGES`` tiles of ``TILE_ROWS`` rows unless the
+    window has fewer than ``num_sms / 2`` of them, then halved down to
+    ``MIN_TILE_ROWS`` so that small windows still spread over many
+    blocks. The features per block are as many as fit beside the ring;
+    the blocks are one per tile up to as many as the card holds at once,
+    and each takes an equal share of the window's tiles."""
+    st, th, tr = STAGES, THREADS, TILE_ROWS
+    while tr > MIN_TILE_ROWS and -(-cnt // tr) < num_sms // 2:
+        tr //= 2
+
+    def fits(fg, t):
+        return smem_bytes(F, fg, B, bin_bytes, int_path, t, st) <= SMEM_BLOCK
+
+    while not fits(1, tr) and tr > 32:
+        tr //= 2
+    if not fits(1, tr):
         raise ValueError(
             f"num_bins={B} is too wide for K1's shared-memory histogram")
-    fg = min(fg, F)
-    tiles = max(1, -(-cnt // tile))
-    nblocks = min(tiles, 2 * num_sms)
-    rpb = -(-tiles // nblocks) * tile
-    nblocks = max(1, -(-cnt // rpb))
-    return fg, tile, nblocks, rpb
+    fg = F
+    while not fits(fg, tr):
+        fg -= 1
+    groups = -(-F // fg)
+    fg = -(-F // groups)          # even groups
+    smem = smem_bytes(F, fg, B, bin_bytes, int_path, tr, st)
+    per_sm = max(1, min(THREADS_SM // th,
+                        SMEM_SM // (smem + SMEM_RESERVED)))
+    tiles = max(1, -(-cnt // tr))
+    nblocks = max(1, min(tiles, per_sm * num_sms))
+    return Plan(fg, tr, st, nblocks, th, smem)
 
 
 def _num_sms(device) -> int:
@@ -132,13 +184,18 @@ def _check_args(bins, payload, n_left, side):
 
 def window_hist(bins: torch.Tensor, payload: torch.Tensor, num_bins: int,
                 start: int, cnt: int, n_left: torch.Tensor = None,
-                side: int = 0) -> torch.Tensor:
+                side: int = 0,
+                pay_absmax: torch.Tensor = None) -> torch.Tensor:
     """Histogram ``[F, B, 2]`` of a window of ``bins``/``payload``: f32
     for an f32 payload, exact int32 for an int8 one.
 
     ``side`` 0: rows ``[start, start + cnt)``; 1: rows
     ``[start, start + n_left)``; 2: rows ``[start + n_left, start +
-    cnt)``, with ``n_left`` a one-element int32 tensor on the device."""
+    cnt)``, with ``n_left`` a one-element int32 tensor on the device.
+    ``pay_absmax`` (float path, kernel only): a ``[2]`` f32 device tensor
+    at least the window's max ``|payload[:, c]|`` per channel, such as
+    the grower's one amax over the tree's payload; by default the wrapper
+    takes it over rows ``[start, start + cnt)``."""
     _check_args(bins, payload, n_left, side)
     F = bins.shape[1]
     if not 0 <= start <= start + cnt <= bins.shape[0]:
@@ -159,17 +216,29 @@ def window_hist(bins: torch.Tensor, payload: torch.Tensor, num_bins: int,
     if cnt == 0:
         return out.zero_()
     bb = bins.element_size()
-    fg, tile, nblocks, rpb = launch_plan(cnt, F, num_bins, bb,
-                                         _num_sms(bins.device),
-                                         2 * payload.element_size())
-    partials = torch.empty((nblocks * F * num_bins * 2,), dtype=acc,
-                           device=bins.device)
+    plan = launch_plan(cnt, F, num_bins, bb, _num_sms(bins.device),
+                       int_path)
     lib = _cuda.library("hist")
+    scratch = None
+    if not int_path:
+        if pay_absmax is None:
+            pay_absmax = payload[start:start + cnt].abs().amax(dim=0)
+        if pay_absmax.dtype != torch.float32 or pay_absmax.numel() != 2 \
+                or pay_absmax.device != bins.device:
+            raise ValueError("pay_absmax must be a [2] float32 tensor on "
+                             "the bins' device")
+        pay_absmax = pay_absmax.contiguous()
+        # the window's int64 sums
+        scratch = torch.empty((F * num_bins * 2,), dtype=torch.int64,
+                              device=bins.device)
     err = lib.hist_build(
-        bins.data_ptr(), bb, payload.data_ptr(), int(int_path), int(start),
-        int(cnt), n_left.data_ptr() if side else None, side, F, num_bins,
-        fg, tile, nblocks, rpb, THREADS, partials.data_ptr(),
-        out.data_ptr(), _cuda.stream_ptr(bins.device))
+        bins.data_ptr(), bb, payload.data_ptr(), int(int_path),
+        int(start), int(cnt),
+        n_left.data_ptr() if side else None, side, F, num_bins, plan.fg,
+        plan.tile_rows, plan.stages, plan.nblocks, plan.threads,
+        None if int_path else pay_absmax.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+        _cuda.stream_ptr(bins.device))
     _cuda.check(err, "hist_build")
     if int_path:
         window_hist.int_launches += 1
