@@ -3,13 +3,16 @@
     python3 chip_smoke.py            # the full-width run (one GPU)
     python3 chip_smoke.py --rows N   # the same at N training rows
     python3 chip_smoke.py --parent smoke_checkout/parent/lightgbm_tpu_torch
-                                     # also time the parent's K1 in turns
+                                     # also time the parent's K1 and K2
+                                     # in turns
 
 Phases, in order; any failure exits non-zero:
 
 1. build   — compile the kernels from lightgbm_tpu_torch/csrc/ with nvcc
              (sm_90a), one nvcc per source, all started together; the
-             wrapper's shared-memory count equals hist.cu's;
+             wrappers' shared-memory counts equal hist.cu's and
+             partition.cu's, and the card holds K2's blocks per SM as
+             its plan assumes and launches cooperatively;
 2. k1      — the histogram kernel's float path against its plain
              version on the window ladder (the root, 1M, ~100k, ~10k and
              ~1k rows, a 1M-row window with 90% of each feature's rows in
@@ -24,9 +27,15 @@ Phases, in order; any failure exits non-zero:
    k1_ragged — both paths on windows at odd starts, of 1 to 33 rows,
              and sides 1/2 (u8, u16, one feature of two bins): the same
              standards; a non-finite gradient gives a NaN channel;
-4. k2      — the partition kernel against its plain version (root, mid,
-             ragged, all-left and all-right windows, u16 rows, and the
-             quantized path's 2-byte int8 payload rows): exact;
+4. k2      — the partition kernel against its plain version, exact,
+             with a bit-identical rerun, on both of its paths (resident
+             and streaming) and every payload (f32, int8, none): the
+             main path's windows (timed), the resident capacity and one
+             row past it, all-left and all-right on each path, 1 to 33
+             rows at odd starts, u16 rows, u8 rows of 13 bytes, rows of
+             1000 u16 bins; route_pair (K = 4096, NC = 3) equal to its
+             plain run; each case prints its plan; then k2_alt, the
+             plans partition_plan rejects timed beside its choice;
 5. train   — the main path through the public API at the Higgs shape
              (10.5M x 28 training rows + 500k held out, 255 leaves, 255
              bins, binary): 1 warm-up + 5 timed iterations, predict,
@@ -36,8 +45,14 @@ Phases, in order; any failure exits non-zero:
              first tree's 255 windows back to back at their offsets and
              sides, its launches counted — both paths; with
              --parent, the parent's K1 in turns: parent, change, change,
-             parent); one profiled iteration; AUC against the same
-             training with the kernels' plain versions forced;
+             parent); k2_turns (the first tree's 254 partitions replayed
+             at their offsets and source buffers, f32 and int8 payloads:
+             every n_left equal to the tree's, final buffers equal to the
+             plain replay's; device ms per tree by kernel, kernels
+             counted, ms per window-size bucket, the root and a 100k
+             window; with --parent in turns); one profiled iteration;
+             AUC against the same training with the kernels' plain
+             versions forced;
 6. train_quant — quantized-gradient training on the same data
              (use_quantized_grad, 4 bins, stochastic rounding, leaf
              renewal, seed 0): the same measurements, the int path's
@@ -63,6 +78,7 @@ port's package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import statistics
@@ -126,35 +142,53 @@ def _device_us(e, DeviceType):
     return dt
 
 
-def profiled_ms(fn, reps, torch, by_name=None):
+# short kernels that open and close every profiled trace (profiled_ms)
+TRACE_PAD = 8
+
+
+def profiled_ms(fn, reps, torch, by_name=None, counts=None, expect=None):
     """Device milliseconds per call under torch.profiler (after one
     warm-up): for every kernel and memset the ``reps`` calls launch, its
     mean device time per recorded launch times its launches per call.
     The host's enqueue is not counted. The trace may drop a few launches
-    near its end; the mean per launch does not depend on them, and a
-    trace missing more than a tenth of a kernel's launches is taken
-    again. ``by_name``, a dict, receives each kernel's milliseconds per
-    call."""
+    near its start or its end, so the calls are preceded and followed by
+    a few short sleep kernels (PyTorch's ``spin_kernel``, left out of the
+    sums) that take those losses; a trace still missing more than a tenth of a kernel's
+    launches is taken again, and so is one that does not hold exactly
+    ``expect`` kernels per call (memory copies and sets aside), where the
+    caller knows that number.
+    ``by_name``, a dict, receives each kernel's milliseconds per call, and
+    ``counts`` its launches per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
+    for attempt in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_PAD):
+                torch.cuda._sleep(1000)
             for _ in range(reps):
                 fn()
+            for _ in range(TRACE_PAD):
+                torch.cuda._sleep(1000)
             torch.cuda.synchronize()
         dev = [(e.count, _device_us(e, DeviceType), e.key)
                for e in prof.key_averages()]
-        dev = [(c, t, k) for c, t, k in dev if t > 0]
+        dev = [(c, t, k) for c, t, k in dev
+               if t > 0 and "spin_kernel" not in k]
         per_call = [max(1, round(c / reps)) for c, _, _ in dev]
         if dev and all(abs(c - n * reps) <= max(1, n * reps // 10)
-                       for (c, _, _), n in zip(dev, per_call)):
+                       for (c, _, _), n in zip(dev, per_call)) and (
+                expect is None or expect * reps == sum(
+                    c for c, _, k in dev
+                    if not k.startswith(("Memcpy", "Memset")))):
             ms = {k: t / c * n / 1e3
                   for (c, t, k), n in zip(dev, per_call)}
             if by_name is not None:
                 by_name.update(ms)
+            if counts is not None:
+                counts.update({k: n for (_, _, k), n in zip(dev, per_call)})
             return sum(ms.values())
         log(f"[profiler] incomplete device trace (attempt {attempt + 1}): "
             f"{[c for c, _, _ in dev]} launches for {reps} calls")
@@ -195,6 +229,29 @@ def phase_build(torch):
                 F, fg, B, bb, bool(ip), tr, st):
             raise AssertionError("ops/histogram.py smem_bytes() != "
                                  "csrc/hist.cu layout()")
+    # K2: the plan's shared memory is partition.cu's layout, the card
+    # holds the blocks per SM the plan assumes, and launches cooperatively
+    from lightgbm_tpu_torch.ops import partition as part
+    plib = _cuda.library("partition")
+    if plib.partition_cooperative(0) != 1:
+        raise AssertionError("the card has no cooperative launch")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for cnt, F, bb, pb in ((1, 28, 1, 8), (100_003, 28, 1, 2),
+                           (part.resident_capacity(28, 1, 8, sms), 28, 1, 8),
+                           (10_500_000, 28, 1, 8), (10_500_000, 28, 1, 0),
+                           (50_001, 1000, 2, 8), (70_001, 13, 1, 0)):
+        plan = part.partition_plan(cnt, F, bb, pb, sms)
+        if plib.partition_smem_bytes(plan.rows, F, bb, pb, plan.stages) \
+                != plan.smem:
+            raise AssertionError("ops/partition.py smem_bytes() != "
+                                 "csrc/partition.cu layout()")
+        occ = plib.partition_occupancy(bb, 0 if plan.path == "resident"
+                                       else 1, plan.threads, plan.smem)
+        if occ < plan.per_sm:
+            raise AssertionError(f"K2 plan {plan} assumes {plan.per_sm} "
+                                 f"blocks per SM, the card holds {occ}")
+    log(f"[build] K2 plans: shared memory = partition.cu's layout, "
+        f"occupancy as the plan assumes, cooperative launch on {sms} SMs")
     return secs
 
 
@@ -554,70 +611,483 @@ def phase_k1_ragged(torch, dev):
         "finite hessians")
 
 
-def phase_k2(torch, dev, root_rows, reps):
+def _k2_bound(S, F, bin_bytes, pay_bytes):
+    """K2's bound: the window's rows (bins, payload, a 4-byte id) read
+    once and written once."""
+    return 1e3 * 2 * S * (F * bin_bytes + pay_bytes + 4) / HBM_BYTES_PER_S
+
+
+def _k2_pay(torch, dev, n, kind, gen):
+    if kind == "f32":
+        return torch.randn((n, 2), generator=gen, device=dev)
+    if kind == "int8":
+        return _quant_pay(torch, dev, n, gen)
+    return None
+
+
+def _plan_str(plan):
+    return (f"{plan.path} blocks={plan.nblocks} rows={plan.rows} "
+            f"stages={plan.stages} tiles={plan.tiles} "
+            f"threads={plan.threads} smem={plan.smem}")
+
+
+# K2's cases, (label, rows, features, bins, payload, threshold, timed):
+# the main path's ladder (timed), then the edges of both paths. The
+# resident capacity ("cap") depends on the row's width and payload.
+K2_CASES = (("root", None, FEATURES, BINS, "f32", 127, True),
+            ("mid", 100_000, FEATURES, BINS, "f32", 90, True),
+            ("ragged", 100_003, FEATURES, BINS, "f32", 200, True),
+            ("all_left", 65_537, FEATURES, BINS, "f32", BINS, True),
+            ("all_right", 65_537, FEATURES, BINS, "f32", -1, True),
+            # u16 rows of 16 bytes and of 18
+            ("u16", 70_001, 8, 300, "f32", 150, True),
+            ("u16_odd", 70_003, 9, 300, "f32", 150, True),
+            # the quantized path's rows: a 2-byte int8 (grad, hess) pair
+            ("root_int8", None, FEATURES, BINS, "int8", 127, True),
+            ("ragged_int8", 100_003, FEATURES, BINS, "int8", 200, True),
+            ("u16_int8", 70_001, 8, 300, "int8", 150, True),
+            ("u16_odd_int8", 70_003, 9, 300, "int8", 150, True),
+            ("root_none", None, FEATURES, BINS, "none", 127, True),
+            # exactly the resident capacity and one row past it
+            ("cap", "cap", FEATURES, BINS, "f32", 127, True),
+            ("cap+1", "cap+1", FEATURES, BINS, "f32", 127, True),
+            ("cap_int8", "cap", FEATURES, BINS, "int8", 127, True),
+            ("cap+1_int8", "cap+1", FEATURES, BINS, "int8", 127, True),
+            ("cap_none", "cap", FEATURES, BINS, "none", 127, False),
+            ("cap+1_none", "cap+1", FEATURES, BINS, "none", 127, False),
+            # all-left and all-right on the streaming path
+            ("stream_all_left", 1_000_003, FEATURES, BINS, "f32", BINS,
+             False),
+            ("stream_all_right", 1_000_003, FEATURES, BINS, "int8", -1,
+             False),
+            ("stream_all_left_none", 1_000_003, FEATURES, BINS, "none",
+             BINS, False),
+            ("resident_all_right_int8", 65_537, FEATURES, BINS, "int8", -1,
+             False),
+            ("resident_all_left_none", 65_537, FEATURES, BINS, "none", BINS,
+             False),
+            # u8 rows of 13 bytes (not a multiple of 4), both paths
+            ("u8_13", 70_001, 13, BINS, "none", 100, False),
+            ("u8_13_f32", 70_001, 13, BINS, "f32", 100, False),
+            ("u8_13_stream", 1_500_001, 13, BINS, "int8", 100, False),
+            # wide rows: 1000 u16 bins (2000 bytes), both paths
+            ("wide_u16", 5_001, 1000, 300, "f32", 150, False),
+            ("wide_u16_stream", 50_001, 1000, 300, "int8", 150, False),
+            ("wide_u16_stream_none", 40_001, 1000, 300, "none", 150, False))
+
+
+def _k2_case(torch, dev, gen, S, F, B, kind, thr, pad, nan_bin):
+    """One K2 case: window ``[pad, pad + S)`` of buffers of ``S + 2 * pad``
+    rows, kernel (twice) and plain on the same inputs; raises unless all
+    three agree bit for bit. Returns the inputs, a run closure and the
+    left count."""
     from lightgbm_tpu_torch.ops.partition import (partition_plain,
                                                   partition_window)
+    n = S + 2 * pad
+    rows, _ = _rand_window(torch, dev, n, F, B, gen)
+    pay = _k2_pay(torch, dev, n, kind, gen)
+    ids = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    outs = []
+    for fn in (partition_window, partition_window, partition_plain):
+        d = (torch.zeros_like(rows),
+             None if pay is None else torch.zeros_like(pay),
+             torch.zeros_like(ids))
+        nl = fn(rows, d[0], pay, d[1], ids, d[2], pad, S, 3, thr, True,
+                nan_bin)
+        outs.append((nl,) + d)
+    for k, what in ((0, "kernel != plain"), (1, "rerun != plain")):
+        if not all(b is None or torch.equal(a, b)
+                   for a, b in zip(outs[k], outs[2])):
+            raise AssertionError(f"K2 S={S} F={F} start={pad} payload="
+                                 f"{kind}: {what}")
+    d = outs[0][1:]
+
+    def run(fn):
+        return lambda: fn(rows, d[0], pay, d[1], ids, d[2], pad, S, 3, thr,
+                          True, nan_bin)
+    return rows, pay, run, int(outs[2][0].item())
+
+
+def _k2_ragged(torch, dev, gen):
+    """1 to 33 rows at odd starts, every payload: kernel, rerun and plain
+    equal."""
+    for kind in ("f32", "int8", "none"):
+        for cnt in range(1, 34):
+            _k2_case(torch, dev, gen, cnt, FEATURES, BINS, kind, 127,
+                     2 * cnt * cnt + 1, -1)
+    log("[k2] ragged: 1 to 33 rows at odd starts, f32/int8/no payload: "
+        "kernel = rerun = plain")
+
+
+def _k2_route_pair(torch, dev, gen):
+    """The JAX kernel's (L, R) contract through the kernel: route_pair on
+    K = 4096, NC = 3 (13-byte rows) equals the same call with the plain
+    version forced."""
+    from lightgbm_tpu_torch.ops.histogram import plain_kernels
+    from lightgbm_tpu_torch.ops.partition import route_pair
+    A = torch.randint(-2 ** 31, 2 ** 31 - 1, (3, 4096), generator=gen,
+                      device=dev, dtype=torch.int64).to(torch.int32)
+    r = torch.rand(4096, generator=gen, device=dev)
+    ml, mr = r < 0.35, (r >= 0.35) & (r < 0.9)
+    L, R = route_pair(A, ml, mr)
+    with plain_kernels():
+        Lp, Rp = route_pair(A, ml, mr)
+    if not (torch.equal(L, Lp) and torch.equal(R, Rp)):
+        raise AssertionError("K2 route_pair: kernel != plain")
+    lc, rc = int(ml.sum()), int(mr.sum())
+    if not (torch.equal(L[:, :lc], A[:, ml])
+            and torch.equal(R[:, 4096 - rc:], A[:, mr])):
+        raise AssertionError("K2 route_pair: (L, R) contract broken")
+    log(f"[k2] route_pair K=4096 NC=3 (13-byte rows): kernel = plain, "
+        f"n_left={lc}, n_right={rc}")
+
+
+def _alt_plan(cnt, F, bin_bytes, pay_bytes, sms, path, rows, stages,
+              threads):
+    """A plan other than partition_plan's, for timing the alternatives."""
+    from lightgbm_tpu_torch.ops.partition import (PartitionPlan, _per_sm,
+                                                  smem_bytes)
+    smem = smem_bytes(rows, F, bin_bytes, pay_bytes, stages)
+    tiles = -(-cnt // rows)
+    per_sm = _per_sm(threads, smem)
+    if path == "resident":
+        return PartitionPlan(path, tiles, rows, 1, tiles, threads, per_sm,
+                             smem)
+    return PartitionPlan(path, min(tiles, per_sm * sms), rows, stages,
+                         tiles, threads, per_sm, smem)
+
+
+def phase_k2(torch, dev, root_rows, reps):
+    """K2 against its plain version, exact, with a bit-identical rerun, on
+    both paths and every payload (K2_CASES, the ragged windows and
+    route_pair); the main path's windows timed; then the rejected
+    alternatives to the chosen plans, timed beside them."""
+    from lightgbm_tpu_torch.ops.partition import (partition_plain,
+                                                  partition_plan,
+                                                  partition_window,
+                                                  resident_capacity)
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     shapes = []
-    F, B = FEATURES, BINS
-    cases = (("root", root_rows, 127, F, B), ("mid", 100_000, 90, F, B),
-             ("ragged", 100_003, 200, F, B), ("all_left", 65_537, B, F, B),
-             ("all_right", 65_537, -1, F, B),
-             # u16 rows of 16 bytes (copied by words) and of 18 (by
-             # elements)
-             ("u16", 70_001, 150, 8, 300), ("u16_odd", 70_003, 150, 9, 300),
-             # the quantized path's rows: a 2-byte int8 (grad, hess) pair
-             ("root_int8", root_rows, 127, F, B),
-             ("ragged_int8", 100_003, 200, F, B),
-             ("u16_int8", 70_001, 150, 8, 300),
-             ("u16_odd_int8", 70_003, 150, 9, 300))
-    for label, S, thr, F, B in cases:
+    paths = set()
+    for label, S, F, B, kind, thr, timed in K2_CASES:
+        pb = {"f32": 8, "int8": 2, "none": 0}[kind]
+        bb = 1 if B <= 256 else 2
+        cap = resident_capacity(F, bb, pb, sms)
+        S = {None: root_rows, "cap": cap, "cap+1": cap + 1}.get(S, S)
         pad = 1000  # the window sits inside larger buffers
-        n = S + 2 * pad
-        rows, pay = _rand_window(torch, dev, n, F, B, gen)
-        if label.endswith("_int8"):
-            pay = _quant_pay(torch, dev, n, gen)
-        ids = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
         nan_bin = 7 if label == "mid" else -1
-        outs = []
-        for fn in (partition_window, partition_plain):
-            d_r = torch.zeros_like(rows)
-            d_p = torch.zeros_like(pay)
-            d_i = torch.zeros_like(ids)
-            nl = fn(rows, d_r, pay, d_p, ids, d_i, pad, S, 3, thr, True,
-                    nan_bin)
-            outs.append((nl, d_r, d_p, d_i))
-        (nk, rk, pk, ik), (np_, rp, pp, ip) = outs
-        if not (torch.equal(nk, np_) and torch.equal(rk, rp)
-                and torch.equal(pk, pp) and torch.equal(ik, ip)):
-            raise AssertionError(f"K2 {label}: kernel != plain")
-        nl = int(nk.item())
-        want = {"all_left": S, "all_right": 0}.get(label)
+        rows, pay, run, nl = _k2_case(torch, dev, gen, S, F, B, kind, thr,
+                                      pad, nan_bin)
+        plan = partition_plan(S, F, bb, pb, sms)
+        paths.add((plan.path, kind))
+        want = S if "all_left" in label else 0 if "all_right" in label \
+            else None
         if want is not None and nl != want:
             raise AssertionError(f"K2 {label}: n_left={nl}, want {want}")
-        d_r, d_p, d_i = torch.empty_like(rows), torch.empty_like(pay), \
-            torch.empty_like(ids)
+        msg = (f"[k2] {label} S={S} F={F} {rows.dtype} payload={kind} "
+               f"n_left={nl} plan: {_plan_str(plan)}; kernel = rerun = "
+               "plain")
+        if timed:
+            ms, method = timed_ms(run(partition_window), reps, torch, S)
+            plain_ms, _ = timed_ms(run(partition_plain), reps, torch, S)
+            bound_ms = _k2_bound(S, F, bb, pb)
+            shapes.append(dict(shape=label, rows=S, features=F, payload=kind,
+                               n_left=nl, path=plan.path,
+                               plan=plan._asdict(), max_abs_err=0.0, ms=ms,
+                               method=method, plain_ms=plain_ms,
+                               library_ms=None, bound_ms=bound_ms,
+                               bound_by="bytes"))
+            msg += (f"; ms={ms:.5f} ({method}) plain_ms={plain_ms:.5f} "
+                    f"bound_ms={bound_ms:.5f}")
+        log(msg)
+        del rows, pay, run
+    want_paths = {(p, k) for p in ("resident", "stream")
+                  for k in ("f32", "int8", "none")}
+    if not want_paths <= paths:
+        raise AssertionError(f"K2 cases missed {want_paths - paths}")
+    _k2_ragged(torch, dev, gen)
+    _k2_route_pair(torch, dev, gen)
+    return shapes, phase_k2_alternatives(torch, dev, gen, root_rows, reps,
+                                         sms)
 
-        def run(fn):
-            return lambda: fn(rows, d_r, pay, d_p, ids, d_i, pad, S, 3, thr,
-                              True, nan_bin)
 
-        ms, method = timed_ms(run(partition_window), reps, torch, S)
-        plain_ms, _ = timed_ms(run(partition_plain), reps, torch, S)
-        nbytes = 2 * S * (F * rows.element_size() + 2 * pay.element_size()
-                          + 4)
-        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-        shapes.append(dict(shape=label, rows=S, features=F,
-                           payload=str(pay.dtype).replace("torch.", ""),
-                           n_left=nl,
-                           max_abs_err=0.0, ms=ms, method=method,
-                           plain_ms=plain_ms, library_ms=None,
-                           bound_ms=bound_ms, bound_by="bytes"))
-        log(f"[k2] {label} S={S} n_left={nl} ms={ms:.5f} ({method}) "
-            f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.5f} exact")
-        del rows, pay, ids, d_r, d_p, d_i, outs
-    return shapes
+def phase_k2_alternatives(torch, dev, gen, root_rows, reps, sms):
+    """The plans partition_plan rejects, each timed beside the chosen one
+    in this call and held to the plain version: at the root, the
+    streaming path's other tile sizes and ring depths; at the resident
+    capacity and at 100k rows, the streaming path instead of the
+    resident one, and fewer threads; at 10k rows, resident slices of
+    other sizes and threads. Each alternative is (path, rows or None for
+    the chosen plan's, stages, threads)."""
+    from lightgbm_tpu_torch.ops.partition import (_launch, partition_plain,
+                                                  partition_plan,
+                                                  resident_capacity)
+    out = []
+    for label, S, kind, alts in (
+            ("root", root_rows, "f32", (("stream", 1024, 2, 512),
+                                        ("stream", 1536, 3, 512),
+                                        ("stream", 2048, 2, 256))),
+            ("root_int8", root_rows, "int8", (("stream", 1024, 2, 512),
+                                              ("stream", 2048, 3, 512))),
+            ("cap", "cap", "f32", (("stream", 2048, 2, 512),
+                                   ("resident", None, 1, 256))),
+            ("100k", 100_000, "f32", (("stream", 2048, 2, 512),
+                                      ("resident", None, 1, 256))),
+            ("10k", 10_007, "f32", (("resident", 251, 1, 256),
+                                    ("resident", 127, 1, 512)))):
+        pb = 8 if kind == "f32" else 2
+        if S == "cap":
+            S = resident_capacity(FEATURES, 1, pb, sms)
+        rows, _ = _rand_window(torch, dev, S, FEATURES, BINS, gen)
+        pay = _k2_pay(torch, dev, S, kind, gen)
+        ids = torch.arange(S, device=dev, dtype=torch.int32)
+        d = (torch.empty_like(rows), torch.empty_like(pay),
+             torch.empty_like(ids))
+        p = (torch.empty_like(rows), torch.empty_like(pay),
+             torch.empty_like(ids))
+        nl_p = partition_plain(rows, p[0], pay, p[1], ids, p[2], 0, S, 3,
+                               127, True, -1)
+        chosen = partition_plan(S, FEATURES, 1, pb, sms)
+        plans = [("chosen", chosen)] + [
+            ("alt", _alt_plan(S, FEATURES, 1, pb, sms, path,
+                              r or chosen.rows, st, th))
+            for path, r, st, th in alts]
+        for tag, plan in plans:
+            def call(plan=plan):
+                return _launch(rows, d[0], pay, d[1], ids, d[2], 0, S, 3,
+                               127, True, -1, plan)
+            nl = call()
+            if not (torch.equal(nl, nl_p) and all(
+                    torch.equal(a, b) for a, b in zip(d, p))):
+                raise AssertionError(f"K2 alternative {_plan_str(plan)}: "
+                                     "!= plain")
+            ms, method = timed_ms(call, reps, torch, S)
+            out.append(dict(window=label, rows=S, payload=kind, choice=tag,
+                            plan=plan._asdict(), ms=ms, method=method))
+            log(f"[k2_alt] {label} S={S} payload={kind} {tag:6s} "
+                f"{_plan_str(plan)}: ms={ms:.5f} ({method}); = plain")
+        del rows, pay, ids, d, p
+    return out
+
+
+def replay_splits(tree, used, nan_bins):
+    """The partitions of a trained tree as the grower made them, in node
+    (split) order: node i's window ``[begin, begin + cnt)`` of the
+    partitioned row order in buffer ``src`` (its depth's parity: the root
+    reads buffer 0 and writes buffer 1), its inner feature, threshold bin,
+    default direction and NaN bin, and the tree's left-child count. A
+    child's node index is above its parent's, so parents come first."""
+    inner = {int(r): i for i, r in enumerate(used)}
+
+    def count(c):
+        return int(tree.internal_count[c]) if c >= 0 \
+            else int(tree.leaf_count[~c])
+    begin, depth, out = {0: 0}, {0: 0}, []
+    for i in range(tree.num_leaves - 1):
+        lc, rc = int(tree.left_child[i]), int(tree.right_child[i])
+        nl = count(lc)
+        for c, b in ((lc, begin[i]), (rc, begin[i] + nl)):
+            if c >= 0:
+                begin[c], depth[c] = b, depth[i] + 1
+        f = inner[int(tree.split_feature[i])]
+        out.append(dict(src=depth[i] % 2, begin=begin[i], cnt=count(i), f=f,
+                        t=int(tree.threshold_bin[i]),
+                        dl=bool(int(tree.decision_type[i]) & 2),
+                        nan_bin=int(nan_bins[f]), n_left=nl))
+    return out
+
+
+# the replay's window-size buckets (rows)
+K2_BUCKETS = ((">2M", 2_000_000, None), ("750k-2M", 750_000, 2_000_000),
+              ("90k-750k", 90_000, 750_000), ("<90k", 0, 90_000))
+# a sleep kernel of this many cycles (~0.1 s) holds the stream while the
+# host enqueues a whole replay, so CUDA events between its windows time
+# the device alone
+SLEEP_CYCLES = 200_000_000
+
+
+def load_parent(path):
+    """Another copy of the port's package (the parent commit's, for a
+    before/after), imported under another name; it builds its own
+    ``csrc/`` into its own ``_build/``. Returns a function that imports
+    one of its modules (``"ops.histogram"``, ``"ops.partition"``)."""
+    import importlib
+    import importlib.util
+    name = "port_parent_pkg"
+    path = os.path.abspath(path)
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(path, "__init__.py"),
+        submodule_search_locations=[path])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return lambda module: importlib.import_module(f"{name}.{module}")
+
+
+def phase_k2_turns(torch, dev, bins, tree, used, nan_bins, reps,
+                   parent=None):
+    """K2 as the main path sees it: the first trained tree's partitions
+    (:func:`replay_splits`) replayed on the training data's device bins
+    through the grower's ping-pong buffers, with f32 and int8 payloads
+    and row ids. Every n_left must equal the tree's left-child count and
+    the final buffers those of the same replay with the plain version.
+    Recorded per payload: device ms per tree (torch.profiler, by kernel,
+    kernels counted), the calls, the bound, ms per window-size bucket
+    (CUDA events between the windows of one replay, enqueued behind a
+    sleep kernel), and the root and a 100k-row window alone. With
+    ``parent`` (the parent commit's partition module) in turns: parent,
+    change, change, parent."""
+    from lightgbm_tpu_torch.ops.histogram import plain_kernels
+    from lightgbm_tpu_torch.ops.partition import partition_window
+    splits = replay_splits(tree, used, nan_bins)
+    want = [sp["n_left"] for sp in splits]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    n, F = bins.shape
+    bb = bins.element_size()
+    impls = [("change", partition_window)]
+    if parent is not None:
+        impls = [("parent", parent.partition_window),
+                 ("change", partition_window),
+                 ("change", partition_window),
+                 ("parent", parent.partition_window)]
+    pays = {"f32": _k2_pay(torch, dev, n, "f32", gen),
+            "int8": _k2_pay(torch, dev, n, "int8", gen)}
+    ids0 = torch.arange(n, device=dev, dtype=torch.int32)
+
+    def fresh(pay):
+        return [(bins.clone(), pay.clone(), ids0.clone()),
+                (torch.zeros_like(bins), torch.zeros_like(pay),
+                 torch.zeros_like(ids0))]
+
+    def reset(bufs, pay):
+        """The tree's first state: buffer 0 the training rows in order
+        (buffer 1 is written before it is read)."""
+        for a, b in zip(bufs[0], (bins, pay, ids0)):
+            a.copy_(b)
+
+    def replay(pw, bufs, nls, after=lambda: None):
+        for sp in splits:
+            s, d = bufs[sp["src"]], bufs[1 - sp["src"]]
+            nls.append(pw(s[0], d[0], s[1], d[1], s[2], d[2], sp["begin"],
+                          sp["cnt"], sp["f"], sp["t"], sp["dl"],
+                          sp["nan_bin"]))
+            after()
+
+    def run(pw, bufs, pay, nls):
+        reset(bufs, pay)
+        replay(pw, bufs, nls)
+
+    def check_nls(nls, tag):
+        got = torch.cat(nls).cpu().tolist()
+        for j in range(0, len(got), len(want)):
+            if got[j:j + len(want)] != want:
+                raise AssertionError(f"K2 replay {tag}: n_left != the "
+                                     "tree's left-child counts")
+
+    def bucket_of(cnt):
+        return next(b for b, lo, hi in K2_BUCKETS
+                    if cnt > lo and (hi is None or cnt <= hi))
+    turns = []
+    for kind, pay in pays.items():
+        pb = 2 * pay.element_size()
+        ref = fresh(pay)
+        with plain_kernels():
+            nls = []
+            run(partition_window, ref, pay, nls)
+        check_nls(nls, f"plain {kind}")
+        bound = {b: 0.0 for b, _, _ in K2_BUCKETS}
+        for sp in splits:
+            bound[bucket_of(sp["cnt"])] += _k2_bound(sp["cnt"], F, bb, pb)
+        for name, pw in impls:
+            bufs = fresh(pay)
+            nls = []
+            run(pw, bufs, pay, nls)
+            if not all(torch.equal(a, b) for x, y in zip(bufs, ref)
+                       for a, b in zip(x, y)):
+                raise AssertionError(f"K2 replay {name} {kind}: final "
+                                     "buffers != the plain replay's")
+            t = dict(impl=name, payload=kind, splits=len(splits))
+            pw.launches = 0
+            kernels0 = getattr(pw, "kernels", 0)
+            run(pw, bufs, pay, nls)
+            t["calls"] = pw.launches
+            # kernels per replay: the wrapper's count (the parent's K2
+            # launches three per call: count, scan, scatter)
+            per_replay = pw.kernels - kernels0 if hasattr(pw, "kernels") \
+                else 3 * pw.launches
+            # device time by kernel; the resets' copies are not K2's
+            by_kernel, counts = {}, {}
+            profiled_ms(lambda: run(pw, bufs, pay, nls), 3, torch,
+                        by_kernel, counts, expect=per_replay)
+            mine = [k for k in by_kernel if not k.startswith("Memcpy")]
+            t["replay_ms"] = sum(by_kernel[k] for k in mine)
+            t["kernels"] = sum(counts[k] for k in mine)
+            t["replay_by_kernel"] = {k[:60]: by_kernel[k] for k in sorted(
+                mine, key=lambda k: -by_kernel[k])}
+            t["replay_bound_ms"] = sum(bound.values())
+            # per window: CUDA events between the windows, all enqueued
+            # behind a sleep kernel
+            ev = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(len(splits) + 2)]
+            it = iter(ev[2:])
+            reset(bufs, pay)
+            torch.cuda.synchronize()
+            ev[0].record()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            ev[1].record()
+            h0 = time.perf_counter()
+            replay(pw, bufs, nls, lambda: next(it).record())
+            host_ms = 1e3 * (time.perf_counter() - h0)
+            torch.cuda.synchronize()
+            if ev[0].elapsed_time(ev[1]) < host_ms:
+                raise AssertionError("the sleep kernel ended before the "
+                                     "host had enqueued the replay")
+            per = [ev[j + 1].elapsed_time(ev[j + 2])
+                   for j in range(len(splits))]
+            t["events_ms"] = sum(per)
+            t["buckets"] = {
+                b: dict(windows=sum(1 for sp in splits
+                                    if bucket_of(sp["cnt"]) == b),
+                        rows=sum(sp["cnt"] for sp in splits
+                                 if bucket_of(sp["cnt"]) == b),
+                        ms=sum(ms for ms, sp in zip(per, splits)
+                               if bucket_of(sp["cnt"]) == b),
+                        bound_ms=bound[b])
+                for b, _, _ in K2_BUCKETS}
+            check_nls(nls, f"{name} {kind}")
+            # the root, and a 100k-row window, alone, from the first state
+            reset(bufs, pay)
+            s, d = bufs[0], bufs[1]
+            sp = splits[0]
+            t["root_ms"] = events_ms(
+                lambda: pw(s[0], d[0], s[1], d[1], s[2], d[2], 0, n, sp["f"],
+                           sp["t"], sp["dl"], sp["nan_bin"]), reps, torch)
+            t["100k_ms"] = profiled_ms(
+                lambda: pw(s[0], d[0], s[1], d[1], s[2], d[2], 0,
+                           min(n, 100_000), sp["f"], sp["t"], sp["dl"],
+                           sp["nan_bin"]),
+                reps, torch)
+            turns.append(t)
+            log(f"[k2_turns] {name:6s} {kind:4s} root={t['root_ms']:.5f} "
+                f"(events) 100k={t['100k_ms']:.5f} (profiler) replay="
+                f"{t['replay_ms']:.4f} ms (profiler) for {len(splits)} "
+                f"splits, {t['calls']} calls, {t['kernels']} kernels "
+                f"(bound {t['replay_bound_ms']:.4f}); events "
+                f"{t['events_ms']:.4f}; by bucket: " + "; ".join(
+                    f"{b} {v['windows']}w {v['rows']}r {v['ms']:.4f} "
+                    f"(bound {v['bound_ms']:.4f})"
+                    for b, v in t["buckets"].items())
+                + "; by kernel: " + "; ".join(
+                    f"{k} {v:.4f}" for k, v in
+                    t["replay_by_kernel"].items()))
+            del bufs
+        del ref
+    log("[k2_turns] every n_left equals the tree's left-child count; "
+        "final buffers equal the plain replay's (both payloads)")
+    return turns
 
 
 def _reset_counts():
@@ -626,6 +1096,7 @@ def _reset_counts():
     window_hist.launches = 0
     window_hist.int_launches = 0
     partition_window.launches = 0
+    partition_window.kernels = 0
 
 
 def _read_counts():
@@ -633,7 +1104,8 @@ def _read_counts():
     from lightgbm_tpu_torch.ops.partition import partition_window
     return dict(hist=window_hist.launches,
                 hist_int=window_hist.int_launches,
-                partition=partition_window.launches)
+                partition=partition_window.launches,
+                partition_kernels=partition_window.kernels)
 
 
 def _drive(torch, lgb, dev, params, ds, Xv, yv, iters, tag):
@@ -732,6 +1204,9 @@ def _same_structure(a, b):
 
 
 def phase_train(torch, lgb, dev, n_train, iters, reps, parent):
+    """The main path at the Higgs shape (float gradients); then K1 and K2
+    in turns on its data and its first tree. ``parent``: a loader of the
+    parent commit's modules (:func:`load_parent`) or None."""
     t0 = time.perf_counter()
     X, y = make_higgs_like(n_train + VALID_ROWS, FEATURES)
     Xt, yt, Xv, yv = X[:n_train], y[:n_train], X[n_train:], y[n_train:]
@@ -749,9 +1224,13 @@ def phase_train(torch, lgb, dev, n_train, iters, reps, parent):
     log(f"[train] construct_s={construct_s:.3f}")
     r = _drive(torch, lgb, dev, params, ds, Xv, yv, iters, "train")
     _check_counts("train", r["counts"], r["leaves"], "hist")
-    wins = replay_windows(r["bst"]._models[0])
+    tree = r["bst"]._models[0]
+    wins = replay_windows(tree)
     turns = phase_k1_turns(torch, dev, ds.device_bins(), wins, reps,
-                           parent)
+                           parent and parent("ops.histogram"))
+    k2_turns = phase_k2_turns(torch, dev, ds.device_bins(), tree,
+                              ds.used_feature_indices(), ds.feat_nan_bin(),
+                              reps, parent and parent("ops.partition"))
     prof = profile_iteration(torch, r["bst"])
 
     # the same 6 iterations with both kernels' plain versions forced
@@ -766,7 +1245,7 @@ def phase_train(torch, lgb, dev, n_train, iters, reps, parent):
                              "the plain run's")
     del r["bst"], bst_p
     return dict(r, auc_plain=auc_p, construct_s=construct_s, profile=prof,
-                ds=ds, Xv=Xv, yv=yv, turns=turns)
+                ds=ds, Xv=Xv, yv=yv, turns=turns, k2_turns=k2_turns)
 
 
 def phase_train_quant(torch, lgb, dev, tr, iters):
@@ -886,23 +1365,6 @@ def window_rows(win):
     return cnt if side == 0 else min(nl, cnt - nl)
 
 
-def load_parent_hist(path):
-    """``ops/histogram.py`` of another copy of the port's package (the
-    parent commit's, for a before/after), imported under another name;
-    it builds its own ``csrc/hist.cu`` into its own ``_build/``."""
-    import importlib
-    import importlib.util
-    name = "k1_parent_pkg"
-    path = os.path.abspath(path)
-    spec = importlib.util.spec_from_file_location(
-        name, os.path.join(path, "__init__.py"),
-        submodule_search_locations=[path])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[name] = mod
-    spec.loader.exec_module(mod)
-    return importlib.import_module(name + ".ops.histogram")
-
-
 def phase_k1_turns(torch, dev, bins, wins, reps, parent=None):
     """K1 as the main path sees it, on the training data's device bins:
     the root window (CUDA events), the ladder's smaller windows and the
@@ -935,7 +1397,9 @@ def phase_k1_turns(torch, dev, bins, wins, reps, parent=None):
     for name, wh in impls:
         for path, pay, hpay, ops in (("float", fpay, hot_f, FP32_OPS_PER_S),
                                      ("int", ipay, hot_i, INT32_OPS_PER_S)):
-            new_float = name == "change" and path == "float"
+            # the tree's one amax, where the wrapper takes it
+            new_float = path == "float" and \
+                "pay_absmax" in inspect.signature(wh).parameters
 
             def call(rows, p, S, am=None):
                 kw = {"pay_absmax": am} if new_float else {}
@@ -1065,7 +1529,8 @@ def main(argv=None):
                     help="launches per kernel timing")
     ap.add_argument("--parent", default=None,
                     help="a copy of the parent commit's lightgbm_tpu_torch "
-                         "package: time its K1 beside this one's in turns")
+                         "package: time its K1 and K2 beside this one's in "
+                         "turns")
     args = ap.parse_args(argv)
 
     import torch
@@ -1089,8 +1554,8 @@ def main(argv=None):
     k1 = phase_k1(torch, dev, args.rows, args.reps)
     k1i = phase_k1_int(torch, dev, args.rows, args.reps)
     phase_k1_ragged(torch, dev)
-    k2 = phase_k2(torch, dev, args.rows, args.reps)
-    parent = load_parent_hist(args.parent) if args.parent else None
+    k2, k2_alt = phase_k2(torch, dev, args.rows, args.reps)
+    parent = load_parent(args.parent) if args.parent else None
     tr = phase_train(torch, lgb, dev, args.rows, args.iters, args.reps,
                      parent)
     turns = tr["turns"]
@@ -1133,6 +1598,23 @@ def main(argv=None):
     def launches(key):
         return {"train": tr["counts"][key], "train_quant": trq["counts"][key]}
 
+    part = entry("partition", "lightgbm_tpu_torch/csrc/partition.cu",
+                 "lightgbm_tpu/ops/partition_kernel.py:97",
+                 launches("partition"), k2)
+    # launches: the wrapper's calls; kernel_launches: the kernels they
+    # launched (one on the resident path, two on the streaming path)
+    part["kernel_launches"] = launches("partition_kernels")
+    change = [t for t in tr["k2_turns"] if t["impl"] == "change"]
+    part["replay"] = {kind: dict(
+        splits=mine[0]["splits"], calls=mine[0]["calls"],
+        kernels=mine[0]["kernels"],
+        device_ms=statistics.mean(t["replay_ms"] for t in mine),
+        bound_ms=mine[0]["replay_bound_ms"], method="profiler",
+        buckets=mine[0]["buckets"])
+        for kind in ("f32", "int8")
+        for mine in [[t for t in change if t["payload"] == kind]]}
+    part["turns"] = tr["k2_turns"]
+    part["alternatives"] = k2_alt
     print(json.dumps({"kernels": [
         entry("hist", "lightgbm_tpu_torch/csrc/hist.cu",
               "lightgbm_tpu/ops/pallas_hist.py:145", launches("hist"), k1,
@@ -1140,9 +1622,7 @@ def main(argv=None):
         entry("hist_int", "lightgbm_tpu_torch/csrc/hist.cu",
               "lightgbm_tpu/ops/pallas_hist.py:196", launches("hist_int"),
               k1i, "int"),
-        entry("partition", "lightgbm_tpu_torch/csrc/partition.cu",
-              "lightgbm_tpu/ops/partition_kernel.py:97",
-              launches("partition"), k2),
+        part,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

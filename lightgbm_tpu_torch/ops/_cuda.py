@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, into
 ``lightgbm_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded with
-``ctypes``. The library's file name carries a hash of its source, so an
-edited kernel is rebuilt. Nothing here runs when the module is imported:
-the CPU tests import every module of the port and have no ``nvcc``.
+``ctypes``. The library's file name carries a hash of its source and of
+the shared headers (``csrc/*.cuh``), so an edited kernel is rebuilt.
+Nothing here runs when the module is imported: the CPU tests import every
+module of the port and have no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -39,9 +40,12 @@ KERNELS: Dict[str, Dict[str, tuple]] = {
         "hist_smem_bytes": (_I, [_I, _I, _I, _I, _I, _I, _I]),
     },
     "partition": {
-        "partition_tile_rows": (_I, []),
         "partition_window": (_I, [_P, _P, _I, _P, _P, _I, _P, _P, _L, _I,
-                                  _I, _I, _I, _I, _P, _I, _P, _P]),
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _L, _I,
+                                  _I, _P, _P, _P, _P]),
+        "partition_smem_bytes": (_I, [_I, _I, _I, _I, _I]),
+        "partition_occupancy": (_I, [_I, _I, _I, _I]),
+        "partition_cooperative": (_I, [_I]),
     },
 }
 
@@ -63,7 +67,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    src = (SRC_DIR / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(ARCH_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

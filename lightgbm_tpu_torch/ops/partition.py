@@ -15,23 +15,59 @@ grower (``ops/grow.py`` ``part_apply``).
   the window's left count as a one-element int32 tensor on the device
   (no read-back). On a CUDA tensor it launches ``csrc/partition.cu``
   (or raises); on a CPU tensor it runs :func:`partition_plain`.
+- :func:`partition_plan` — the kernel's path and launch for a window:
+  resident (one cooperative launch, the window held in the blocks'
+  shared memory) up to the card's capacity, streaming (a column pass
+  and a move pass) above it.
 - :func:`route_pair` — the JAX kernel's ``(L, R)`` contract over a
   stacked ``[NC, K]`` int32 matrix, through the same kernel.
 
-``partition_window.launches`` counts the kernel launches.
+``partition_window.launches`` counts the calls that launched the kernel,
+``partition_window.kernels`` the kernels they launched (one on the
+resident path, two on the streaming path).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _cuda
-from .histogram import _Force
+from .histogram import SMEM_BLOCK, SMEM_RESERVED, SMEM_SM, THREADS_SM, \
+    _Force, _num_sms
 
-__all__ = ["partition_window", "partition_plain", "route_pair",
-           "go_left"]
+__all__ = ["partition_window", "partition_plain", "partition_plan",
+           "resident_capacity", "smem_bytes", "PartitionPlan",
+           "route_pair", "go_left"]
+
+# the plan's constants (csrc/partition.cu; chosen by timing plans on an
+# H100, PERF.md): threads per block, SMALL_THREADS for resident slices of
+# fewer than SMALL_ROWS rows; rows per resident block at least, so that a
+# small window takes few blocks; the streaming path's rows per tile at
+# most and its ring depth
+THREADS = 512
+SMALL_THREADS = 256
+SMALL_ROWS = 512
+MIN_BLOCK_ROWS = 128
+TILE_ROWS = 2048
+STAGES = 2
+MAX_ROWS = 65535          # rows per block or tile (u16 ranks)
+ID_BYTES = 4              # a row id; always budgeted in shared memory
+REGS_SM = 65536           # 32-bit registers of one SM
+REGS_THREAD = 64          # what __launch_bounds__(512, 2) lets a thread use
+
+
+class PartitionPlan(NamedTuple):
+    path: str        # "resident" (one launch) or "stream" (two)
+    nblocks: int     # resident: blocks, a slice each; stream: move blocks
+    rows: int        # rows per slice (resident) or per tile (stream)
+    stages: int      # tile buffers in the move pass's ring (resident 1)
+    tiles: int       # stream: tiles, a column-pass block each
+    threads: int
+    per_sm: int      # blocks one SM holds at once at this shared memory
+    smem: int        # dynamic shared memory per block, bytes
 
 
 def go_left(col: torch.Tensor, t: int, dl: bool, nan_bin: int):
@@ -63,6 +99,87 @@ def partition_plain(bins_src, bins_dst, pay_src, pay_dst, ids_src,
     if ids_src is not None:
         ids_dst[sl] = ids_src[sl][order]
     return gl.sum().to(torch.int32).reshape(1)
+
+
+def _up(x: int) -> int:
+    return -(-x // 128) * 128
+
+
+def smem_bytes(rows: int, F: int, bin_bytes: int, pay_bytes: int,
+               stages: int) -> int:
+    """Dynamic shared memory of one block; mirrors ``layout()`` in
+    ``csrc/partition.cu``: ``stages`` buffers of (bins, payload, ids)
+    slots with 16 bytes of slack each, the u16 rank table, the scan's
+    ints and the barriers."""
+    stage = _up(rows * F * bin_bytes + 16) \
+        + (_up(rows * pay_bytes + 16) if pay_bytes else 0) \
+        + _up(rows * ID_BYTES + 16)
+    return stages * stage + _up(rows * 2) + 256 + 128
+
+
+@functools.lru_cache(maxsize=256)
+def _max_rows(F, bin_bytes, pay_bytes, stages, limit):
+    """The most rows (up to MAX_ROWS) whose ``stages`` buffers fit one
+    block's shared memory; 0 if not even one row does."""
+    per_row = stages * (F * bin_bytes + pay_bytes + ID_BYTES) + 2
+    r = min(MAX_ROWS, max(0, limit // per_row))
+    while r > 0 and smem_bytes(r, F, bin_bytes, pay_bytes, stages) > limit:
+        r -= 1
+    return r
+
+
+def _per_sm(threads, smem):
+    """Blocks one SM holds at once: by threads, registers at the
+    kernels' launch bound, and shared memory."""
+    return min(THREADS_SM // threads, REGS_SM // (threads * REGS_THREAD),
+               SMEM_SM // (smem + SMEM_RESERVED))
+
+
+def resident_capacity(F: int, bin_bytes: int, pay_bytes: int,
+                      num_sms: int, smem_limit: int = SMEM_BLOCK) -> int:
+    """The most rows the resident path takes: one block per SM, each
+    holding as many rows as fit its shared memory."""
+    return num_sms * _max_rows(F, bin_bytes, pay_bytes, 1, smem_limit)
+
+
+def partition_plan(cnt: int, F: int, bin_bytes: int, pay_bytes: int,
+                   num_sms: int,
+                   smem_limit: int = SMEM_BLOCK) -> PartitionPlan:
+    """K2's path and launch for a window of ``cnt >= 1`` rows of ``F``
+    bins of ``bin_bytes`` bytes and ``pay_bytes`` of payload (8, 2 or 0;
+    a row id is always budgeted).
+
+    Up to :func:`resident_capacity` rows, the resident path: at most one
+    block per SM, each holding a slice of at least ``MIN_BLOCK_ROWS`` rows
+    where the row width allows it (small windows take fewer blocks, down
+    to one), of ``THREADS`` threads (``SMALL_THREADS`` for a slice of
+    fewer than ``SMALL_ROWS`` rows). Above it, the streaming path: tiles
+    of up to ``TILE_ROWS`` rows (fewer where ``STAGES`` of them do not
+    fit), one column-pass block per tile, and as many move-pass blocks
+    as the card holds at once, each taking an equal run of tiles. Raises ``ValueError`` for a
+    row that does not fit twice in one block's shared memory."""
+    if cnt < 1 or cnt > 2 ** 31 - 1:
+        raise ValueError(f"K2 takes windows of 1 to 2^31 - 1 rows, not {cnt}")
+    if _max_rows(F, bin_bytes, pay_bytes, STAGES, smem_limit) < 1:
+        raise ValueError(f"rows of {F} x {bin_bytes}-byte bins are too wide "
+                         "for K2's shared-memory staging")
+    rmax = _max_rows(F, bin_bytes, pay_bytes, 1, smem_limit)
+    if cnt <= resident_capacity(F, bin_bytes, pay_bytes, num_sms,
+                                smem_limit):
+        nb = min(num_sms, max(-(-cnt // MIN_BLOCK_ROWS), -(-cnt // rmax)))
+        rows = -(-cnt // nb)
+        nb = -(-cnt // rows)
+        smem = smem_bytes(rows, F, bin_bytes, pay_bytes, 1)
+        threads = SMALL_THREADS if rows < SMALL_ROWS else THREADS
+        return PartitionPlan("resident", nb, rows, 1, nb, threads,
+                             _per_sm(threads, smem), smem)
+    rows = min(TILE_ROWS, _max_rows(F, bin_bytes, pay_bytes, STAGES,
+                                    smem_limit))
+    smem = smem_bytes(rows, F, bin_bytes, pay_bytes, STAGES)
+    tiles = -(-cnt // rows)
+    per_sm = _per_sm(THREADS, smem)
+    return PartitionPlan("stream", min(tiles, per_sm * num_sms), rows,
+                         STAGES, tiles, THREADS, per_sm, smem)
 
 
 def _check(bins_src, bins_dst, pay_src, pay_dst, ids_src, ids_dst):
@@ -114,12 +231,49 @@ def partition_window(bins_src: torch.Tensor, bins_dst: torch.Tensor,
                                nan_bin)
     if dev.type != "cuda":
         raise ValueError(f"no partition kernel for device {dev}")
+    if cnt == 0:
+        return torch.zeros((1,), dtype=torch.int32, device=dev)
+    pay_bytes = 0 if pay_src is None else 2 * pay_src.element_size()
+    plan = partition_plan(cnt, F, bins_src.element_size(), pay_bytes,
+                          _num_sms(dev))
+    return _launch(bins_src, bins_dst, pay_src, pay_dst, ids_src, ids_dst,
+                   begin, cnt, f, t, dl, nan_bin, plan)
+
+
+# per CUDA device: the resident path's block counts and the streaming
+# path's tile status words (zeroed once here, left zeroed by every call)
+_scratch: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+_cooperative: Dict[int, bool] = {}
+
+
+def _scratch_for(dev: torch.device, name: str, n: int, dtype):
+    bufs = _scratch.setdefault(dev, {})
+    buf = bufs.get(name)
+    if buf is None or buf.numel() < n:
+        buf = bufs[name] = torch.zeros((n,), dtype=dtype, device=dev)
+    return buf
+
+
+def _launch(bins_src, bins_dst, pay_src, pay_dst, ids_src, ids_dst, begin,
+            cnt, f, t, dl, nan_bin, plan: PartitionPlan) -> torch.Tensor:
+    """Launch ``csrc/partition.cu`` on a checked window of CUDA tensors
+    by ``plan``."""
+    dev = bins_src.device
     lib = _cuda.library("partition")
-    tile = lib.partition_tile_rows()
-    nb = max(1, -(-cnt // tile))
-    scratch = torch.empty((nb,), dtype=torch.int32, device=dev)
+    counts = status = None
+    if plan.path == "resident":
+        idx = dev.index if dev.index is not None \
+            else torch.cuda.current_device()
+        if idx not in _cooperative:
+            _cooperative[idx] = bool(lib.partition_cooperative(idx))
+        if not _cooperative[idx]:
+            raise RuntimeError(f"{dev} does not support cooperative "
+                               "launches, which K2's resident path needs")
+        counts = _scratch_for(dev, "counts", plan.nblocks, torch.int32)
+    else:
+        status = _scratch_for(dev, "status", plan.tiles, torch.int64)
     n_left = torch.empty((1,), dtype=torch.int32, device=dev)
-    bb = bins_src.element_size()
+    F = bins_src.shape[1]
 
     def at(x, row_elems):
         if x is None:
@@ -128,16 +282,25 @@ def partition_window(bins_src: torch.Tensor, bins_dst: torch.Tensor,
 
     pay_bytes = 0 if pay_src is None else 2 * pay_src.element_size()
     err = lib.partition_window(
-        at(bins_src, F), at(bins_dst, F), bb, at(pay_src, 2),
-        at(pay_dst, 2), pay_bytes, at(ids_src, 1), at(ids_dst, 1),
-        int(cnt), F, int(f), int(t), int(bool(dl)), int(nan_bin),
-        scratch.data_ptr(), nb, n_left.data_ptr(), _cuda.stream_ptr(dev))
+        at(bins_src, F), at(bins_dst, F), bins_src.element_size(),
+        at(pay_src, 2), at(pay_dst, 2), pay_bytes, at(ids_src, 1),
+        at(ids_dst, 1), int(cnt), F, int(f), int(t), int(bool(dl)),
+        int(nan_bin), 0 if plan.path == "resident" else 1, plan.nblocks,
+        plan.rows, plan.stages, plan.tiles, plan.threads, plan.smem,
+        None if counts is None else counts.data_ptr(),
+        None if status is None else status.data_ptr(), n_left.data_ptr(),
+        _cuda.stream_ptr(dev))
+    if err != 0:
+        # a failed call may leave status words set: zero them anew
+        _scratch.pop(dev, None)
     _cuda.check(err, "partition_window")
     partition_window.launches += 1
+    partition_window.kernels += 1 if plan.path == "resident" else 2
     return n_left
 
 
 partition_window.launches = 0
+partition_window.kernels = 0
 
 
 def _compact(A: torch.Tensor, key: torch.Tensor) -> Tuple[torch.Tensor,
