@@ -62,8 +62,37 @@ Phases, in order; any failure exits non-zero:
 7. small runs — uint16 bins (max_bin=400) held to the float standard,
              and a deterministic quantized run (200k x 28, no stochastic
              rounding) whose every tree equals its plain twin's;
-8. report  — the card's name and power limit, then one JSON line with
-             every kernel's launches, times, bound and library time.
+8. train_rank — lambdarank at the MS LTR shape (2.27M training rows x
+             137 features in queries of ~120 documents, at most 1,251;
+             10% more queries held out; 255 leaves, 255 bins): 1 warm-up
+             + 3 timed iterations, the gradient function timed alone
+             (grad_ms), held-out NDCG@10, launch counters, one profiled
+             iteration; the card's gradients of the first 200 queries at
+             the warm-up scores equal to the CPU's (rtol 1e-4); against
+             the plain twin the same root split and NDCG@10 within 0.002;
+9. train_multiclass — softmax multiclass at Covertype's shape (531,012 +
+             50,000 held-out rows x 54 features, 7 classes, 255 leaves,
+             enable_bundle=False): 1 warm-up + 3 timed iterations of 7
+             trees, held-out multi_logloss and accuracy, every row's
+             probabilities summing to 1, launch counters, one profiled
+             iteration; against the plain twin, whose float histograms
+             sum in float64 (float32 sums of 531k near-equal hessians
+             drift: that twin and the drift of the root histogram are
+             printed beside), the first iteration's 7 root splits and
+             multi_logloss within 0.002; then one multiclassova and one
+             quantized iteration, each with its 7 trees identical to its
+             plain twin's;
+10. report — the card's name and power limit, then one JSON line with
+             every kernel's launches (by path), times, bound and library
+             time.
+
+The K1 ladder (phases 2-3) and the K2 cases (phase 4) include the widths
+of phases 8-9: the roots at 2,270,000 x 137 and 581,012 x 54 u8 bins,
+and smaller windows at 137 and 54 features, so that every feature-group
+count of K1's plan on those paths runs (each rung prints its plan and
+the bound with the rows read once per group); K2 at 137-byte rows (f32
+and int8 payloads, the resident capacity and one row past it) and at
+54-byte rows.
 
 Timing: windows of 2M rows and more are timed with CUDA events around
 back-to-back launches; smaller ones with torch.profiler's device time
@@ -101,6 +130,18 @@ HIGGS_ROWS = 10_500_000
 VALID_ROWS = 500_000
 FEATURES = 28
 BINS = 255
+# MS LTR (MSLR-WEB30K Fold 1, BASELINE.md): 2.27M training rows x 137
+# features, ~120 documents per query on average, at most ~1,251
+LTR_ROWS = 2_270_000
+LTR_FEATURES = 137
+LTR_MEAN_QUERY = 120
+LTR_MAX_QUERY = 1251
+# Covertype (BASELINE.json configs): 581,012 rows x 54 features (10
+# numerical, 4 wilderness-area and 40 soil-type indicators), 7 classes
+COV_ROWS = 581_012
+COV_VALID = 50_000
+COV_FEATURES = 54
+COV_CLASSES = 7
 
 
 def make_higgs_like(n, f, seed=0):
@@ -224,7 +265,10 @@ def phase_build(torch):
     lib = _cuda.library("hist")
     for F, fg, B, bb, ip, tr, st in ((28, 28, 255, 1, 0, 512, 3),
                                      (28, 28, 255, 1, 1, 1024, 2),
-                                     (40, 10, 401, 2, 0, 256, 4)):
+                                     (40, 10, 401, 2, 0, 256, 4),
+                                     (137, 18, 255, 1, 0, 512, 2),
+                                     (137, 35, 255, 1, 1, 512, 2),
+                                     (54, 18, 255, 1, 0, 1024, 2)):
         if lib.hist_smem_bytes(F, fg, B, bb, ip, tr, st) != smem_bytes(
                 F, fg, B, bb, bool(ip), tr, st):
             raise AssertionError("ops/histogram.py smem_bytes() != "
@@ -239,7 +283,11 @@ def phase_build(torch):
     for cnt, F, bb, pb in ((1, 28, 1, 8), (100_003, 28, 1, 2),
                            (part.resident_capacity(28, 1, 8, sms), 28, 1, 8),
                            (10_500_000, 28, 1, 8), (10_500_000, 28, 1, 0),
-                           (50_001, 1000, 2, 8), (70_001, 13, 1, 0)):
+                           (50_001, 1000, 2, 8), (70_001, 13, 1, 0),
+                           (LTR_ROWS, LTR_FEATURES, 1, 8),
+                           (part.resident_capacity(LTR_FEATURES, 1, 8, sms),
+                            LTR_FEATURES, 1, 8),
+                           (COV_ROWS, COV_FEATURES, 1, 2)):
         plan = part.partition_plan(cnt, F, bb, pb, sms)
         if plib.partition_smem_bytes(plan.rows, F, bb, pb, plan.stages) \
                 != plan.smem:
@@ -329,7 +377,38 @@ K1_LADDER = (("root", None, FEATURES, BINS, False),
              ("hot_1M", 1_000_000, FEATURES, BINS, True),
              ("u16", 50_000, 8, 300, False),
              # wide enough in F * B to split the features over blocks
-             ("wide_u16", 50_000, 40, 300, False))
+             ("wide_u16", 50_000, 40, 300, False),
+             # the widths of train_rank (137 features) and
+             # train_multiclass (54): the roots, and windows small enough
+             # for the plan's smaller tiles, so that every feature-group
+             # count those phases launch runs here (float path: 8, 4 and
+             # 3 groups at 137, 3 and 2 at 54; int path: 4 and 2 at 137,
+             # 1 at 54)
+             ("ltr_root", LTR_ROWS, LTR_FEATURES, BINS, False),
+             ("ltr_20k", 20_011, LTR_FEATURES, BINS, False),
+             ("ltr_10k", 10_007, LTR_FEATURES, BINS, False),
+             ("cov_root", COV_ROWS, COV_FEATURES, BINS, False),
+             ("cov_10k", 10_007, COV_FEATURES, BINS, False))
+
+
+def k1_plan(S, F, B, bin_bytes, int_path, pay_bytes, ops_per_s, num_sms):
+    """K1's launch plan for a window and what it costs beyond the bound:
+    every feature group's blocks stage whole rows (bins and payload) and
+    histogram their ``fg`` features of them, so the window's rows are
+    read once per group. ``reread_bound_ms`` is the bound with those
+    reads."""
+    from lightgbm_tpu_torch.ops.histogram import launch_plan
+    plan = launch_plan(S, F, B, bin_bytes, num_sms, int_path)
+    groups = -(-F // plan.fg)
+    nbytes = groups * S * (F * bin_bytes + pay_bytes) + F * B * 2 * 4
+    reread = 1e3 * max(nbytes / HBM_BYTES_PER_S, S * F * 2 / ops_per_s)
+    d = dict(fg=plan.fg, groups=groups, tile_rows=plan.tile_rows,
+             blocks=plan.nblocks, threads=plan.threads, smem=plan.smem,
+             reread_bound_ms=reread)
+    return d, (f"plan: {groups} group(s) of {plan.fg} features, "
+               f"{plan.tile_rows}-row tiles, {plan.nblocks} x {groups} "
+               f"blocks, smem={plan.smem}; rows read {groups}x: "
+               f"reread_bound_ms={reread:.5f}")
 
 
 def _k1_bound(S, F, bin_bytes, pay_bytes, B, ops_per_s):
@@ -346,6 +425,7 @@ def phase_k1(torch, dev, root_rows, reps):
     from lightgbm_tpu_torch.ops.partition import partition_window
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     shapes = []
     for label, S, F, B, hot in K1_LADDER:
         S = S or root_rows
@@ -410,7 +490,9 @@ def phase_k1(torch, dev, root_rows, reps):
         lib_ms, _ = timed_ms(library, max(3, reps // 3), torch, S)
         bound_ms, bound_by = _k1_bound(S, F, rows.element_size(), 8, B,
                                        FP32_OPS_PER_S)
-        d = dict(shape=label, rows=S, features=F, bins=B,
+        plan, plan_msg = k1_plan(S, F, B, rows.element_size(), False, 8,
+                                 FP32_OPS_PER_S, sms)
+        d = dict(shape=label, rows=S, features=F, bins=B, plan=plan,
                  held_to="exact" if label == "hot_1M" else "plain",
                  max_abs_err=float(err.max()),
                  max_abs_err_exact=float(err64.max()),
@@ -429,7 +511,7 @@ def phase_k1(torch, dev, root_rows, reps):
             f"{lib_ms:.5f} bound_ms={bound_ms:.5f} max_abs_err vs plain="
             f"{float(err.max()):.3g}, vs exact={float(err64.max()):.3g} "
             f"(plain vs exact={plain_err64:.3g}); = fixed-point emulation, "
-            "bit-identical reruns")
+            f"bit-identical reruns; {plan_msg}")
         del rows, pay, k, k2, p, dst_r, dst_p, flat, weights, err64
     return shapes
 
@@ -471,6 +553,7 @@ def phase_k1_int(torch, dev, root_rows, reps):
     from lightgbm_tpu_torch.ops.partition import partition_window
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     shapes = []
     for label, S, F, B, hot in K1_LADDER + (("blocked_127", 150_000, 4, 16,
                                              False),):
@@ -525,7 +608,10 @@ def phase_k1_int(torch, dev, root_rows, reps):
         lib_ms, _ = timed_ms(library, max(3, reps // 3), torch, S)
         bound_ms, bound_by = _k1_bound(S, F, rows.element_size(), 2, B,
                                        INT32_OPS_PER_S)
-        d = dict(shape=label, rows=S, features=F, bins=B, max_abs_err=0.0,
+        plan, plan_msg = k1_plan(S, F, B, rows.element_size(), True, 2,
+                                 INT32_OPS_PER_S, sms)
+        d = dict(shape=label, rows=S, features=F, bins=B, plan=plan,
+                 max_abs_err=0.0,
                  ms=ms, method=method, plain_ms=plain_ms,
                  library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
         if method == "events":
@@ -536,7 +622,7 @@ def phase_k1_int(torch, dev, root_rows, reps):
             + (f"; profiler {d['profiler_ms']:.5f}" if "profiler_ms" in d
                else "") + f") plain_ms={plain_ms:.5f} library_ms="
             f"{lib_ms:.5f} bound_ms={bound_ms:.5f} exact, sides exact, "
-            "bit-identical reruns")
+            f"bit-identical reruns; {plan_msg}")
         del rows, pay, k, p, dst_r, dst_p, left, right, library, lib_out
     return shapes
 
@@ -673,7 +759,19 @@ K2_CASES = (("root", None, FEATURES, BINS, "f32", 127, True),
             # wide rows: 1000 u16 bins (2000 bytes), both paths
             ("wide_u16", 5_001, 1000, 300, "f32", 150, False),
             ("wide_u16_stream", 50_001, 1000, 300, "int8", 150, False),
-            ("wide_u16_stream_none", 40_001, 1000, 300, "none", 150, False))
+            ("wide_u16_stream_none", 40_001, 1000, 300, "none", 150, False),
+            # train_rank's 137-byte rows and train_multiclass's 54-byte
+            # rows: the roots (streaming), the resident capacity at 137
+            # bytes and one row past it
+            ("ltr_root", LTR_ROWS, LTR_FEATURES, BINS, "f32", 127, True),
+            ("ltr_root_int8", LTR_ROWS, LTR_FEATURES, BINS, "int8", 127,
+             True),
+            ("ltr_cap", "cap", LTR_FEATURES, BINS, "f32", 127, True),
+            ("ltr_cap+1", "cap+1", LTR_FEATURES, BINS, "f32", 127, True),
+            ("cov_root", COV_ROWS, COV_FEATURES, BINS, "f32", 127, True),
+            ("cov_root_int8", COV_ROWS, COV_FEATURES, BINS, "int8", 127,
+             True),
+            ("cov_100k", 100_000, COV_FEATURES, BINS, "f32", 127, True))
 
 
 def _k2_case(torch, dev, gen, S, F, B, kind, thr, pad, nan_bin):
@@ -1108,12 +1206,30 @@ def _read_counts():
                 partition_kernels=partition_window.kernels)
 
 
-def _drive(torch, lgb, dev, params, ds, Xv, yv, iters, tag):
+def binary_scorer(torch, dev, yv):
+    """The binary paths' held-out scores: finite [n] probabilities, AUC
+    and log loss."""
+    from lightgbm_tpu_torch.metrics import auc, binary_logloss
+    yv_t = torch.as_tensor(yv, device=dev)
+
+    def score(p):
+        if p.shape != (len(yv),) or not np.all(np.isfinite(p)):
+            raise AssertionError("predictions are not finite [n] values")
+        p_t = torch.as_tensor(p, device=dev)
+        return dict(auc=auc(p_t, yv_t), logloss=binary_logloss(p_t, yv_t))
+    return score
+
+
+def _drive(torch, lgb, dev, params, ds, Xv, yv, iters, tag, scorer=None,
+           after_warmup=None):
     """Train 1 warm-up + ``iters`` timed iterations through the public
     API with every launch count set to 0 just before and read just
-    after; predict the held-out rows, score them and round-trip the
-    model through its text."""
-    from lightgbm_tpu_torch.metrics import auc, binary_logloss
+    after; predict the held-out rows, score them (``scorer``: a function
+    of the predictions giving a dict of metrics; binary by default) and
+    round-trip the model through its text. ``after_warmup(bst)``, which
+    launches neither kernel, runs between the warm-up and the timed
+    iterations and gives a dict of more results."""
+    scorer = scorer or binary_scorer(torch, dev, yv)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -1121,6 +1237,7 @@ def _drive(torch, lgb, dev, params, ds, Xv, yv, iters, tag):
     bst = lgb.train(params, ds, num_boost_round=1)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    extra = {} if after_warmup is None else after_warmup(bst)
     iter_s = []
     for _ in range(iters):
         t0 = time.perf_counter()
@@ -1134,13 +1251,7 @@ def _drive(torch, lgb, dev, params, ds, Xv, yv, iters, tag):
     counts = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     leaves = [t.num_leaves for t in bst._models]
-    if p.shape != (len(yv),) or not np.all(np.isfinite(p)):
-        raise AssertionError(f"{tag}: predictions are not finite [n] "
-                             "values")
-    yv_t = torch.as_tensor(yv, device=dev)
-    p_t = torch.as_tensor(p, device=dev)
-    auc_k = auc(p_t, yv_t)
-    ll_k = binary_logloss(p_t, yv_t)
+    metrics = scorer(p)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "model.txt")
         bst.save_model(path)
@@ -1155,9 +1266,10 @@ def _drive(torch, lgb, dev, params, ds, Xv, yv, iters, tag):
         f"median_iter_s={statistics.median(iter_s):.4f} "
         f"predict_s={predict_s:.4f} leaves={leaves} "
         f"launches={json.dumps(counts)} peak_mem_bytes={peak} "
-        f"auc={auc_k:.6f} logloss={ll_k:.6f} roundtrip_max_abs={rt:.3g}")
+        + " ".join(f"{k}={v:.6f}" for k, v in metrics.items())
+        + f" roundtrip_max_abs={rt:.3g}")
     return dict(bst=bst, counts=counts, leaves=leaves, iter_s=iter_s,
-                auc=auc_k, logloss=ll_k, peak=peak, predict_s=predict_s)
+                peak=peak, predict_s=predict_s, **metrics, **extra)
 
 
 def _check_counts(tag, counts, leaves, hist_key):
@@ -1172,19 +1284,47 @@ def _check_counts(tag, counts, leaves, hist_key):
                              f"the trees' leaves {leaves}")
 
 
-def _plain_twin(torch, lgb, dev, params, ds, Xv, yv, rounds, tag):
-    """The same training with both kernels' plain versions forced."""
-    from lightgbm_tpu_torch.metrics import auc
+def _plain_twin(torch, lgb, dev, params, ds, Xv, yv, rounds, tag,
+                scorer=None):
+    """The same training with both kernels' plain versions forced: the
+    model and its held-out scores (``scorer`` as in :func:`_drive`)."""
     from lightgbm_tpu_torch.ops.histogram import plain_kernels
+    scorer = scorer or binary_scorer(torch, dev, yv)
     t0 = time.perf_counter()
     with plain_kernels():
         bst_p = lgb.train(params, ds, num_boost_round=rounds)
         pp = bst_p.predict(Xv)
     plain_s = time.perf_counter() - t0
-    auc_p = auc(torch.as_tensor(pp, device=dev),
-                torch.as_tensor(yv, device=dev))
-    log(f"[{tag}] plain run: seconds={plain_s:.2f} auc={auc_p:.6f}")
-    return bst_p, auc_p
+    m = scorer(pp)
+    log(f"[{tag}] plain run: seconds={plain_s:.2f} " + " ".join(
+        f"{k}={v:.6f}" for k, v in m.items()))
+    return bst_p, m
+
+
+def exact_float_sums(torch):
+    """A context in which the float path's plain histogram sums in
+    float64 and rounds each sum once to float32 (the int path is
+    unchanged). Float32 atomics over a large window of near-equal
+    payloads (every multiclass row's hessian is 1/7 at iteration 0) round
+    the same way at every add once the sum is large, and drift far from
+    the exact sums, which K1's fixed-point path is held to."""
+    import contextlib
+    from lightgbm_tpu_torch.ops import histogram
+
+    @contextlib.contextmanager
+    def ctx():
+        f32 = histogram.hist_plain
+
+        def exact(rows, pay, B):
+            if pay.dtype != torch.float32:
+                return f32(rows, pay, B)
+            return hist_f64(torch, rows, pay, B).float()
+        histogram.hist_plain = exact
+        try:
+            yield
+        finally:
+            histogram.hist_plain = f32
+    return ctx()
 
 
 def _root_split(bst):
@@ -1234,8 +1374,9 @@ def phase_train(torch, lgb, dev, n_train, iters, reps, parent):
     prof = profile_iteration(torch, r["bst"])
 
     # the same 6 iterations with both kernels' plain versions forced
-    bst_p, auc_p = _plain_twin(torch, lgb, dev, params, ds, Xv, yv,
-                               1 + iters, "train")
+    bst_p, m_p = _plain_twin(torch, lgb, dev, params, ds, Xv, yv,
+                             1 + iters, "train")
+    auc_p = m_p["auc"]
     r_k, r_p = _root_split(r["bst"]), _root_split(bst_p)
     log(f"[train] root_split kernel={r_k} plain={r_p}")
     if r["auc"] < auc_p - 0.002:
@@ -1263,8 +1404,9 @@ def phase_train_quant(torch, lgb, dev, tr, iters):
 
     # the twin: the same seed, so the same rounding draws, and int32
     # histograms that are exact in any order
-    bst_p, auc_p = _plain_twin(torch, lgb, dev, params, ds, Xv, yv,
-                               1 + iters, "train_quant")
+    bst_p, m_p = _plain_twin(torch, lgb, dev, params, ds, Xv, yv,
+                             1 + iters, "train_quant")
+    auc_p = m_p["auc"]
     a, b = r["bst"]._models[0], bst_p._models[0]
     lv_err = float(np.abs(a.leaf_value - b.leaf_value).max()) \
         if a.num_leaves == b.num_leaves else float("inf")
@@ -1319,8 +1461,19 @@ def profile_iteration(torch, bst):
     rows.sort(reverse=True)
     host.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    # the two kernels' own time in the iteration, by kernel name
+    ours = {}
+    for ms, c, k in rows:
+        for tag in ("hist_kernel", "hist_convert_kernel", "part_resident",
+                    "part_column", "part_move"):
+            if tag in k:
+                t = ours.setdefault(tag, [0.0, 0])
+                t[0] += ms
+                t[1] += c
     out = dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
                idle_share=1.0 - busy_ms / (wall * 1e3) if rows else None,
+               kernels={k: dict(ms=v[0], calls=v[1])
+                        for k, v in ours.items()},
                top=[dict(name=k[:60], calls=c, ms=ms)
                     for ms, c, k in rows[:10]],
                host_top=[dict(name=k[:60], calls=c, ms=ms)
@@ -1328,7 +1481,9 @@ def profile_iteration(torch, bst):
     log("[profile] one iteration under torch.profiler: wall_ms="
         f"{out['wall_ms']:.1f} device_busy_ms={busy_ms:.1f} idle_share="
         + ("not measured (no device time in the trace)"
-           if out["idle_share"] is None else f"{out['idle_share']:.3f}"))
+           if out["idle_share"] is None else f"{out['idle_share']:.3f}")
+        + "; K1/K2 kernels: " + "; ".join(
+            f"{k} {v[0]:.3f} ms {v[1]}x" for k, v in ours.items()))
     for r in out["top"]:
         log(f"[profile]   {r['ms']:9.3f} ms {r['calls']:6d}x {r['name']}")
     # where the host's time goes: CPU ops by self time (a read-back's
@@ -1519,12 +1674,313 @@ def phase_train_quant_small(torch, lgb, dev):
                              "plain run's")
 
 
+def _query_sizes(rng, total=None, count=None):
+    """Query sizes to MSLR-WEB30K's published statistics: log-normal with
+    a mean of about ``LTR_MEAN_QUERY`` documents, clipped to
+    ``[1, LTR_MAX_QUERY]``, the first query at the maximum. Either
+    ``count`` queries, or as many as reach ``total`` rows (the last one
+    cut to fit)."""
+    sigma = 0.7
+    mu = np.log(LTR_MEAN_QUERY) - sigma * sigma / 2
+    n = count or int(total / LTR_MEAN_QUERY * 1.3) + 100
+    sizes = np.clip(np.round(rng.lognormal(mu, sigma, n)), 1,
+                    LTR_MAX_QUERY).astype(np.int64)
+    sizes[0] = LTR_MAX_QUERY
+    if total is None:
+        return sizes
+    c = np.cumsum(sizes)
+    k = int(np.searchsorted(c, total))
+    sizes = sizes[:k + 1].copy()
+    sizes[-1] -= int(c[k]) - total
+    return sizes[sizes > 0]
+
+
+def make_ltr_like(n_train, seed=0):
+    """MSLR-WEB30K-shaped learning-to-rank data: ``n_train`` training
+    rows in queries of ``_query_sizes``, 10% more queries held out, 137
+    float32 features, relevance graded 0-4 with most documents at 0
+    (about 52/32/12/3/1%), from a latent score of six features, a
+    per-query offset and noise. Returns ``(X, y, group)`` for both."""
+    rng = np.random.default_rng(seed)
+    gt = _query_sizes(rng, total=n_train)
+    gv = _query_sizes(rng, count=max(1, round(0.1 * len(gt))))
+    n = int(gt.sum() + gv.sum())
+    X = rng.standard_normal((n, LTR_FEATURES), dtype=np.float32)
+    w = rng.standard_normal(6).astype(np.float32)
+    offset = np.repeat(rng.standard_normal(len(gt) + len(gv)) * 0.5,
+                       np.concatenate([gt, gv]))
+    latent = X[:, :6] @ w + offset + rng.standard_normal(n)
+    y = np.digitize(latent, np.quantile(latent, [0.52, 0.84, 0.965, 0.99])
+                    ).astype(np.float64)
+    m = int(gt.sum())
+    return X[:m], y[:m], gt, X[m:], y[m:], gv
+
+
+def make_covertype_like(n, seed=0):
+    """Covertype-shaped data, ``n`` rows x 54 float32 features: 10
+    numerical columns on Covertype's scales (elevation, aspect, slope,
+    four distances, three hillshades) and 44 one-hot indicators, one of
+    4 wilderness areas and one of 40 soil types per row (so each
+    indicator is mostly zeros); 7 classes, skewed like Covertype's (two
+    hold about 80% of the rows; Covertype's hold 85%), from a noisy
+    linear score of all of it."""
+    rng = np.random.default_rng(seed)
+    num = np.stack([
+        rng.normal(2959, 280, n), rng.uniform(0, 360, n),
+        np.abs(rng.normal(14, 7.5, n)), rng.exponential(270, n),
+        rng.normal(46, 58, n), rng.exponential(2350, n),
+        np.clip(rng.normal(212, 27, n), 0, 254),
+        np.clip(rng.normal(223, 20, n), 0, 254),
+        np.clip(rng.normal(143, 38, n), 0, 254),
+        rng.exponential(1980, n)], axis=1).round()
+    wild = rng.choice(4, n, p=[0.45, 0.05, 0.44, 0.06])
+    soil = rng.choice(40, n, p=rng.dirichlet(np.full(40, 0.5)))
+    X = np.zeros((n, COV_FEATURES), np.float32)
+    X[:, :10] = num
+    X[np.arange(n), 10 + wild] = 1.0
+    X[np.arange(n), 14 + soil] = 1.0
+    z = (num - num.mean(0)) / num.std(0)
+    prior = np.log([0.365, 0.488, 0.0615, 0.0047, 0.0163, 0.0299, 0.0353])
+    logits = (z @ rng.normal(0, 0.5, (10, COV_CLASSES))
+              + rng.normal(0, 0.5, (4, COV_CLASSES))[wild]
+              + rng.normal(0, 0.5, (40, COV_CLASSES))[soil]
+              + 1.5 * prior + rng.gumbel(size=(n, COV_CLASSES)))
+    return X, np.argmax(logits, axis=1).astype(np.float64)
+
+
+def phase_train_rank(torch, lgb, dev, iters):
+    """lambdarank at the MS LTR shape (2.27M training rows x 137
+    features, 255 leaves, 255 bins): 1 warm-up + ``iters`` timed
+    iterations, the gradient function timed alone, held-out NDCG@10, one
+    profiled iteration; the card's gradients of the first 200 queries at
+    the warm-up scores against the same function on the CPU; against the
+    plain twin, the same root split and NDCG@10 within 0.002."""
+    from lightgbm_tpu_torch.ranking import (_lambdarank_grads, _pad_queries,
+                                            ndcg_at_k)
+    t0 = time.perf_counter()
+    Xt, yt, gt, Xv, yv, gv = make_ltr_like(LTR_ROWS)
+    log(f"[train_rank] data rows={len(yt)}+{len(yv)} features="
+        f"{LTR_FEATURES} queries={len(gt)}+{len(gv)} mean_query="
+        f"{gt.mean():.1f} max_query={int(gt.max())} labels 0-4 share="
+        f"{[round(float(np.mean(yt == c)), 4) for c in range(5)]} "
+        f"gen_s={time.perf_counter() - t0:.2f}")
+    params = {"objective": "lambdarank", "num_leaves": 255,
+              "max_bin": BINS, "learning_rate": 0.1, "verbosity": -1,
+              "device_type": dev.type}
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(Xt, label=yt, group=gt,
+                     params={"max_bin": BINS, "device_type": dev.type})
+    ds.construct()
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    log(f"[train_rank] construct_s={construct_s:.3f}")
+    del Xt
+    qb_v = np.concatenate([[0], np.cumsum(gv)])
+    yv_t = torch.as_tensor(yv, device=dev)
+
+    def scorer(p):
+        if p.shape != (len(yv),) or not np.all(np.isfinite(p)):
+            raise AssertionError("train_rank: predictions are not finite "
+                                 "[n] values")
+        return dict(ndcg10=ndcg_at_k(torch.as_tensor(p, device=dev), yv_t,
+                                     qb_v, 10))
+
+    def after_warmup(bst):
+        eng = bst._engine
+        obj = eng.objective
+        s0 = eng.score[0].clone()
+
+        def grads():
+            return obj.grad_hess(s0, eng.label, eng.weight)
+        grad_ms = events_ms(grads, 3, torch)
+        g, h = grads()
+        qb = ds.query_boundaries()[:201]
+        m = int(qb[-1])
+        gc, hc = _lambdarank_grads(
+            s0[:m].cpu(), _pad_queries(qb, "cpu"), obj.gain_of_row[:m].cpu(),
+            None, obj.sigmoid, obj.trunc, obj.norm)
+        err = max(float((g[:m].cpu() - gc).abs().max()),
+                  float((h[:m].cpu() - hc).abs().max()))
+        log(f"[train_rank] grad_ms={grad_ms:.3f} (CUDA events, the "
+            f"gradient function alone, {len(obj.buckets)} query buckets); "
+            f"first 200 queries ({m} rows) at the warm-up scores, card vs "
+            f"CPU: max_abs_err={err:.3g}")
+        if not (torch.allclose(g[:m].cpu(), gc, rtol=1e-4, atol=1e-6)
+                and torch.allclose(h[:m].cpu(), hc, rtol=1e-4, atol=1e-6)):
+            raise AssertionError("train_rank: the card's lambdarank "
+                                 "gradients differ from the CPU's")
+        return dict(grad_ms=grad_ms, grad_cpu_max_abs_err=err)
+
+    r = _drive(torch, lgb, dev, params, ds, Xv, yv, iters, "train_rank",
+               scorer, after_warmup)
+    _check_counts("train_rank", r["counts"], r["leaves"], "hist")
+    prof = profile_iteration(torch, r["bst"])
+    bst_p, m_p = _plain_twin(torch, lgb, dev, params, ds, Xv, yv, 1 + iters,
+                             "train_rank", scorer)
+    r_k, r_p = _root_split(r["bst"]), _root_split(bst_p)
+    log(f"[train_rank] root_split kernel={r_k} plain={r_p} ndcg10="
+        f"{r['ndcg10']:.6f} plain={m_p['ndcg10']:.6f}")
+    if r_k != r_p:
+        raise AssertionError("train_rank: the first tree's root split "
+                             "differs from the plain run's")
+    if abs(r["ndcg10"] - m_p["ndcg10"]) > 0.002:
+        raise AssertionError(f"train_rank: NDCG@10 {r['ndcg10']} not within "
+                             f"0.002 of the plain run's {m_p['ndcg10']}")
+    del r["bst"], bst_p, ds
+    return dict(r, ndcg10_plain=m_p["ndcg10"], construct_s=construct_s,
+                profile=prof)
+
+
+def phase_train_multiclass(torch, lgb, dev, iters):
+    """softmax multiclass at Covertype's shape (531,012 training + 50,000
+    held-out rows x 54 features, 7 classes, 255 leaves, 255 bins,
+    ``enable_bundle=False``): 1 warm-up + ``iters`` timed iterations of 7
+    trees, held-out multi_logloss and accuracy, one profiled iteration;
+    against the plain twin, the first iteration's 7 root splits and
+    multi_logloss within 0.002. The plain twin's float histograms are
+    summed in float64 (:func:`exact_float_sums`): at this shape float32
+    sums drift far from the exact ones (printed beside, with the twin
+    that sums in float32). Then one multiclassova iteration and one
+    quantized iteration (round to nearest), each with its first trees
+    identical to its plain twin's."""
+    from lightgbm_tpu_torch.metrics import multi_logloss
+    from lightgbm_tpu_torch.ops.histogram import plain_kernels
+    t0 = time.perf_counter()
+    X, y = make_covertype_like(COV_ROWS)
+    n = COV_ROWS - COV_VALID
+    Xt, yt, Xv, yv = X[:n], y[:n], X[n:], y[n:]
+    log(f"[train_multiclass] data rows={n}+{COV_VALID} features="
+        f"{COV_FEATURES} classes={COV_CLASSES} class share="
+        f"{[round(float(np.mean(yt == c)), 4) for c in range(COV_CLASSES)]} "
+        f"reduced: enable_bundle=False (EFB is not in the port) "
+        f"gen_s={time.perf_counter() - t0:.2f}")
+    params = {"objective": "multiclass", "num_class": COV_CLASSES,
+              "num_leaves": 255, "max_bin": BINS, "learning_rate": 0.1,
+              "enable_bundle": False, "verbosity": -1,
+              "device_type": dev.type}
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(Xt, label=yt, params={
+        "max_bin": BINS, "enable_bundle": False, "device_type": dev.type})
+    ds.construct()
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    log(f"[train_multiclass] construct_s={construct_s:.3f}")
+    yv_t = torch.as_tensor(yv, device=dev)
+
+    def scorer(p):
+        if p.shape != (len(yv), COV_CLASSES) or not np.all(np.isfinite(p)):
+            raise AssertionError("train_multiclass: predictions are not "
+                                 "finite [n, K] values")
+        row_err = float(np.abs(p.sum(axis=1) - 1.0).max())
+        if row_err > 1e-5:
+            raise AssertionError(f"train_multiclass: a row of probabilities "
+                                 f"sums to 1 +- {row_err}")
+        p_t = torch.as_tensor(p, device=dev)
+        return dict(multi_logloss=multi_logloss(p_t, yv_t),
+                    accuracy=float((p.argmax(axis=1) == yv).mean()))
+
+    r = _drive(torch, lgb, dev, params, ds, Xv, yv, iters,
+               "train_multiclass", scorer)
+    _check_counts("train_multiclass", r["counts"], r["leaves"], "hist")
+    prof = profile_iteration(torch, r["bst"])
+    f32_drift = _f32_drift(torch, ds, yt)
+
+    def roots(bst):
+        return [(int(t.split_feature[0]), int(t.threshold_bin[0]))
+                for t in bst._models[:COV_CLASSES]]
+    # the plain twin as the other phases run it (float32 sums), for the
+    # record; then the twin it is held to, whose float sums are exact
+    bst_f, m_f = _plain_twin(torch, lgb, dev, params, ds, Xv, yv, 1 + iters,
+                             "train_multiclass f32 sums", scorer)
+    with exact_float_sums(torch):
+        bst_p, m_p = _plain_twin(torch, lgb, dev, params, ds, Xv, yv,
+                                 1 + iters, "train_multiclass", scorer)
+    roots_k, roots_p = roots(r["bst"]), roots(bst_p)
+    same = [int(_same_structure(a, b))
+            for a, b in zip(r["bst"]._models, bst_p._models)]
+    log(f"[train_multiclass] first iteration's root splits kernel={roots_k} "
+        f"plain={roots_p} (plain with float32 sums: {roots(bst_f)}); "
+        f"multi_logloss={r['multi_logloss']:.6f} plain="
+        f"{m_p['multi_logloss']:.6f} (float32 sums: "
+        f"{m_f['multi_logloss']:.6f}); trees identical in structure to the "
+        f"plain run's: {same}")
+    if roots_k != roots_p:
+        raise AssertionError("train_multiclass: the first iteration's root "
+                             "splits differ from the plain run's")
+    if abs(r["multi_logloss"] - m_p["multi_logloss"]) > 0.002:
+        raise AssertionError(
+            f"train_multiclass: multi_logloss {r['multi_logloss']} not "
+            f"within 0.002 of the plain run's {m_p['multi_logloss']}")
+    del r["bst"], bst_p, bst_f
+    variants = {}
+    for tag, extra, hist_key in (
+            ("ova", {"objective": "multiclassova"}, "hist"),
+            ("quant", {"use_quantized_grad": True,
+                       "stochastic_rounding": False}, "hist_int")):
+        p = {**params, **extra}
+        _reset_counts()
+        bst = lgb.train(p, ds, num_boost_round=1)
+        counts = _read_counts()
+        leaves = [t.num_leaves for t in bst._models]
+        _check_counts(f"train_multiclass_{tag}", counts, leaves, hist_key)
+        with plain_kernels(), exact_float_sums(torch):
+            ref = lgb.train(p, ds, num_boost_round=1)
+        same = [int(_same_structure(a, b) and np.allclose(
+            a.leaf_value, b.leaf_value, rtol=1e-4, atol=1e-5))
+            for a, b in zip(bst._models, ref._models)]
+        exact = [int(np.array_equal(a.leaf_value, b.leaf_value))
+                 for a, b in zip(bst._models, ref._models)]
+        log(f"[train_multiclass_{tag}] one iteration, {len(leaves)} trees of "
+            f"{leaves} leaves, launches={json.dumps(counts)}; trees "
+            f"identical to the plain run's: {same}, leaf values bit-equal: "
+            f"{exact}")
+        if len(bst._models) != COV_CLASSES or not all(same):
+            raise AssertionError(f"train_multiclass_{tag}: the first trees "
+                                 "differ from the plain run's")
+        variants[tag] = dict(counts=counts, leaves=leaves, same_trees=same,
+                             bit_equal_leaf_values=exact)
+    del ds
+    return dict(r, multi_logloss_plain=m_p["multi_logloss"],
+                multi_logloss_plain_f32=m_f["multi_logloss"],
+                f32_drift=f32_drift, construct_s=construct_s, profile=prof,
+                variants=variants)
+
+
+def _f32_drift(torch, ds, yt):
+    """The root histogram of class 0 at iteration 0 (every hessian
+    1/7): the plain version's float32 sums and K1's against the float64
+    sums, by the largest error over the bins and by feature 0's hessian
+    total."""
+    from lightgbm_tpu_torch.ops.histogram import hist_plain, window_hist
+    bins = ds.device_bins()
+    n = bins.shape[0]
+    p = np.float32(1.0 / COV_CLASSES)
+    y = torch.as_tensor(yt == 0, dtype=torch.float32, device=bins.device)
+    pay = torch.stack([p - y, torch.full_like(y, np.float32(
+        COV_CLASSES / (COV_CLASSES - 1.0) * p * (1.0 - p)))], 1).contiguous()
+    exact = hist_f64(torch, bins, pay, BINS)
+    out = {}
+    for name, h in (("plain_f32", hist_plain(bins, pay, BINS)),
+                    ("kernel", window_hist(bins, pay, BINS, 0, n))):
+        out[name] = dict(max_abs_err=float((h.double() - exact).abs().max()),
+                         hess_total=float(h[0, :, 1].double().sum()))
+    out["exact_hess_total"] = float(exact[0, :, 1].sum())
+    log(f"[train_multiclass] root histogram at iteration 0 (every hessian "
+        f"1/7, {n} rows), against float64 sums: " + "; ".join(
+            f"{k} max_abs_err={v['max_abs_err']:.4g} feature-0 hessian "
+            f"total={v['hess_total']:.4f}" for k, v in out.items()
+            if isinstance(v, dict))
+        + f"; exact total={out['exact_hess_total']:.4f}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=HIGGS_ROWS,
                     help="training rows (default: the Higgs 10.5M)")
     ap.add_argument("--iters", type=int, default=5,
-                    help="timed iterations after the warm-up one")
+                    help="timed iterations after the warm-up one (at most "
+                         "3 in train_rank and train_multiclass)")
     ap.add_argument("--reps", type=int, default=20,
                     help="launches per kernel timing")
     ap.add_argument("--parent", default=None,
@@ -1550,19 +2006,40 @@ def main(argv=None):
         f"python={sys.version.split()[0]} "
         f"device={torch.cuda.get_device_name(0)}")
 
+    t_start = time.perf_counter()
+    t_last = [t_start]
+
+    def done(phase):
+        now = time.perf_counter()
+        log(f"[time] {phase} {now - t_last[0]:.1f} s (total "
+            f"{now - t_start:.1f} s)")
+        t_last[0] = now
+
     phase_build(torch)
+    done("build")
     k1 = phase_k1(torch, dev, args.rows, args.reps)
+    done("k1")
     k1i = phase_k1_int(torch, dev, args.rows, args.reps)
+    done("k1_int")
     phase_k1_ragged(torch, dev)
+    done("k1_ragged")
     k2, k2_alt = phase_k2(torch, dev, args.rows, args.reps)
+    done("k2")
     parent = load_parent(args.parent) if args.parent else None
     tr = phase_train(torch, lgb, dev, args.rows, args.iters, args.reps,
                      parent)
     turns = tr["turns"]
+    done("train")
     trq = phase_train_quant(torch, lgb, dev, tr, args.iters)
     del tr["ds"]
+    done("train_quant")
     phase_train_u16(torch, lgb, dev)
     phase_train_quant_small(torch, lgb, dev)
+    done("small runs")
+    trr = phase_train_rank(torch, lgb, dev, min(args.iters, 3))
+    done("train_rank")
+    trm = phase_train_multiclass(torch, lgb, dev, min(args.iters, 3))
+    done("train_multiclass")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1596,7 +2073,9 @@ def main(argv=None):
         return e
 
     def launches(key):
-        return {"train": tr["counts"][key], "train_quant": trq["counts"][key]}
+        return {"train": tr["counts"][key], "train_quant": trq["counts"][key],
+                "train_rank": trr["counts"][key],
+                "train_multiclass": trm["counts"][key]}
 
     part = entry("partition", "lightgbm_tpu_torch/csrc/partition.cu",
                  "lightgbm_tpu/ops/partition_kernel.py:97",

@@ -1,8 +1,9 @@
 """Public ``Dataset`` and ``Booster`` of the port.
 
-Counterpart of ``lightgbm_tpu/basic.py`` for the main path: a dense
-numerical matrix (NaN allowed) with labels and optional weights is
-binned once — mappers found on the host from a row sample, exactly as
+Counterpart of ``lightgbm_tpu/basic.py`` for the ported paths: a dense
+numerical matrix (NaN allowed) with labels, optional weights and, for
+learning to rank, query groups and result-list positions is binned
+once — mappers found on the host from a row sample, exactly as
 the JAX package does, the bin matrix built on the device — and kept as
 a row-major ``[n, F]`` u8 tensor (u16 when a feature has more than 256
 bins), the layout the grower streams. ``Booster`` trains through
@@ -46,11 +47,7 @@ class Dataset:
                  weight=None, group=None, init_score=None,
                  feature_name="auto", categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
-                 free_raw_data: bool = True):
-        if group is not None:
-            raise NotImplementedError(
-                "query groups are not in the port yet (ROADMAP.md Queue 1 "
-                "item 10)")
+                 free_raw_data: bool = True, position=None):
         if init_score is not None:
             raise NotImplementedError(
                 "init_score is not in the port yet (ROADMAP.md Queue 1 "
@@ -66,10 +63,13 @@ class Dataset:
         self.data = data
         self.label = label
         self.weight = weight
+        self.group = group
+        self.position = position
         self.feature_name = feature_name
         self.params = dict(params or {})
         self.free_raw_data = free_raw_data
         self._bins: Optional[torch.Tensor] = None
+        self._query_boundaries: Optional[np.ndarray] = None
 
     # -- construction ---------------------------------------------------
     def construct(self) -> "Dataset":
@@ -136,6 +136,10 @@ class Dataset:
         self.label = y
         self.weight = None if self.weight is None else \
             np.asarray(self.weight, np.float64).ravel()
+        if self.group is not None:
+            self.set_group(self.group)
+            if self._query_boundaries[-1] != n:
+                raise LightGBMError("Sum of group sizes != number of rows")
         if self.free_raw_data:
             self.data = None
         return self
@@ -175,6 +179,34 @@ class Dataset:
 
     def get_weight(self):
         return self.weight
+
+    def get_group(self) -> Optional[np.ndarray]:
+        """Query sizes, or None without groups."""
+        if self._query_boundaries is None:
+            return None
+        return np.diff(self._query_boundaries)
+
+    def set_group(self, group) -> "Dataset":
+        g = np.asarray(group, np.int64).ravel()
+        self._query_boundaries = np.concatenate(
+            [[0], np.cumsum(g)]).astype(np.int64)
+        return self
+
+    def query_boundaries(self) -> Optional[np.ndarray]:
+        """int64 ``[nq + 1]`` row offsets of the queries (None without
+        groups)."""
+        self.construct()
+        return self._query_boundaries
+
+    def get_position(self):
+        """Per-row result-list positions for position-debiased learning
+        to rank (None: no position bias)."""
+        return self.position
+
+    def set_position(self, position) -> "Dataset":
+        self.position = None if position is None else \
+            np.asarray(position).ravel()
+        return self
 
     def get_feature_name(self) -> List[str]:
         self.construct()
@@ -222,17 +254,7 @@ class Booster:
                  train_set: Optional[Dataset] = None,
                  model_file: Optional[str] = None,
                  model_str: Optional[str] = None):
-        self.params = params or {}
-        self.best_iteration = -1
-        self.pandas_categorical = None
-        self._engine = None
-        self._trees: List = []
-        self._cfg: Optional[Config] = None
-        self._num_class = 1
-        self._feature_names: List[str] = []
-        self._feature_infos: List[str] = []
-        self._objective_str = "none"
-        self._avg_output = False
+        self._blank(params)
         if train_set is not None:
             if not isinstance(train_set, Dataset):
                 raise TypeError("Training data should be a Dataset instance")
@@ -244,8 +266,11 @@ class Booster:
             self._device = train_set.device
             from .models.gbdt import GBDTBooster
             from .objectives import create_objective
-            self._engine = GBDTBooster(cfg, train_set,
-                                       create_objective(cfg))
+            objective = create_objective(cfg)
+            if hasattr(objective, "set_dataset"):
+                objective.set_dataset(train_set)
+            self._engine = GBDTBooster(cfg, train_set, objective)
+            self._num_class = cfg.num_class
             self._feature_names = train_set.get_feature_name()
             self._feature_infos = train_set.feature_infos()
             self._objective_str = self._objective_repr(cfg)
@@ -263,6 +288,20 @@ class Booster:
                 "At least one of train_set, model_file or model_str "
                 "should be not None")
 
+    def _blank(self, params) -> None:
+        """The state of a Booster without trees."""
+        self.params = params or {}
+        self.best_iteration = -1
+        self.pandas_categorical = None
+        self._engine = None
+        self._trees: List = []
+        self._cfg: Optional[Config] = None
+        self._num_class = 1
+        self._feature_names: List[str] = []
+        self._feature_infos: List[str] = []
+        self._objective_str = "none"
+        self._avg_output = False
+
     @property
     def _models(self) -> List:
         return self._engine.models if self._engine is not None \
@@ -270,9 +309,17 @@ class Booster:
 
     @staticmethod
     def _objective_repr(cfg: Config) -> str:
-        if cfg.objective == "binary":
+        """The model text's objective line, as the JAX package writes
+        it."""
+        o = cfg.objective
+        if o == "binary":
             return f"binary sigmoid:{cfg.sigmoid:g}"
-        return cfg.objective
+        if o == "multiclass":
+            return f"multiclass num_class:{cfg.num_class}"
+        if o == "multiclassova":
+            return (f"multiclassova num_class:{cfg.num_class} "
+                    f"sigmoid:{cfg.sigmoid:g}")
+        return o
 
     # -- training -------------------------------------------------------
     def update(self) -> bool:
@@ -282,8 +329,14 @@ class Booster:
     def num_trees(self) -> int:
         return len(self._models)
 
+    def current_iteration(self) -> int:
+        return len(self._models) // self.num_model_per_iteration()
+
     def num_model_per_iteration(self) -> int:
-        return 1
+        """K: trees per iteration (the classes of a multiclass model)."""
+        if self._engine is not None:
+            return self._engine.K
+        return max(1, self._num_class)
 
     def num_feature(self) -> int:
         if self._engine is not None:
@@ -328,7 +381,7 @@ class Booster:
         imp = np.zeros((self.num_feature(),), np.float64)
         trees = self._models
         if iteration is not None and iteration > 0:
-            trees = trees[:iteration]
+            trees = trees[:iteration * self.num_model_per_iteration()]
         for t in trees:
             for i in range(t.num_nodes):
                 f = int(t.split_feature[i])

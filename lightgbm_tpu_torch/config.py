@@ -137,6 +137,10 @@ ALIASES: Dict[str, str] = {
     "is_training_metric": "is_provide_training_metric",
     "train_metric": "is_provide_training_metric",
     "num_machine": "num_machines",
+    "ndcg_eval_at": "eval_at",
+    "ndcg_at": "eval_at",
+    "map_eval_at": "eval_at",
+    "map_at": "eval_at",
 }
 
 _OBJECTIVE_ALIASES = {
@@ -145,14 +149,13 @@ _OBJECTIVE_ALIASES = {
     "mse": "regression", "l2_root": "regression",
     "root_mean_squared_error": "regression", "rmse": "regression",
     "binary": "binary",
-}
-
-# objectives of the JAX package that wait for a later slice
-_LATER_OBJECTIVES = {
-    "multiclass": 10, "softmax": 10, "multiclassova": 10,
-    "multiclass_ova": 10, "ova": 10, "ovr": 10, "lambdarank": 10,
-    "rank_xendcg": 10, "xendcg": 10, "xe_ndcg": 10, "xe_ndcg_mart": 10,
-    "xendcg_mart": 10,
+    "multiclass": "multiclass", "softmax": "multiclass",
+    "multiclassova": "multiclassova", "multiclass_ova": "multiclassova",
+    "ova": "multiclassova", "ovr": "multiclassova",
+    "lambdarank": "lambdarank",
+    "rank_xendcg": "rank_xendcg", "xendcg": "rank_xendcg",
+    "xe_ndcg": "rank_xendcg", "xe_ndcg_mart": "rank_xendcg",
+    "xendcg_mart": "rank_xendcg",
 }
 
 _Q1 = "ROADMAP.md Queue 1 item {}"
@@ -209,14 +212,11 @@ NOT_IMPLEMENTED: Dict[str, tuple] = {
 
 def canonical_objective(name: str) -> str:
     key = str(name).strip().lower()
-    if key in _LATER_OBJECTIVES:
-        raise NotImplementedError(
-            f"objective={name!r} is not in the port yet "
-            f"({_Q1.format(_LATER_OBJECTIVES[key])})")
     if key not in _OBJECTIVE_ALIASES:
         raise NotImplementedError(
-            f"objective={name!r} is not in the port yet (binary and L2 "
-            f"regression are; the rest is {_Q1.format(11)})")
+            f"objective={name!r} is not in the port yet (binary, L2 "
+            "regression, multiclass, multiclassova, lambdarank and "
+            f"rank_xendcg are; the rest is {_Q1.format(11)})")
     return _OBJECTIVE_ALIASES[key]
 
 
@@ -319,6 +319,16 @@ class Config:
     scale_pos_weight: float = 1.0
     sigmoid: float = 1.0
     boost_from_average: bool = True
+    # learning to rank (lambdarank, rank_xendcg)
+    lambdarank_truncation_level: int = 30
+    lambdarank_norm: bool = True
+    label_gain: List[float] = field(default_factory=list)
+    lambdarank_position_bias_regularization: float = 0.0
+    # read by the port's metric functions (metrics.py, ranking.py); the
+    # metric parameter itself is not in the port yet
+    eval_at: List[int] = field(default_factory=lambda: [1, 2, 3, 4, 5])
+    multi_error_top_k: int = 1
+    auc_mu_weights: List[float] = field(default_factory=list)
     # quantized-gradient training (LightGBM's GradientDiscretizer):
     # int8 gradients/hessians, exact int32 histograms
     use_quantized_grad: bool = False
@@ -350,6 +360,9 @@ class Config:
         "sigmoid": (0.0, None, "gt"),
         "scale_pos_weight": (0.0, None, "gt"),
         "num_grad_quant_bins": (2, None),
+        "lambdarank_truncation_level": (1, None),
+        "num_class": (1, None),
+        "multi_error_top_k": (1, None),
     }
 
     def __post_init__(self) -> None:
@@ -375,7 +388,11 @@ class Config:
                 raise ValueError(f"{name} = {v} should be {op} {lo}")
             if hi is not None and v > hi:
                 raise ValueError(f"{name} = {v} should be <= {hi}")
-        if self.num_class != 1:
+        if self.objective in ("multiclass", "multiclassova"):
+            if self.num_class < 2:
+                raise ValueError(
+                    "num_class must be >= 2 for multiclass objectives")
+        elif self.num_class != 1:
             raise ValueError(
                 f"num_class must be 1 for objective {self.objective}")
         if self.is_unbalance and self.scale_pos_weight != 1.0:
@@ -383,7 +400,8 @@ class Config:
                 "Cannot set is_unbalance and scale_pos_weight at the same "
                 "time")
 
-    _LIST_INT = {"max_bin_by_feature"}
+    _LIST_INT = {"eval_at", "max_bin_by_feature"}
+    _LIST_FLOAT = {"label_gain", "auc_mu_weights"}
 
     @classmethod
     def from_params(cls, params: Optional[Dict[str, Any]]) -> "Config":
@@ -406,6 +424,8 @@ class Config:
             try:
                 if k in cls._LIST_INT:
                     kwargs[k] = _parse_list(v, int)
+                elif k in cls._LIST_FLOAT:
+                    kwargs[k] = _parse_list(v, float)
                 elif f.type in ("bool", bool):
                     kwargs[k] = _parse_bool(v)
                 elif f.type in ("int", int):

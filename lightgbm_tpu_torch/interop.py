@@ -10,7 +10,12 @@ neither ``jax`` nor ``lightgbm_tpu``:
 - :func:`tree_arrays_from_fields` — a grown tree's ``TreeArrays`` fields
   to the port's host ``TreeArrays``;
 - :func:`tree_from_fields` — a host ``Tree``'s fields to the port's
-  ``Tree``.
+  ``Tree``;
+- :func:`booster_from_fields` / :func:`booster_fields` — a whole model
+  (its trees, K trees per iteration with tree ``i`` in class ``i % K``,
+  the objective string and the feature header) into a port ``Booster``
+  and back out as plain fields, from which the JAX package's ``Tree``
+  objects are built as ``Tree(**fields)``.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ from .ops.binning import BinMapper
 from .ops.grow import TreeArrays
 
 __all__ = ["mappers_from_fields", "tree_arrays_from_fields",
-           "tree_from_fields", "TREE_ARRAY_FIELDS"]
+           "tree_from_fields", "booster_from_fields", "booster_fields",
+           "TREE_ARRAY_FIELDS"]
 
 TREE_ARRAY_FIELDS = TreeArrays._fields
 
@@ -78,3 +84,43 @@ def tree_from_fields(fields: Mapping[str, Any]) -> Tree:
         kw[k] = np.asarray(v) if isinstance(v, (np.ndarray, list)) \
             and k not in ("leaf_features", "leaf_coeff") else v
     return Tree(**kw)
+
+
+def booster_from_fields(model: Mapping[str, Any], params=None):
+    """A port ``Booster`` holding a model given as plain fields:
+    ``trees`` (one field dict per tree, as :func:`tree_from_fields`
+    takes), ``num_class`` (K; the trees of iteration ``it`` are
+    ``trees[it * K:(it + 1) * K]``), ``objective`` (the model text's
+    objective string, e.g. ``"multiclass num_class:3"`` or
+    ``"lambdarank"``), ``feature_names`` and ``feature_infos``.
+    ``params`` picks the device (``device_type``) it predicts on."""
+    from .basic import Booster, resolve_device
+    from .config import Config
+    trees = [tree_from_fields(t) for t in model["trees"]]
+    K = max(1, int(model["num_class"]))
+    if len(trees) % K:
+        raise ValueError(f"{len(trees)} trees are not whole iterations of "
+                         f"{K} trees")
+    bst = Booster.__new__(Booster)
+    bst._blank(params)
+    bst._device = resolve_device(Config.from_params(params))
+    bst._trees = trees
+    bst._num_class = K
+    bst._objective_str = str(model["objective"])
+    bst._feature_names = list(model["feature_names"])
+    bst._feature_infos = list(model["feature_infos"])
+    return bst
+
+
+def booster_fields(booster) -> Dict[str, Any]:
+    """A port ``Booster``'s model as plain fields (the form
+    :func:`booster_from_fields` takes), each tree as a dict of numpy
+    arrays and plain values."""
+    return dict(
+        trees=[{f.name: getattr(t, f.name) for f in dataclasses.fields(t)}
+               for t in booster._models],
+        num_class=max(1, booster._num_class),
+        num_tree_per_iteration=booster.num_model_per_iteration(),
+        objective=booster._objective_str,
+        feature_names=list(booster._feature_names),
+        feature_infos=list(booster._feature_infos))

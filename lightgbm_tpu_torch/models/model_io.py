@@ -4,7 +4,9 @@ A copy of ``model_to_string`` and ``load_model_string`` of
 ``lightgbm_tpu/models/model_io.py``: the same LightGBM-compatible
 layout (``tree`` header, ``Tree=i`` blocks, ``end of trees``, feature
 importances, ``parameters:``, ``pandas_categorical``), so a model saved
-by either package loads in the other. The ``parameters:`` block lists
+by either package loads in the other. A model has K = ``num_class``
+trees per iteration (``num_tree_per_iteration``), tree ``i`` in class
+``i % K``. The ``parameters:`` block lists
 the port's own :class:`~lightgbm_tpu_torch.config.Config` fields; no
 loader reads it.
 """
@@ -113,8 +115,15 @@ def load_model_string(booster, s: str) -> None:
         else:
             i += 1
 
+    num_class = int(header.get("num_class", "1"))
+    K = int(header.get("num_tree_per_iteration", max(1, num_class)))
+    if K != max(1, num_class) or len(trees) % K:
+        raise ValueError(
+            f"model text with num_class={num_class}, "
+            f"num_tree_per_iteration={K} and {len(trees)} trees: the port "
+            "reads K = num_class trees per iteration, tree i in class i % K")
     booster._trees = trees
-    booster._num_class = int(header.get("num_class", "1"))
+    booster._num_class = num_class
     booster._objective_str = header.get("objective", "none")
     booster._avg_output = "average_output" in header
     booster._feature_names = header.get("feature_names", "").split()

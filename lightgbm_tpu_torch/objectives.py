@@ -1,12 +1,15 @@
 """Objective functions of the port: gradients, init scores, output
 transforms.
 
-Counterpart of ``lightgbm_tpu/objectives.py`` for the two objectives of
-the main path, ``Binary`` and ``RegressionL2``, with the same interface:
-``grad_hess(score, label, weight) -> (grad, hess)`` on ``[n]`` float32
-tensors, ``boost_from_score(label, weight)`` on host arrays, and
-``convert_output(score)``. The other objectives are ROADMAP.md Queue 1
-items 10 and 11.
+Counterpart of ``lightgbm_tpu/objectives.py`` for ``Binary``,
+``RegressionL2``, ``MulticlassSoftmax`` and ``MulticlassOVA`` (the
+ranking objectives are in ``ranking.py``), with the same interface:
+``grad_hess(score, label, weight) -> (grad, hess)`` on float32 tensors —
+``[n]``, or ``[K, n]`` for the K classes of a multiclass objective —
+``boost_from_score(label, weight)`` on host arrays (``[K]`` init
+scores), and ``convert_output(score)``. Per-row weights multiply the
+gradients and hessians after the formula, as in the JAX package. The
+other objectives are ROADMAP.md Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import torch
 
 from .config import Config
 
-__all__ = ["Objective", "RegressionL2", "Binary", "create_objective"]
+__all__ = ["Objective", "RegressionL2", "Binary", "MulticlassSoftmax",
+           "MulticlassOVA", "create_objective"]
 
 
 def _apply_weight(g, h, weight):
@@ -44,7 +48,7 @@ class Objective:
 
     def boost_from_score(self, label: np.ndarray,
                          weight: Optional[np.ndarray]) -> np.ndarray:
-        return np.zeros((1,), np.float64)
+        return np.zeros((self.num_model_per_iteration,), np.float64)
 
 
 class RegressionL2(Objective):
@@ -112,7 +116,78 @@ class Binary(Objective):
         return np.array([np.log(pavg / (1.0 - pavg)) / self.sigmoid])
 
 
+def _one_hot(label: torch.Tensor, K: int, dtype) -> torch.Tensor:
+    """``[K, n]`` one-hot of integer class labels (all zeros out of
+    range, as ``jax.nn.one_hot``)."""
+    cls = torch.arange(K, device=label.device)[:, None]
+    return (label.to(torch.int32)[None, :] == cls).to(dtype)
+
+
+class MulticlassSoftmax(Objective):
+    """Softmax over K classes; hessians scaled by ``K / (K - 1)``. No
+    boost from average: the init scores are zeros, as in the JAX
+    package."""
+
+    name = "multiclass"
+
+    def __init__(self, cfg: Config):
+        super().__init__(cfg)
+        self.num_class = cfg.num_class
+        self.num_model_per_iteration = cfg.num_class
+
+    def grad_hess(self, score, label, weight):
+        p = self.convert_output(score)
+        K = self.num_class
+        y = _one_hot(label, K, score.dtype)
+        factor = K / (K - 1.0)
+        g = p - y
+        h = factor * p * (1.0 - p)
+        if weight is not None:
+            g = g * weight[None, :]
+            h = h * weight[None, :]
+        return g, h
+
+    def convert_output(self, score):
+        e = torch.exp(score - score.amax(dim=0, keepdim=True))
+        return e / e.sum(dim=0, keepdim=True)
+
+
+class MulticlassOVA(Objective):
+    """One binary (sigmoid) objective per class. The JAX package does not
+    boost OVA from the class averages (LightGBM does): the init scores
+    are zeros here too."""
+
+    name = "multiclassova"
+
+    def __init__(self, cfg: Config):
+        super().__init__(cfg)
+        self.num_class = cfg.num_class
+        self.num_model_per_iteration = cfg.num_class
+        self.sigmoid = cfg.sigmoid
+
+    def grad_hess(self, score, label, weight):
+        sig = self.sigmoid
+        p = torch.sigmoid(sig * score)
+        y = _one_hot(label, self.num_class, score.dtype)
+        g = sig * (p - y)
+        h = sig * sig * p * (1.0 - p)
+        if weight is not None:
+            g = g * weight[None, :]
+            h = h * weight[None, :]
+        return g, h
+
+    def convert_output(self, score):
+        return torch.sigmoid(self.sigmoid * score)
+
+
 def create_objective(cfg: Config) -> Objective:
+    if cfg.objective in ("lambdarank", "rank_xendcg"):
+        from .ranking import create_ranking_objective
+        return create_ranking_objective(cfg)
     if cfg.objective == "binary":
         return Binary(cfg)
+    if cfg.objective == "multiclass":
+        return MulticlassSoftmax(cfg)
+    if cfg.objective == "multiclassova":
+        return MulticlassOVA(cfg)
     return RegressionL2(cfg)

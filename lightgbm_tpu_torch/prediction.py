@@ -5,8 +5,12 @@ Counterpart of ``predict_any`` and ``convert_raw_scores`` in
 constant leaves: the forest is stacked into device tensors, every row
 walks every tree (:func:`ops.predict.predict_leaf_raw`) in float32 —
 thresholds rounded down to float32 so that a float32 feature keeps its
-training-time side, as in the JAX package — and the raw scores are
-converted by the objective named in the model (a sigmoid for binary).
+training-time side, as in the JAX package — tree ``i`` adds to class
+``i % K`` (K trees per iteration), and the raw scores are converted by
+the objective named in the model: a sigmoid for binary, a softmax with
+the row max subtracted for multiclass, a sigmoid per class for
+multiclassova, none for ranking. Scores are ``[n]`` for K = 1, else
+``[n, K]``; ``num_iteration`` counts iterations (K trees each).
 """
 
 from __future__ import annotations
@@ -95,14 +99,16 @@ def predict_any(booster, data, start_iteration: int = 0,
             f"The number of features in data ({X.shape[1]}) is not the "
             f"same as it was in training data ({n_feat}).")
     trees = booster._models
-    total = len(trees)
+    K = booster.num_model_per_iteration()
+    total_iters = len(trees) // max(K, 1)
     if num_iteration is None or num_iteration <= 0:
-        num_iteration = total - start_iteration
-    num_iteration = min(num_iteration, total - start_iteration)
-    sel = trees[start_iteration:start_iteration + num_iteration]
+        num_iteration = total_iters - start_iteration
+    num_iteration = min(num_iteration, total_iters - start_iteration)
+    sel = trees[start_iteration * K:(start_iteration + num_iteration) * K]
     n = X.shape[0]
     if not sel:
-        return np.zeros((n,), np.float64)
+        out = np.zeros((n, K), np.float64)
+        return out[:, 0] if K == 1 else out
     device = booster._device
     stacked = stack_trees(sel, device)
     Xd = torch.as_tensor(X, dtype=torch.float32, device=device)
@@ -110,10 +116,12 @@ def predict_any(booster, data, start_iteration: int = 0,
     if pred_leaf:
         return leaves.T.to(torch.int32).cpu().numpy()
     vals = stacked.leaf_value.gather(1, leaves)
-    out = vals.sum(dim=0).cpu().numpy().astype(np.float64)
+    # tree i adds to class i % K
+    scores = vals.reshape(-1, K, n).sum(dim=0)                 # [K, n]
+    out = scores.T.cpu().numpy().astype(np.float64)
     if not raw_score:
         out = convert_raw_scores(booster._objective_str, out)
-    return out
+    return out[:, 0] if K == 1 else out
 
 
 def convert_raw_scores(objective_str: Optional[str],
@@ -127,10 +135,17 @@ def convert_raw_scores(objective_str: Optional[str],
     if name == "binary":
         sig = float(kv.get("sigmoid", 1.0))
         return 1.0 / (1.0 + np.exp(-sig * out))
+    if name in ("multiclass", "softmax"):
+        e = np.exp(out - out.max(axis=1, keepdims=True))
+        return e / e.sum(axis=1, keepdims=True)
+    if name == "multiclassova":
+        sig = float(kv.get("sigmoid", 1.0))
+        return 1.0 / (1.0 + np.exp(-sig * out))
     if name in ("regression", "regression_l2") and "sqrt" in flags:
         return np.sign(out) * out * out
-    if name in ("regression", "regression_l2", "none", "custom"):
+    if name in ("regression", "regression_l2", "lambdarank", "rank_xendcg",
+                "none", "custom"):
         return out
     raise NotImplementedError(
         f"output transform of objective {name!r} is not in the port yet "
-        "(ROADMAP.md Queue 1 items 10, 11)")
+        "(ROADMAP.md Queue 1 item 11)")

@@ -330,8 +330,8 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
 
 @pytest.mark.parametrize("params", [
     {"bagging_fraction": 0.5, "bagging_freq": 1},
-    {"objective": "multiclass", "num_class": 3},
-    {"objective": "lambdarank"},
+    {"objective": "huber"},
+    {"objective": "regression_l1"},
     {"boosting": "dart"},
     {"feature_fraction": 0.5},
     {"linear_tree": True},
