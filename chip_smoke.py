@@ -59,6 +59,22 @@ Phases, in order; any failure exits non-zero:
              launch counter, and a plain-kernel twin with the same seed
              (first tree identical, AUC within 0.002); AUC not below the
              float path's less 0.01;
+6b. train_valid — the main path with this slice's features on the same
+             data: a 500k-row valid set binned with the train set's
+             mappers, metric=[auc, binary_logloss], bagging 0.8 every
+             iteration, feature_fraction 0.8, record_evaluation and
+             early_stopping(5); 1 warm-up + 5 timed iterations (iter_s,
+             eval_ms, the idle share, the in-bag window sizes); every
+             tree's root count equal to its iteration's in-bag count, the
+             last recorded valid AUC equal to the AUC of predict, and
+             against the plain twin (same seeds) the same root splits and
+             AUC within 0.002;
+6c. train_goss — GOSS (learning_rate 0.5, so sampling from iteration 2)
+             on the same Dataset, 1 warm-up + 3 timed iterations: every
+             sampled iteration keeps its top rows plus its sampled rest,
+             root counts equal to them; against the plain twin with
+             float64 histogram sums the same root splits and AUC within
+             0.002;
 7. small runs — uint16 bins (max_bin=400) held to the float standard,
              and a deterministic quantized run (200k x 28, no stochastic
              rounding) whose every tree equals its plain twin's;
@@ -72,7 +88,7 @@ Phases, in order; any failure exits non-zero:
              the plain twin the same root split and NDCG@10 within 0.002;
 9. train_multiclass — softmax multiclass at Covertype's shape (531,012 +
              50,000 held-out rows x 54 features, 7 classes, 255 leaves,
-             enable_bundle=False): 1 warm-up + 3 timed iterations of 7
+             enable_bundle=False): 1 warm-up + 2 timed iterations of 7
              trees, held-out multi_logloss and accuracy, every row's
              probabilities summing to 1, launch counters, one profiled
              iteration; against the plain twin, whose float histograms
@@ -82,6 +98,17 @@ Phases, in order; any failure exits non-zero:
              multi_logloss within 0.002; then one multiclassova and one
              quantized iteration, each with its 7 trees identical to its
              plain twin's;
+9b. train_multiclass_dart — BASELINE.json's config 4: DART (drop_rate
+             0.1, skip_drop 0) on train_multiclass's Dataset with its
+             50,000 rows as a valid set (multi_logloss), 1 warm-up + 3
+             timed iterations of 7 trees; every tree after drop and
+             normalize identical to the float64-sum plain twin's, and the
+             recorded multi_logloss equal;
+9c. small rf and cv runs — a random forest (200k x 28, bagging 0.632, 3
+             iterations): save/load, its raw scores the mean of its
+             iterations', the JAX package's average_output model
+             (JAX_RF_MODEL) predicting JAX's numbers; cv (3 folds, 3
+             rounds, early stopping);
 10. report — the card's name and power limit, then one JSON line with
              every kernel's launches (by path), times, bound and library
              time.
@@ -1245,7 +1272,8 @@ def _drive(torch, lgb, dev, params, ds, Xv, yv, iters, tag, scorer=None,
         torch.cuda.synchronize()
         iter_s.append(time.perf_counter() - t0)
     t0 = time.perf_counter()
-    p = bst.predict(Xv)
+    # every iteration: train() set best_iteration to the warm-up's one
+    p = bst.predict(Xv, num_iteration=bst.current_iteration())
     torch.cuda.synchronize()
     predict_s = time.perf_counter() - t0
     counts = _read_counts()
@@ -1939,11 +1967,434 @@ def phase_train_multiclass(torch, lgb, dev, iters):
                                  "differ from the plain run's")
         variants[tag] = dict(counts=counts, leaves=leaves, same_trees=same,
                              bit_equal_leaf_values=exact)
-    del ds
     return dict(r, multi_logloss_plain=m_p["multi_logloss"],
                 multi_logloss_plain_f32=m_f["multi_logloss"],
                 f32_drift=f32_drift, construct_s=construct_s, profile=prof,
-                variants=variants)
+                variants=variants, ds=ds, Xv=Xv, yv=yv, scorer=scorer,
+                params=params)
+
+
+class _RowWeights:
+    """Records the row weights ``_row_weights`` gives each iteration of
+    an engine (bagging or GOSS): the in-bag count, the rows kept at
+    weight 1 and the amplified ones."""
+
+    def __init__(self, engine):
+        self.seen = []
+        inner = engine._row_weights
+
+        def wrapped(it, g, h):
+            w = inner(it, g, h)
+            if w is not None:
+                self.seen.append(dict(
+                    iteration=it, in_bag=int((w > 0).sum()),
+                    weight_one=int((w == 1).sum()),
+                    amplified=int((w > 1).sum())))
+            return w
+        engine._row_weights = wrapped
+
+
+def _root_counts(bst):
+    """Each tree's root count: its in-bag rows."""
+    return [int(t.internal_count[0]) if t.num_leaves > 1
+            else int(t.leaf_count[0]) for t in bst._models]
+
+
+def _roots(bst):
+    return [(int(t.split_feature[0]), int(t.threshold_bin[0]))
+            for t in bst._models if t.num_leaves > 1]
+
+
+def _iteration_clock(torch):
+    """Callbacks that time every iteration of ``train`` (the update, then
+    the valid sets' scoring and metrics, which come before the
+    after-iteration callbacks): ``(callbacks, seconds)``, ``seconds``
+    filled as training runs."""
+    stamps, seconds = [], []
+
+    def before(env):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    before.before_iteration = True
+    before.order = -1
+
+    def after(env):
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - stamps[-1])
+    # first of the after-iteration callbacks, so early stopping's
+    # exception cannot skip it
+    after.order = -1
+    return [before, after], seconds
+
+
+def _eval_ms(torch, bst):
+    """One iteration's evaluation cost, by CUDA events: scoring the
+    valid set with the last tree (``tree_values`` over its bins, as
+    ``train_one_iter`` does) plus every metric on it."""
+    from lightgbm_tpu_torch.models.gbdt import tree_values
+    v = bst._engine.valid_sets[0]
+    tree = bst._models[-1]
+    score_ms = events_ms(lambda: tree_values(tree, v.dataset), 3, torch)
+    metric_ms = events_ms(bst.eval_valid, 3, torch)
+    return score_ms, metric_ms
+
+
+def phase_train_valid(torch, lgb, dev, tr, iters):
+    """The main path with this slice's features at the Higgs shape: a
+    500k-row valid set binned with the train set's mappers
+    (``Dataset(reference=)``), ``metric=[auc, binary_logloss]``, bagging
+    (0.8, every iteration), ``feature_fraction=0.8``, and the
+    ``record_evaluation`` and ``early_stopping(5)`` callbacks; 1 warm-up
+    + ``iters`` timed iterations. Each tree's root count equals its
+    iteration's in-bag count; the last recorded valid AUC equals the AUC
+    of ``predict``; against the plain twin (the same generator seeds) the
+    same root split in every tree and AUC within 0.002."""
+    from lightgbm_tpu_torch.metrics import auc
+    ds, Xv, yv = tr["ds"], tr["Xv"], tr["yv"]
+    t0 = time.perf_counter()
+    dv = lgb.Dataset(Xv, label=yv, reference=ds).construct()
+    torch.cuda.synchronize()
+    valid_construct_s = time.perf_counter() - t0
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": BINS,
+              "learning_rate": 0.1, "metric": ["auc", "binary_logloss"],
+              "bagging_fraction": 0.8, "bagging_freq": 1,
+              "feature_fraction": 0.8, "verbosity": -1,
+              "device_type": dev.type}
+    def run(rounds, recorder=None):
+        ev = {}
+        bst = [None]
+        clock, iter_s = _iteration_clock(torch)
+
+        def attach(env):
+            if bst[0] is None:
+                bst[0] = env.model
+                if recorder is not None:
+                    recorder.append(_RowWeights(env.model._engine))
+        attach.before_iteration = True
+        attach.order = -2
+        out = lgb.train(params, ds, rounds, valid_sets=[dv],
+                        valid_names=["valid"],
+                        callbacks=[attach, *clock,
+                                   lgb.record_evaluation(ev),
+                                   lgb.early_stopping(5, verbose=False)])
+        return out, ev, iter_s
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    rec = []
+    bst, ev, iter_s = run(1 + iters, rec)
+    counts = _read_counts()
+    leaves = [t.num_leaves for t in bst._models]
+    _check_counts("train_valid", counts, leaves, "hist")
+    in_bag = [r["in_bag"] for r in rec[0].seen]
+    roots = _root_counts(bst)
+    r_k = _roots(bst)
+    n_iter = bst.current_iteration()
+    p = bst.predict(Xv, num_iteration=n_iter)
+    if p.shape != (len(yv),) or not np.all(np.isfinite(p)):
+        raise AssertionError("train_valid: predictions are not finite [n] "
+                             "values")
+    auc_pred = auc(torch.as_tensor(p, device=dev),
+                   torch.as_tensor(yv, device=dev))
+    auc_rec = ev["valid"]["auc"][-1]
+    score_ms, metric_ms = _eval_ms(torch, bst)
+    prof = profile_iteration(torch, bst)
+    log(f"[train_valid] valid set {len(yv)} rows binned with the train "
+        f"set's mappers in {valid_construct_s:.3f} s; iter_s="
+        f"{[round(x, 4) for x in iter_s]} (the warm-up first; each with "
+        f"its valid scoring and metrics) median_timed_iter_s="
+        f"{statistics.median(iter_s[1:]):.4f} "
+        f"eval_ms={score_ms + metric_ms:.3f} "
+        f"(valid scoring of one tree {score_ms:.3f} + metrics "
+        f"{metric_ms:.3f}, CUDA events) idle_share="
+        f"{prof['idle_share']} in-bag window sizes={in_bag} of "
+        f"{ds.num_data()} rows, root counts={roots}, leaves={leaves}, "
+        f"launches={json.dumps(counts)}")
+    log(f"[train_valid] recorded valid auc={ev['valid']['auc']} "
+        f"binary_logloss={ev['valid']['binary_logloss']}; auc of predict="
+        f"{auc_pred!r} recorded={auc_rec!r} best_iteration="
+        f"{bst.best_iteration}")
+    if roots != in_bag:
+        raise AssertionError(f"train_valid: root counts {roots} are not the "
+                             f"in-bag counts {in_bag}")
+    if not all(0.79 * ds.num_data() < b < 0.81 * ds.num_data()
+               for b in in_bag):
+        raise AssertionError("train_valid: in-bag counts far from 0.8 n")
+    if abs(auc_rec - auc_pred) > 1e-5:
+        raise AssertionError(f"train_valid: recorded AUC {auc_rec} is not "
+                             f"the AUC of predict {auc_pred}")
+    from lightgbm_tpu_torch.ops.histogram import plain_kernels
+    with plain_kernels():
+        ref, ev_p, _ = run(1 + iters)
+    r_p = _roots(ref)
+    auc_p = ev_p["valid"]["auc"][-1]
+    log(f"[train_valid] plain twin: recorded valid auc={ev_p['valid']['auc']}"
+        f"; root splits kernel={r_k} plain={r_p}")
+    if r_k != r_p:
+        raise AssertionError("train_valid: root splits differ from the "
+                             "plain run's")
+    if abs(auc_rec - auc_p) > 0.002:
+        raise AssertionError(f"train_valid: AUC {auc_rec} not within 0.002 "
+                             f"of the plain run's {auc_p}")
+    del bst, ref
+    return dict(counts=counts, leaves=leaves, iter_s=iter_s,
+                eval_ms=score_ms + metric_ms, eval_score_ms=score_ms,
+                eval_metric_ms=metric_ms, in_bag=in_bag, auc=auc_rec,
+                auc_predict=auc_pred, auc_plain=auc_p, profile=prof,
+                valid_construct_s=valid_construct_s, history=ev)
+
+
+def phase_train_goss(torch, lgb, dev, tr, iters):
+    """GOSS on the main path's data and Dataset (``learning_rate=0.5``,
+    so GOSS samples from iteration int(1 / 0.5) = 2): 1 warm-up +
+    ``iters`` timed iterations. Each sampled iteration's in-bag count is
+    its top rows plus its sampled rest, and each tree's root count is
+    its in-bag count; the plain twin, whose float histograms sum in
+    float64, has the same root splits and AUC within 0.002."""
+    ds, Xv, yv = tr["ds"], tr["Xv"], tr["yv"]
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": BINS,
+              "learning_rate": 0.5, "data_sample_strategy": "goss",
+              "verbosity": -1, "device_type": dev.type}
+    rec = []
+
+    def after_warmup(bst):
+        rec.append(_RowWeights(bst._engine))
+        return {}
+    r = _drive(torch, lgb, dev, params, ds, Xv, yv, iters, "train_goss",
+               after_warmup=after_warmup)
+    _check_counts("train_goss", r["counts"], r["leaves"], "hist")
+    seen = rec[0].seen
+    roots = _root_counts(r["bst"])
+    r_k = _roots(r["bst"])
+    n = ds.num_data()
+    log(f"[train_goss] sampled iterations {seen} of {n} rows (top_rate "
+        f"0.2, other_rate 0.1: about {0.2 * n:.0f} + {0.1 * n:.0f}); "
+        f"root counts={roots}")
+    if len(seen) < 2:
+        raise AssertionError("train_goss: GOSS sampled fewer than 2 "
+                             "iterations")
+    for s_ in seen:
+        if s_["in_bag"] != s_["weight_one"] + s_["amplified"] \
+                or roots[s_["iteration"]] != s_["in_bag"] \
+                or not 0.19 * n <= s_["weight_one"] <= 0.25 * n:
+            raise AssertionError(f"train_goss: iteration {s_} does not "
+                                 "keep its top rows and sampled rest")
+    prof = profile_iteration(torch, r["bst"])
+    # the twin's float histograms sum in float64: GOSS weights its
+    # sampled rows by 8, and float32 atomics over such windows drift
+    # (see exact_float_sums), while the rows GOSS keeps depend on every
+    # earlier tree
+    with exact_float_sums(torch):
+        bst_p, m_p = _plain_twin(torch, lgb, dev, params, ds, Xv, yv,
+                                 1 + iters, "train_goss")
+    r_p = _roots(bst_p)
+    log(f"[train_goss] root splits kernel={r_k} plain={r_p}")
+    if r_k != r_p:
+        raise AssertionError("train_goss: root splits differ from the "
+                             "plain run's")
+    if abs(r["auc"] - m_p["auc"]) > 0.002:
+        raise AssertionError(f"train_goss: AUC {r['auc']} not within 0.002 "
+                             f"of the plain run's {m_p['auc']}")
+    del r["bst"], bst_p
+    return dict(r, auc_plain=m_p["auc"], sampled=seen, profile=prof)
+
+
+def phase_train_multiclass_dart(torch, lgb, dev, trm, iters):
+    """BASELINE.json's config 4 at Covertype's shape: DART multiclass on
+    ``train_multiclass``'s data and Dataset (531,012 + 50,000 rows x 54,
+    7 classes, 255 leaves, ``enable_bundle=False``), ``drop_rate=0.1``,
+    ``metric=multi_logloss`` on the 50,000 held-out rows as a valid set;
+    1 warm-up + ``iters`` timed iterations of 7 trees. ``skip_drop=0``:
+    with DART's default of 0.5 each iteration skips its drop with
+    probability 1/2, and a run this short could drop nothing. Against
+    the plain twin whose float sums are exact (``exact_float_sums``),
+    every tree (after drop and normalize) is the same and the recorded
+    multi_logloss is equal to 1e-5."""
+    from lightgbm_tpu_torch.ops.histogram import plain_kernels
+    ds, Xv, yv = trm["ds"], trm["Xv"], trm["yv"]
+    dv = lgb.Dataset(Xv, label=yv, reference=ds).construct()
+    params = {**trm["params"], "boosting": "dart", "drop_rate": 0.1,
+              "skip_drop": 0.0, "metric": "multi_logloss"}
+    def run():
+        ev = {}
+        clock, iter_s = _iteration_clock(torch)
+        bst = lgb.train(params, ds, 1 + iters, valid_sets=[dv],
+                        valid_names=["valid"],
+                        callbacks=[*clock, lgb.record_evaluation(ev)])
+        return bst, ev, iter_s
+    _reset_counts()
+    bst, ev, iter_s = run()
+    counts = _read_counts()
+    leaves = [t.num_leaves for t in bst._models]
+    _check_counts("train_multiclass_dart", counts, leaves, "hist")
+    shrink = [round(t.shrinkage, 6) for t in bst._models]
+    m = trm["scorer"](bst.predict(Xv))
+    with plain_kernels(), exact_float_sums(torch):
+        ref, ev_p, _ = run()
+    same = [int(_same_structure(a, b) and np.allclose(
+        a.leaf_value, b.leaf_value, rtol=1e-4, atol=1e-5)
+        and a.shrinkage == b.shrinkage)
+        for a, b in zip(bst._models, ref._models)]
+    ll, ll_p = ev["valid"]["multi_logloss"], ev_p["valid"]["multi_logloss"]
+    log(f"[train_multiclass_dart] skip_drop=0 so that every iteration after "
+        f"the first drops trees (at DART's default 0.5 a {1 + iters}-"
+        f"iteration run may drop none); "
+        f"iter_s={[round(x, 4) for x in iter_s]} (the "
+        f"warm-up first) leaves={leaves} launches={json.dumps(counts)} "
+        f"tree shrinkage after drops={shrink}; recorded valid "
+        f"multi_logloss={ll} plain={ll_p}; predict multi_logloss="
+        f"{m['multi_logloss']!r} accuracy={m['accuracy']!r}; trees "
+        f"identical to the plain run's: {same}")
+    if len(same) != COV_CLASSES * (1 + iters) or not all(same):
+        raise AssertionError("train_multiclass_dart: trees differ from the "
+                             "plain run's")
+    if not any(s_ < 0.1 - 1e-9 for s_ in shrink):
+        raise AssertionError("train_multiclass_dart: no tree was dropped")
+    if not np.allclose(ll, ll_p, rtol=0, atol=1e-5):
+        raise AssertionError("train_multiclass_dart: recorded multi_logloss "
+                             "differs from the plain run's")
+    del bst, ref
+    return dict(counts=counts, leaves=leaves, iter_s=iter_s,
+                recorded_multi_logloss=ll, recorded_multi_logloss_plain=ll_p,
+                predict_multi_logloss=m["multi_logloss"],
+                accuracy=m["accuracy"], shrinkage=shrink, same_trees=same)
+
+
+# A random forest written by the JAX package (lightgbm_tpu.train with
+# boosting=rf, bagging_fraction=0.632, bagging_freq=1, num_leaves=4, 2
+# iterations on 400 rows x 3 features), and its predictions on
+# JAX_RF_ROWS: probabilities and raw scores
+JAX_RF_MODEL = """tree
+version=v4
+num_class=1
+num_tree_per_iteration=1
+label_index=0
+max_feature_idx=2
+objective=binary sigmoid:1
+average_output
+feature_names=Column_0 Column_1 Column_2
+feature_infos=[-2.36959:2.41245] [-3.04614:3.17097] [-2.65562:2.69622]
+tree_sizes=507 508
+
+Tree=0
+num_leaves=4
+num_cat=0
+split_feature=0 1 1
+split_gain=115.193 27.5521 15.1993
+threshold=0.041882283636099187 0.80848810914213076 -0.31799185609860103
+decision_type=0 0 0
+left_child=1 -1 -2
+right_child=2 -3 -4
+leaf_value=-1.7270087667147784 0.37875532430008363 0.48322974961594056 \
+1.9098009399731488
+leaf_weight=25.477 9.24167 7.24347 21.7304
+leaf_count=102 37 29 87
+internal_value=0.0706878 -1.23772 1.45296
+internal_weight=63.6926 32.7205 30.9721
+internal_count=255 131 124
+is_linear=0
+shrinkage=1
+
+Tree=1
+num_leaves=4
+num_cat=0
+split_feature=0 1 1
+split_gain=100.159 19.7433 16.9917
+threshold=0.23884295384435172 0.70021091237645705 -0.21824529913393112
+decision_type=0 0 0
+left_child=1 -1 -2
+right_child=2 -3 -4
+leaf_value=-1.6450089879672198 0.28600772541359376 0.11778798025444459 \
+2.0018384985287518
+leaf_weight=25.2273 8.74212 8.49235 16.9847
+leaf_count=101 35 34 68
+internal_value=-0.0672514 -1.20105 1.41879
+internal_weight=59.4464 33.7196 25.7268
+internal_count=238 135 103
+is_linear=0
+shrinkage=1
+
+end of trees
+
+feature_importances:
+Column_1=4
+Column_0=2
+
+parameters:
+end of parameters
+
+pandas_categorical:null
+"""
+JAX_RF_ROWS = [[0.5, -1.0, 0.2], [-0.3, 0.8, float("nan")],
+               [2.0, 0.1, -1.5], [-1.2, -0.4, 0.0]]
+JAX_RF_PRED = [0.58233873, 0.30904017, 0.87607983, 0.15630143]
+JAX_RF_RAW = [0.33238155, -0.80461043, 1.95581961, -1.68600893]
+
+
+def phase_small_rf_cv(torch, lgb, dev):
+    """Two small correctness runs on 200,000 x 28 rows. A random forest
+    (``bagging_fraction=0.632``, every iteration; 3 iterations): its
+    predictions after a save and load equal the in-memory ones, its raw
+    scores are the mean of its iterations' and equal its running-average
+    train score, and the JAX package's ``average_output`` model
+    (:data:`JAX_RF_MODEL`) predicts JAX's numbers on the card. Then
+    ``cv`` with 3 folds, 3 rounds and early stopping."""
+    X, y = make_higgs_like(200_000, FEATURES, seed=3)
+    base = {"objective": "binary", "num_leaves": 63, "max_bin": BINS,
+            "verbosity": -1, "device_type": dev.type}
+    ds = lgb.Dataset(X, label=y, params=base)
+    params = {**base, "boosting": "rf", "bagging_fraction": 0.632,
+              "bagging_freq": 1}
+    _reset_counts()
+    bst = lgb.train(params, ds, 3)
+    counts = _read_counts()
+    Xs = X[:20_000]
+    raw = bst.predict(Xs, raw_score=True)
+    per_iter = np.mean([bst.predict(Xs, start_iteration=i, num_iteration=1,
+                                    raw_score=True) for i in range(3)],
+                       axis=0)
+    train_score = bst._engine.score[0, :20_000].cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rf.txt")
+        bst.save_model(path)
+        loaded = lgb.Booster(model_file=path, params={"device_type":
+                                                      dev.type})
+        rt = float(np.abs(loaded.predict(Xs) - bst.predict(Xs)).max())
+        path = os.path.join(tmp, "jax_rf.txt")
+        with open(path, "w") as f:
+            f.write(JAX_RF_MODEL)
+        jb = lgb.Booster(model_file=path, params={"device_type": dev.type})
+        jrows = np.asarray(JAX_RF_ROWS)
+        jerr = max(float(np.abs(jb.predict(jrows) - JAX_RF_PRED).max()),
+                   float(np.abs(jb.predict(jrows, raw_score=True)
+                                - JAX_RF_RAW).max()))
+    mean_err = float(np.abs(raw - per_iter).max())
+    score_err = float(np.abs(raw - train_score).max())
+    log(f"[small_rf] 200000x28, 3 iterations of "
+        f"{[t.num_leaves for t in bst._models]} "
+        f"leaves, root counts={_root_counts(bst)}, launches="
+        f"{json.dumps(counts)}; save/load max abs diff={rt:.3g}; raw = mean "
+        f"of the iterations' to {mean_err:.3g}, = the running-average train "
+        f"score to {score_err:.3g}; the JAX package's average_output model "
+        f"on the card: max abs err {jerr:.3g} against JAX's predictions")
+    _check_counts("small_rf", counts, [t.num_leaves for t in bst._models],
+                  "hist")
+    if rt > 1e-6 or mean_err > 1e-5 or score_err > 1e-4 or jerr > 1e-6:
+        raise AssertionError("small_rf: a random forest check failed")
+    res = lgb.cv({**base, "early_stopping_round": 2, "learning_rate": 0.3},
+                 ds, 3, nfold=3, return_cvbooster=True)
+    cvb = res.pop("cvbooster")
+    log(f"[small_cv] 3 folds of 200000 rows, 3 rounds: "
+        + " ".join(f"{k}={v}" for k, v in res.items())
+        + f" best_iteration={cvb.best_iteration}")
+    if sorted(res) != ["valid binary_logloss-mean",
+                       "valid binary_logloss-stdv"] \
+            or not 1 <= len(res["valid binary_logloss-mean"]) <= 3 \
+            or not np.all(np.isfinite(res["valid binary_logloss-mean"])) \
+            or len(cvb.boosters) != 3:
+        raise AssertionError(f"small_cv: unexpected result {res}")
+    return dict(rf_counts=counts, cv=res)
+
 
 
 def _f32_drift(torch, ds, yt):
@@ -1980,7 +2431,8 @@ def main(argv=None):
                     help="training rows (default: the Higgs 10.5M)")
     ap.add_argument("--iters", type=int, default=5,
                     help="timed iterations after the warm-up one (at most "
-                         "3 in train_rank and train_multiclass)")
+                         "3 in train_goss, train_rank and "
+                         "train_multiclass_dart, 2 in train_multiclass)")
     ap.add_argument("--reps", type=int, default=20,
                     help="launches per kernel timing")
     ap.add_argument("--parent", default=None,
@@ -2031,15 +2483,25 @@ def main(argv=None):
     turns = tr["turns"]
     done("train")
     trq = phase_train_quant(torch, lgb, dev, tr, args.iters)
-    del tr["ds"]
     done("train_quant")
+    tv = phase_train_valid(torch, lgb, dev, tr, args.iters)
+    done("train_valid")
+    tg = phase_train_goss(torch, lgb, dev, tr, min(args.iters, 3))
+    del tr["ds"]
+    done("train_goss")
     phase_train_u16(torch, lgb, dev)
     phase_train_quant_small(torch, lgb, dev)
     done("small runs")
     trr = phase_train_rank(torch, lgb, dev, min(args.iters, 3))
     done("train_rank")
-    trm = phase_train_multiclass(torch, lgb, dev, min(args.iters, 3))
+    trm = phase_train_multiclass(torch, lgb, dev, min(args.iters, 2))
     done("train_multiclass")
+    trd = phase_train_multiclass_dart(torch, lgb, dev, trm,
+                                      min(args.iters, 3))
+    del trm["ds"]
+    done("train_multiclass_dart")
+    phase_small_rf_cv(torch, lgb, dev)
+    done("small rf and cv runs")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2075,7 +2537,10 @@ def main(argv=None):
     def launches(key):
         return {"train": tr["counts"][key], "train_quant": trq["counts"][key],
                 "train_rank": trr["counts"][key],
-                "train_multiclass": trm["counts"][key]}
+                "train_multiclass": trm["counts"][key],
+                "train_valid": tv["counts"][key],
+                "train_goss": tg["counts"][key],
+                "train_multiclass_dart": trd["counts"][key]}
 
     part = entry("partition", "lightgbm_tpu_torch/csrc/partition.cu",
                  "lightgbm_tpu/ops/partition_kernel.py:97",

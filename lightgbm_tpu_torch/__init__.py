@@ -1,8 +1,10 @@
 """lightgbm_tpu_torch: the PyTorch/CUDA port of ``lightgbm_tpu``.
 
 A second package beside the JAX one, with the same public names for
-the part that is ported (binary and L2 training on dense numerical data,
-prediction, model text), running on an NVIDIA GPU by default
+the part that is ported (binary, L2, multiclass and ranking training
+on dense numerical data with valid sets, metrics, callbacks, ``cv``,
+bagging, GOSS, column sampling, DART and random forests; prediction;
+model text), running on an NVIDIA GPU by default
 (``device_type="cuda"``; ``"cpu"`` on request). Its two kernels —
 the gradient histogram (K1, ``csrc/hist.cu``) and the stable row
 partition (K2, ``csrc/partition.cu``) — are CUDA C++ for ``sm_90a``,
@@ -16,7 +18,12 @@ built by ``nvcc`` at first use. It imports neither ``jax`` nor
 """
 
 from .basic import Booster, Dataset, LightGBMError
-from .engine import train
+from .callback import (CallbackEnv, EarlyStopException, early_stopping,
+                       log_evaluation, record_evaluation, reset_parameter)
+from .engine import CVBooster, cv, train
 
-__all__ = ["Booster", "Dataset", "LightGBMError", "train"]
+__all__ = ["Booster", "Dataset", "LightGBMError", "train", "cv",
+           "CVBooster", "CallbackEnv", "EarlyStopException",
+           "early_stopping", "log_evaluation", "record_evaluation",
+           "reset_parameter"]
 __version__ = "0.1.0"

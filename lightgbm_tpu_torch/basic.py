@@ -4,16 +4,18 @@ Counterpart of ``lightgbm_tpu/basic.py`` for the ported paths: a dense
 numerical matrix (NaN allowed) with labels, optional weights and, for
 learning to rank, query groups and result-list positions is binned
 once — mappers found on the host from a row sample, exactly as
-the JAX package does, the bin matrix built on the device — and kept as
-a row-major ``[n, F]`` u8 tensor (u16 when a feature has more than 256
-bins), the layout the grower streams. ``Booster`` trains through
-``models/gbdt.py``, predicts through ``prediction.py`` and reads and
-writes the JAX package's model text.
+the JAX package does, or taken from a ``reference`` Dataset (a valid
+set), the bin matrix built on the device — and kept as a row-major
+``[n, F]`` u8 tensor (u16 when a feature has more than 256 bins), the
+layout the grower streams. ``Booster`` trains through
+``models/gbdt.py`` (with valid sets and their metrics: ``add_valid``,
+``eval_train``, ``eval_valid``), predicts through ``prediction.py`` and
+reads and writes the JAX package's model text.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,20 +50,14 @@ class Dataset:
                  feature_name="auto", categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True, position=None):
-        if init_score is not None:
-            raise NotImplementedError(
-                "init_score is not in the port yet (ROADMAP.md Queue 1 "
-                "item 12)")
-        if reference is not None:
-            raise NotImplementedError(
-                "Datasets aligned to a reference (valid sets) are not in "
-                "the port yet (ROADMAP.md Queue 1 item 12)")
         if categorical_feature not in ("auto", None, "", []):
             raise NotImplementedError(
                 "categorical features are not in the port yet (ROADMAP.md "
                 "Queue 1 item 13)")
         self.data = data
         self.label = label
+        self.reference = reference
+        self.init_score = init_score
         self.weight = weight
         self.group = group
         self.position = position
@@ -76,7 +72,9 @@ class Dataset:
         if self._bins is not None:
             return self
         cfg = Config.from_params(self.params)
-        self.device = resolve_device(cfg)
+        # a valid set lives where its reference does
+        self.device = self.reference.construct().device \
+            if self.reference is not None else resolve_device(cfg)
         X = self.data
         try:
             import pandas as pd
@@ -105,11 +103,40 @@ class Dataset:
             raise LightGBMError(
                 f"Length of label ({len(y)}) != number of rows ({n})")
         self._n, self._F_total = n, F
-        names = self.feature_name
-        if not isinstance(names, list):
-            names = [f"Column_{i}" for i in range(F)]
-        self._feature_names = list(names)
+        if self.reference is not None:
+            # the reference's mappers, so the bins line up with its
+            # (LoadFromFileAlignWithOtherDataset)
+            ref = self.reference
+            if ref.num_total_features() != F:
+                raise LightGBMError(
+                    f"The number of features in data ({F}) is not the "
+                    f"same as it was in the reference ({ref._F_total})")
+            self.mappers = ref.mappers
+            self._used_features = ref._used_features
+            self._feature_names = list(ref._feature_names)
+        else:
+            names = self.feature_name
+            if not isinstance(names, list):
+                names = [f"Column_{i}" for i in range(F)]
+            self._feature_names = list(names)
+            self._find_mappers(cfg, X)
+        self._bins = bin_matrix(X, self._used_features, self.mappers,
+                                device=self.device)
+        self._F = len(self.mappers)
+        self.label = y
+        self.weight = None if self.weight is None else \
+            np.asarray(self.weight, np.float64).ravel()
+        self.set_init_score(self.init_score)
+        if self.group is not None:
+            self.set_group(self.group)
+            if self._query_boundaries[-1] != n:
+                raise LightGBMError("Sum of group sizes != number of rows")
+        if self.free_raw_data:
+            self.data = None
+        return self
 
+    def _find_mappers(self, cfg: Config, X: np.ndarray) -> None:
+        n, F = X.shape
         sample_cnt = min(cfg.bin_construct_sample_cnt, n)
         if sample_cnt < n:
             rng = np.random.RandomState(cfg.data_random_seed)
@@ -130,19 +157,6 @@ class Dataset:
         self._used_features = np.asarray(used, dtype=np.int32)
         self.mappers = [full[j] for j in used]
         self._check_bundling(cfg)
-        self._bins = bin_matrix(X, self._used_features, self.mappers,
-                                device=self.device)
-        self._F = len(self.mappers)
-        self.label = y
-        self.weight = None if self.weight is None else \
-            np.asarray(self.weight, np.float64).ravel()
-        if self.group is not None:
-            self.set_group(self.group)
-            if self._query_boundaries[-1] != n:
-                raise LightGBMError("Sum of group sizes != number of rows")
-        if self.free_raw_data:
-            self.data = None
-        return self
 
     def _check_bundling(self, cfg: Config) -> None:
         """The JAX package bundles mutually exclusive sparse features
@@ -166,6 +180,10 @@ class Dataset:
         self.construct()
         return self._bins
 
+    def num_data(self) -> int:
+        self.construct()
+        return self._n
+
     def num_total_features(self) -> int:
         self.construct()
         return self._F_total
@@ -179,6 +197,24 @@ class Dataset:
 
     def get_weight(self):
         return self.weight
+
+    def get_init_score(self):
+        """The user's initial raw scores: ``[n]``, or ``[K * n]``
+        class-major for K trees per iteration (None: none)."""
+        return self.init_score
+
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = None if init_score is None else \
+            np.asarray(init_score, np.float64)
+        return self
+
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None,
+                     position=None) -> "Dataset":
+        """A valid set binned with this Dataset's mappers."""
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       group=group, init_score=init_score,
+                       params=params or self.params, position=position)
 
     def get_group(self) -> Optional[np.ndarray]:
         """Query sizes, or None without groups."""
@@ -215,6 +251,15 @@ class Dataset:
     def used_feature_indices(self) -> np.ndarray:
         self.construct()
         return self._used_features
+
+    def inner_feature_index(self, real_idx) -> np.ndarray:
+        """Positions among the used features of real feature indices (-1:
+        not used)."""
+        self.construct()
+        lut = np.full((self._F_total,), -1, np.int32)
+        lut[self._used_features] = np.arange(len(self._used_features),
+                                             dtype=np.int32)
+        return lut[np.asarray(real_idx, np.int64)]
 
     def feat_num_bins(self) -> np.ndarray:
         self.construct()
@@ -270,10 +315,13 @@ class Booster:
             if hasattr(objective, "set_dataset"):
                 objective.set_dataset(train_set)
             self._engine = GBDTBooster(cfg, train_set, objective)
+            from .metrics import create_metrics
+            self._metrics = create_metrics(cfg)
             self._num_class = cfg.num_class
             self._feature_names = train_set.get_feature_name()
             self._feature_infos = train_set.feature_infos()
             self._objective_str = self._objective_repr(cfg)
+            self._avg_output = cfg.boosting == "rf"
             self.train_set = train_set
         elif model_file is not None or model_str is not None:
             cfg = Config.from_params(params)
@@ -292,6 +340,10 @@ class Booster:
         """The state of a Booster without trees."""
         self.params = params or {}
         self.best_iteration = -1
+        self.best_score: Dict = {}
+        self._train_data_name = "training"
+        self._metrics: List = []
+        self._valid_names: List[str] = []
         self.pandas_categorical = None
         self._engine = None
         self._trees: List = []
@@ -322,9 +374,70 @@ class Booster:
         return o
 
     # -- training -------------------------------------------------------
+    def _preload(self, base: "Booster") -> None:
+        """Continue training from ``base``'s trees (init_model). They are
+        taken through a model-text round trip, so their thresholds are
+        mapped onto this train set's bins (a bin index is only valid for
+        the mappers the tree was grown on)."""
+        parsed = Booster(model_str=base.model_to_string(),
+                         params={"device_type": self._device.type})
+        self._engine.preload_models(parsed._trees)
+        self._engine.init_iteration = int(self._engine.iter_)
+
     def update(self) -> bool:
         """One boosting iteration; True means no tree could grow."""
         return self._engine.train_one_iter()
+
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        """Score ``data`` (binned with the train set's mappers) after
+        every tree, for ``eval_valid``."""
+        data.construct()
+        self._engine.add_valid(data, name)
+        self._valid_names.append(name)
+        return self
+
+    # -- evaluation -------------------------------------------------------
+    def eval_train(self, feval=None) -> List[Tuple]:
+        return self._eval(0, self._train_data_name, feval)
+
+    def eval_valid(self, feval=None) -> List[Tuple]:
+        out = []
+        for i, name in enumerate(self._valid_names):
+            out.extend(self._eval(i + 1, name, feval))
+        return out
+
+    def eval(self, data, name: str, feval=None) -> List[Tuple]:
+        if data is self.train_set:
+            return self._eval(0, self._train_data_name, feval)
+        for i, v in enumerate(self._engine.valid_sets):
+            if v.dataset is data:
+                return self._eval(i + 1, name, feval)
+        raise LightGBMError("Data should be added with add_valid first")
+
+    def _eval(self, data_idx: int, name: str, feval=None) -> List[Tuple]:
+        """``(data name, metric name, value, higher is better)`` of every
+        metric, then of every ``feval(score, dataset)`` (score ``[n]``, or
+        ``[K, n]``, as a numpy array)."""
+        res = self._engine.eval_metrics(self._metrics, data_idx)
+        out = [(name, mname, val, self._metric_higher_better(mname))
+               for mname, val in res.items()]
+        if feval is not None:
+            fevals = feval if isinstance(feval, (list, tuple)) else [feval]
+            score = self._engine.current_score(data_idx)
+            ds = self._engine.train_set if data_idx == 0 else \
+                self._engine.valid_sets[data_idx - 1].dataset
+            for f in fevals:
+                ret = f(score[0] if self._engine.K == 1 else score, ds)
+                for (mn, v, hb) in (ret if isinstance(ret, list)
+                                    else [ret]):
+                    out.append((name, mn, v, hb))
+        return out
+
+    def _metric_higher_better(self, mname: str) -> bool:
+        for m in self._metrics:
+            if m.name == mname:
+                return m.higher_better
+        return False
 
     def num_trees(self) -> int:
         return len(self._models)

@@ -85,6 +85,7 @@ ALIASES: Dict[str, str] = {
     "neg_subsample": "neg_bagging_fraction",
     "neg_bagging": "neg_bagging_fraction",
     "subsample_freq": "bagging_freq",
+    "bagging_fraction_seed": "bagging_seed",
     "sub_feature": "feature_fraction",
     "colsample_bytree": "feature_fraction",
     "sub_feature_bynode": "feature_fraction_bynode",
@@ -101,6 +102,7 @@ ALIASES: Dict[str, str] = {
     "lambda": "lambda_l2",
     "l2_regularization": "lambda_l2",
     "min_split_gain": "min_gain_to_split",
+    "rate_drop": "drop_rate",
     "mc": "monotone_constraints",
     "monotone_constraint": "monotone_constraints",
     "monotonic_cst": "monotone_constraints",
@@ -133,6 +135,7 @@ ALIASES: Dict[str, str] = {
     "objective_seed": "seed",
     "metrics": "metric",
     "metric_types": "metric",
+    "output_freq": "metric_freq",
     "training_metric": "is_provide_training_metric",
     "is_training_metric": "is_provide_training_metric",
     "train_metric": "is_provide_training_metric",
@@ -164,19 +167,6 @@ _TPU_KNOB = "a TPU layout knob of the JAX package with no counterpart " \
 
 # parameter -> (its JAX default, what brings it)
 NOT_IMPLEMENTED: Dict[str, tuple] = {
-    "data_sample_strategy": ("bagging", _Q1.format(12)),
-    "bagging_fraction": (1.0, _Q1.format(12)),
-    "pos_bagging_fraction": (1.0, _Q1.format(12)),
-    "neg_bagging_fraction": (1.0, _Q1.format(12)),
-    "bagging_freq": (0, _Q1.format(12)),
-    "bagging_by_query": (False, _Q1.format(12)),
-    "feature_fraction": (1.0, _Q1.format(12)),
-    "feature_fraction_bynode": (1.0, _Q1.format(12)),
-    "extra_trees": (False, _Q1.format(12)),
-    "early_stopping_round": (0, _Q1.format(12)),
-    "is_provide_training_metric": (False, _Q1.format(12)),
-    "valid": ([], _Q1.format(12)),
-    "metric": ([], _Q1.format(12)),
     "monotone_constraints": ([], _Q1.format(13)),
     "feature_contri": ([], _Q1.format(13)),
     "forcedsplits_filename": ("", _Q1.format(13)),
@@ -291,7 +281,11 @@ class Config:
     package's ``Config``, except ``device_type``)."""
 
     objective: str = "regression"
+    # gbdt | dart | rf ("goss" is gbdt + data_sample_strategy="goss",
+    # "random_forest" is rf, as in the JAX package)
     boosting: str = "gbdt"
+    data_sample_strategy: str = "bagging"  # bagging | goss
+    valid: List[str] = field(default_factory=list)
     num_iterations: int = 100
     learning_rate: float = 0.1
     num_leaves: int = 31
@@ -305,6 +299,36 @@ class Config:
     lambda_l1: float = 0.0
     lambda_l2: float = 0.0
     min_gain_to_split: float = 0.0
+    # row and column sampling
+    bagging_fraction: float = 1.0
+    pos_bagging_fraction: float = 1.0
+    neg_bagging_fraction: float = 1.0
+    bagging_freq: int = 0
+    bagging_seed: int = 3
+    feature_fraction: float = 1.0
+    feature_fraction_bynode: float = 1.0
+    feature_fraction_seed: int = 2
+    # accepted and read by nothing, as in the JAX package
+    bagging_by_query: bool = False
+    extra_trees: bool = False
+    extra_seed: int = 6
+    # dart
+    drop_rate: float = 0.1
+    max_drop: int = 50
+    skip_drop: float = 0.5
+    xgboost_dart_mode: bool = False
+    uniform_drop: bool = False
+    drop_seed: int = 4
+    # goss
+    top_rate: float = 0.2
+    other_rate: float = 0.1
+    # evaluation during training
+    metric: List[str] = field(default_factory=list)
+    metric_freq: int = 1
+    is_provide_training_metric: bool = False
+    early_stopping_round: int = 0
+    early_stopping_min_delta: float = 0.0
+    first_metric_only: bool = False
     verbosity: int = 1
     max_bin: int = 255
     max_bin_by_feature: List[int] = field(default_factory=list)
@@ -324,8 +348,11 @@ class Config:
     lambdarank_norm: bool = True
     label_gain: List[float] = field(default_factory=list)
     lambdarank_position_bias_regularization: float = 0.0
-    # read by the port's metric functions (metrics.py, ranking.py); the
-    # metric parameter itself is not in the port yet
+    # read by the metrics (metrics.py, ranking.py); the huber, quantile,
+    # fair and tweedie objectives are ROADMAP.md Queue 1 item 11
+    alpha: float = 0.9
+    fair_c: float = 1.0
+    tweedie_variance_power: float = 1.5
     eval_at: List[int] = field(default_factory=lambda: [1, 2, 3, 4, 5])
     multi_error_top_k: int = 1
     auc_mu_weights: List[float] = field(default_factory=list)
@@ -354,10 +381,23 @@ class Config:
         "lambda_l1": (0.0, None),
         "lambda_l2": (0.0, None),
         "min_gain_to_split": (0.0, None),
+        "bagging_fraction": (0.0, 1.0, "gt"),
+        "pos_bagging_fraction": (0.0, 1.0, "gt"),
+        "neg_bagging_fraction": (0.0, 1.0, "gt"),
+        "feature_fraction": (0.0, 1.0, "gt"),
+        "feature_fraction_bynode": (0.0, 1.0, "gt"),
+        "drop_rate": (0.0, 1.0),
+        "skip_drop": (0.0, 1.0),
+        "top_rate": (0.0, 1.0),
+        "other_rate": (0.0, 1.0),
+        "metric_freq": (1, None),
         "max_bin": (2, None),
         "min_data_in_bin": (1, None),
         "bin_construct_sample_cnt": (1, None),
         "sigmoid": (0.0, None, "gt"),
+        "alpha": (0.0, None, "gt"),
+        "fair_c": (0.0, None, "gt"),
+        "tweedie_variance_power": (1.0, 2.0),
         "scale_pos_weight": (0.0, None, "gt"),
         "num_grad_quant_bins": (2, None),
         "lambdarank_truncation_level": (1, None),
@@ -369,10 +409,17 @@ class Config:
         self.objective = canonical_objective(self.objective)
         if self.boosting in ("gbrt",):
             self.boosting = "gbdt"
-        if self.boosting != "gbdt":
-            raise NotImplementedError(
-                f"boosting={self.boosting!r} is not in the port yet "
-                f"({_Q1.format(12)})")
+        if self.boosting == "goss":
+            # legacy spelling: boosting=goss means gbdt + goss sampling
+            self.boosting = "gbdt"
+            self.data_sample_strategy = "goss"
+        if self.boosting == "random_forest":
+            self.boosting = "rf"
+        if self.boosting not in ("gbdt", "dart", "rf"):
+            raise ValueError(f"Unknown boosting type: {self.boosting}")
+        if self.data_sample_strategy not in ("bagging", "goss"):
+            raise ValueError(
+                f"Unknown data_sample_strategy: {self.data_sample_strategy}")
         dev = str(self.device_type).strip().lower()
         self.device_type = "cuda" if dev == "gpu" else dev
         if self.device_type not in ("cuda", "cpu"):
@@ -395,6 +442,12 @@ class Config:
         elif self.num_class != 1:
             raise ValueError(
                 f"num_class must be 1 for objective {self.objective}")
+        if self.boosting == "rf":
+            if not (self.bagging_freq > 0
+                    and 0.0 < self.bagging_fraction < 1.0):
+                raise ValueError(
+                    "Random forest needs bagging_freq > 0 and "
+                    "0 < bagging_fraction < 1")
         if self.is_unbalance and self.scale_pos_weight != 1.0:
             raise ValueError(
                 "Cannot set is_unbalance and scale_pos_weight at the same "
@@ -402,6 +455,7 @@ class Config:
 
     _LIST_INT = {"eval_at", "max_bin_by_feature"}
     _LIST_FLOAT = {"label_gain", "auc_mu_weights"}
+    _LIST_STR = {"valid", "metric"}
 
     @classmethod
     def from_params(cls, params: Optional[Dict[str, Any]]) -> "Config":
@@ -426,6 +480,8 @@ class Config:
                     kwargs[k] = _parse_list(v, int)
                 elif k in cls._LIST_FLOAT:
                     kwargs[k] = _parse_list(v, float)
+                elif k in cls._LIST_STR:
+                    kwargs[k] = _parse_list(v, str)
                 elif f.type in ("bool", bool):
                     kwargs[k] = _parse_bool(v)
                 elif f.type in ("int", int):

@@ -13,7 +13,8 @@ neither ``jax`` nor ``lightgbm_tpu``:
   ``Tree``;
 - :func:`booster_from_fields` / :func:`booster_fields` — a whole model
   (its trees, K trees per iteration with tree ``i`` in class ``i % K``,
-  the objective string and the feature header) into a port ``Booster``
+  the objective string, the feature header and ``average_output``, the
+  random-forest flag) into a port ``Booster``
   and back out as plain fields, from which the JAX package's ``Tree``
   objects are built as ``Tree(**fields)``.
 """
@@ -92,8 +93,10 @@ def booster_from_fields(model: Mapping[str, Any], params=None):
     takes), ``num_class`` (K; the trees of iteration ``it`` are
     ``trees[it * K:(it + 1) * K]``), ``objective`` (the model text's
     objective string, e.g. ``"multiclass num_class:3"`` or
-    ``"lambdarank"``), ``feature_names`` and ``feature_infos``.
-    ``params`` picks the device (``device_type``) it predicts on."""
+    ``"lambdarank"``), ``feature_names``, ``feature_infos`` and, for a
+    random forest, ``average_output=True`` (predictions are the mean of
+    the iterations' outputs). ``params`` picks the device
+    (``device_type``) it predicts on."""
     from .basic import Booster, resolve_device
     from .config import Config
     trees = [tree_from_fields(t) for t in model["trees"]]
@@ -109,6 +112,7 @@ def booster_from_fields(model: Mapping[str, Any], params=None):
     bst._objective_str = str(model["objective"])
     bst._feature_names = list(model["feature_names"])
     bst._feature_infos = list(model["feature_infos"])
+    bst._avg_output = bool(model.get("average_output", False))
     return bst
 
 
@@ -123,4 +127,5 @@ def booster_fields(booster) -> Dict[str, Any]:
         num_tree_per_iteration=booster.num_model_per_iteration(),
         objective=booster._objective_str,
         feature_names=list(booster._feature_names),
-        feature_infos=list(booster._feature_infos))
+        feature_infos=list(booster._feature_infos),
+        average_output=bool(booster._avg_output))

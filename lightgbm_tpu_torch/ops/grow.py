@@ -40,6 +40,26 @@ Quantized-gradient training (``GrowConfig.quantized``, the JAX
   float (not quantized) gradient and hessian sums of each leaf's rows
   (RenewIntGradTreeOutput).
 
+Row weights (bagging, GOSS; the JAX ``row_weight`` argument): the
+payload is ``(g * w, h * w)``, and before the root the in-bag rows
+(``w > 0``) are gathered, in row order, to the front of the first
+buffer, so the tree grows over the window ``[0, n_in_bag)`` (LightGBM's
+``bag_data_indices_``). Every count (the root's, the children's from
+K2, every ``min_data_in_leaf`` test) is then an in-bag count, as the JAX
+grower's ``_IB_BIT`` counts are, and K1 and K2 run unchanged on smaller
+windows. The float root totals stay sums over all ``n`` weighted rows,
+as in JAX (out-of-bag rows add +0.0). Quantization and its noise run
+over all ``n`` rows before the gather, as in JAX. Out-of-bag rows get
+their leaf by routing their bins through the finished tree
+(:func:`ops.predict.predict_leaf_binned`).
+
+Column sampling: ``grow`` takes the tree's ``feature_mask``
+(``feature_fraction``) and, with ``GrowConfig.bynode < 1``, a function
+giving the uniform ``[F]`` draw of node ``i`` (0 for the root, ``2 *
+ns + 1`` and ``2 * ns + 2`` for the children of split ``ns``): each node
+searches the ``max(1, round(bynode * |usable|))`` usable features of
+smallest draw (the JAX ``node_feature_mask``).
+
 Int32 range: an entry of a window's histogram is at most ``cnt *
 quant_bins`` in magnitude (``cnt * 127`` for any int8 payload), so the
 exact int32 sums hold for ``n < 2**31 / quant_bins`` rows (16.9M for any
@@ -58,6 +78,7 @@ import torch
 
 from .histogram import subtract_histogram, window_hist
 from .partition import partition_window
+from .predict import predict_leaf_binned
 from .quantize import dequantize, discretize
 from .split import F_, FIELDS, SplitParams, find_best_split, leaf_output
 
@@ -76,6 +97,8 @@ class GrowConfig(NamedTuple):
     quantized: bool = False
     quant_bins: int = 4
     renew_leaf: bool = False
+    # feature_fraction_bynode
+    bynode: float = 1.0
 
 
 class TreeArrays(NamedTuple):
@@ -117,6 +140,20 @@ def _init_tree(L: int) -> dict:
         leaf_depth=np.zeros(L, np.int32),
         num_leaves=1,
     )
+
+
+def _take_rows(src: torch.Tensor, idx: torch.Tensor,
+               out: torch.Tensor = None) -> torch.Tensor:
+    """``src[idx]`` along rows; uint16 is gathered through its int16 bits
+    (gathers of uint16 are not implemented on CUDA)."""
+    wide = src.dtype == torch.uint16
+    s = src.view(torch.int16) if wide else src
+    if out is None:
+        got = s.index_select(0, idx)
+        return got.view(torch.uint16) if wide else got
+    torch.index_select(s, 0, idx,
+                       out=out.view(torch.int16) if wide else out)
+    return out
 
 
 def _apply_split(t: dict, rec: np.ndarray, leaf: int, R: int, ns: int,
@@ -174,6 +211,7 @@ class Grower:
         self.fnan = torch.as_tensor(self.fnan_host, device=dev)
         fm = np.ones(F, bool) if feature_mask is None \
             else np.asarray(feature_mask, bool)
+        self.fmask_host = fm
         self.fmask = torch.as_tensor(fm, device=dev)
         self.bins2 = torch.empty((2, n, F), dtype=bins.dtype, device=dev)
         q = cfg.quantized
@@ -185,57 +223,93 @@ class Grower:
         self.best = torch.empty((L, NF), dtype=torch.float32, device=dev)
         self.row_ids = torch.arange(n, dtype=torch.int32, device=dev)
 
-    def _search(self, hist2, g, h, c):
+    def _search(self, hist2, g, h, c, fmask):
         return find_best_split(hist2, g, h, c, self.fnb, self.fnan,
-                               self.fmask, self.cfg.split)
+                               fmask, self.cfg.split)
+
+    def _node_mask(self, u: torch.Tensor, fmask: torch.Tensor,
+                   usable: int) -> torch.Tensor:
+        """ColSampler::GetByNode as the JAX ``node_feature_mask``: the
+        ``max(round(bynode * usable), min(1, usable))`` features of
+        ``fmask`` with the smallest draws ``u`` (float32 product, ties
+        to the lower feature)."""
+        u = torch.where(fmask, u.to(self.dev), torch.inf)
+        rank = torch.argsort(torch.argsort(u, stable=True), stable=True)
+        k = max(int(np.round(np.float32(usable)
+                             * np.float32(self.cfg.bynode))), min(1, usable))
+        return (rank < k) & fmask
 
     def grow(self, grad: torch.Tensor, hess: torch.Tensor,
-             noise: torch.Tensor = None):
+             noise: torch.Tensor = None, row_weight: torch.Tensor = None,
+             feature_mask=None, node_uniform=None):
         """Grow one tree on f32 ``[n]`` gradients/hessians. ``noise`` is
         the ``[n, 2]`` uniform draw of stochastic rounding when quantized
-        (None: round to nearest). Returns ``(TreeArrays, row_leaf [n]
-        int64 tensor on the device)``."""
+        (None: round to nearest). ``row_weight``: f32 ``[n]`` bagging or
+        GOSS weights (None: every row once). ``feature_mask``: the
+        tree's usable features (None: the grower's). ``node_uniform(i)``:
+        the ``[F]`` uniform draw of node ``i`` when ``cfg.bynode < 1``.
+        Returns ``(TreeArrays, row_leaf [n] int64 tensor on the
+        device)``."""
         cfg, n, p = self.cfg, self.n, self.cfg.split
         L, B = cfg.num_leaves, cfg.num_bins
-        self.bins2[0].copy_(self.bins)
+        fm = self.fmask_host if feature_mask is None \
+            else np.asarray(feature_mask, bool)
+        fmask = self.fmask if feature_mask is None \
+            else torch.as_tensor(fm, device=self.dev)
+        usable = int(fm.sum())
+        bynode = cfg.bynode < 1.0
         pay = self.pay2[0]
-        self.ids2[0].copy_(self.row_ids)
+        if row_weight is not None:
+            grad, hess = grad * row_weight, hess * row_weight
+        # the tree's payload over all n rows, in row order
+        if cfg.quantized:
+            full, scale2 = discretize(grad, hess, None, cfg.quant_bins,
+                                      noise)
+        else:
+            full = torch.stack([grad, hess], dim=1)
+
+        def hist_f(h):
+            return dequantize(h, scale2) if cfg.quantized else h
+        if row_weight is None:
+            m, oob = n, None
+            self.bins2[0].copy_(self.bins)
+            pay.copy_(full)
+            self.ids2[0].copy_(self.row_ids)
+        else:
+            # the in-bag rows, in row order, to the front of buffer 0
+            inbag = torch.nonzero(row_weight > 0)[:, 0]
+            m = int(inbag.numel())
+            _take_rows(self.bins, inbag, self.bins2[0, :m])
+            _take_rows(full, inbag, pay[:m])
+            self.ids2[0, :m] = inbag.to(torch.int32)
+            oob = torch.nonzero(row_weight <= 0)[:, 0] if m < n else None
 
         # ---- root ----
-        if cfg.quantized:
-            q, scale2 = discretize(grad, hess, None, cfg.quant_bins, noise)
-            pay.copy_(q)
-
-            def hist_f(h):
-                return dequantize(h, scale2)
-        else:
-            pay[:, 0] = grad
-            pay[:, 1] = hess
-
-            def hist_f(h):
-                return h
         # the float path's fixed-point scale bound for every window of the
         # tree: one amax, kept on the device
-        absmax = None if cfg.quantized else pay.abs().amax(dim=0)
-        root_hist = window_hist(self.bins2[0], pay, B, 0, n,
+        absmax = None if cfg.quantized or m == 0 \
+            else pay[:m].abs().amax(dim=0)
+        root_hist = window_hist(self.bins2[0], pay, B, 0, m,
                                 pay_absmax=absmax)
         self.hists[0] = root_hist
         if cfg.quantized:
             # every row hits feature 0 once
             tg, th = hist_f(root_hist[0]).sum(dim=0).unbind()
         else:
-            tg = pay[:, 0].sum()
-            th = pay[:, 1].sum()
-        tc = torch.full((), float(n), dtype=torch.float32, device=self.dev)
+            tg = full[:, 0].sum()
+            th = full[:, 1].sum()
+        tc = torch.full((), float(m), dtype=torch.float32, device=self.dev)
+        root_mask = self._node_mask(node_uniform(0), fmask, usable) \
+            if bynode else fmask
         rec = self._search(hist_f(root_hist)[None], tg[None], th[None],
-                           tc[None])
+                           tc[None], root_mask)
         self.best[0] = rec[0]
         host = torch.cat([rec[0], torch.stack([leaf_output(tg, th, p), th])
                           ]).cpu().numpy()
         t = _init_tree(L)
         t["leaf_value"][0] = host[NF]
         t["leaf_weight"][0] = host[NF + 1]
-        t["leaf_count"][0] = n
+        t["leaf_count"][0] = m
         best_h = np.zeros((L, NF), np.float32)
         best_h[0] = host[:NF]
         gains = np.full(L, -np.inf, np.float32)
@@ -243,7 +317,7 @@ class Grower:
         leaf_buf = np.zeros(L, np.int64)
         leaf_begin = np.zeros(L, np.int64)
         leaf_count = np.zeros(L, np.int64)
-        leaf_count[0] = n
+        leaf_count[0] = m
 
         ns = 0
         while ns < L - 1 and gains.max() > 0.0:
@@ -270,11 +344,17 @@ class Grower:
             nlf = nl.to(torch.float32)
             cnt2 = torch.cat([nlf, float(cnt) - nlf])
             pb = self.best[leaf]
+            mask2 = fmask
+            if bynode:
+                mask2 = torch.stack([
+                    self._node_mask(node_uniform(2 * ns + 1), fmask, usable),
+                    self._node_mask(node_uniform(2 * ns + 2), fmask,
+                                    usable)])
             rec2 = self._search(
                 hist_f(torch.stack([lh, rh])),
                 torch.stack([pb[F_["left_sum_g"]], pb[F_["right_sum_g"]]]),
                 torch.stack([pb[F_["left_sum_h"]], pb[F_["right_sum_h"]]]),
-                cnt2)
+                cnt2, mask2)
             self.best[leaf] = rec2[0]
             self.best[R] = rec2[1]
             host = torch.cat([rec2.reshape(-1).double(),
@@ -295,26 +375,34 @@ class Grower:
 
         nleaves = t["num_leaves"]
         row_leaf = self._row_leaf(nleaves, leaf_buf, leaf_begin,
-                                  leaf_count)
+                                  leaf_count, m)
+        if oob is not None and nleaves > 1:
+            nn = nleaves - 1
+            row_leaf[oob] = predict_leaf_binned(
+                t["split_feature"][:nn], t["threshold_bin"][:nn],
+                t["default_left"][:nn], t["left_child"][:nn],
+                t["right_child"][:nn], self.fnan, _take_rows(self.bins, oob),
+                int(t["leaf_depth"][:nleaves].max()))
         if cfg.quantized and cfg.renew_leaf:
             t["leaf_value"][:nleaves] = self._renewed_leaf_values(
                 grad, hess, row_leaf, nleaves)
         return TreeArrays(**t), row_leaf
 
-    def _row_leaf(self, nleaves, leaf_buf, leaf_begin, leaf_count):
-        """Leaf of every row, from the row ids of the final windows (the
-        windows partition ``[0, n)``)."""
+    def _row_leaf(self, nleaves, leaf_buf, leaf_begin, leaf_count, m):
+        """Leaf of every row of the final windows (which partition ``[0,
+        m)``: every row, or the in-bag ones), from their row ids; the
+        other rows' entries are left for the caller."""
         if nleaves <= 1:
             return torch.zeros(self.n, dtype=torch.int64, device=self.dev)
         leaves = np.argsort(leaf_begin[:nleaves], kind="stable")
         counts = torch.as_tensor(leaf_count[leaves], device=self.dev)
         buf = torch.repeat_interleave(
             torch.as_tensor(leaf_buf[leaves], device=self.dev), counts,
-            output_size=self.n)
+            output_size=m)
         lid = torch.repeat_interleave(
             torch.as_tensor(leaves.astype(np.int64), device=self.dev),
-            counts, output_size=self.n)
-        ids = torch.where(buf == 0, self.ids2[0], self.ids2[1]).to(
+            counts, output_size=m)
+        ids = torch.where(buf == 0, self.ids2[0, :m], self.ids2[1, :m]).to(
             torch.int64)
         row_leaf = torch.empty(self.n, dtype=torch.int64, device=self.dev)
         row_leaf[ids] = lid

@@ -132,7 +132,8 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
       parent_g, parent_h, parent_cnt: ``[C]`` f32 leaf totals
         (``parent_cnt`` is the exact row count).
       feat_num_bins, feat_nan_bin: ``[F]`` int (missing bin or -1).
-      feature_mask: ``[F]`` bool usable features.
+      feature_mask: ``[F]`` bool usable features, or ``[C, F]``: one
+        mask per leaf (per-node column sampling).
     Returns:
       ``[C, len(FIELDS)]`` f32 records. ``gain`` is net of the parent
       gain and ``min_gain_to_split`` (> 0 means worth splitting) and
@@ -177,7 +178,8 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
     left_l = cum + nan_stats[:, :, None, :]
     gains_l = eval_dir(left_l, has_nan[:, None]
                        & (bins[None, :] < (fnb - 1)[:, None]))
-    fmask = feature_mask.to(device=dev, dtype=torch.bool)[None, :, None]
+    fmask = feature_mask.to(device=dev, dtype=torch.bool)
+    fmask = fmask[None, :, None] if fmask.dim() == 1 else fmask[:, :, None]
     gains_r = torch.where(fmask, gains_r, neg_inf)
     gains_l = torch.where(fmask, gains_l, neg_inf)
 

@@ -9,8 +9,11 @@ training-time side, as in the JAX package — tree ``i`` adds to class
 ``i % K`` (K trees per iteration), and the raw scores are converted by
 the objective named in the model: a sigmoid for binary, a softmax with
 the row max subtracted for multiclass, a sigmoid per class for
-multiclassova, none for ranking. Scores are ``[n]`` for K = 1, else
-``[n, K]``; ``num_iteration`` counts iterations (K trees each).
+multiclassova, none for ranking. A random forest's model
+(``average_output``) predicts the mean of its iterations' raw scores
+over the iterations used, before the transform. Scores are ``[n]`` for
+K = 1, else ``[n, K]``; ``num_iteration`` counts iterations (K trees
+each).
 """
 
 from __future__ import annotations
@@ -116,9 +119,16 @@ def predict_any(booster, data, start_iteration: int = 0,
     if pred_leaf:
         return leaves.T.to(torch.int32).cpu().numpy()
     vals = stacked.leaf_value.gather(1, leaves)
-    # tree i adds to class i % K
-    scores = vals.reshape(-1, K, n).sum(dim=0)                 # [K, n]
+    # tree i adds to class i % K, one tree after the other: the order
+    # in which training adds them to a valid set's float32 score
+    scores = torch.zeros((K, n), dtype=vals.dtype, device=device)
+    for i in range(vals.shape[0]):
+        scores[i % K] += vals[i]
     out = scores.T.cpu().numpy().astype(np.float64)
+    if booster._avg_output:
+        # random forest: the trees are stored unscaled; average over the
+        # iterations actually used
+        out = out / max(1, num_iteration)
     if not raw_score:
         out = convert_raw_scores(booster._objective_str, out)
     return out[:, 0] if K == 1 else out

@@ -3,9 +3,9 @@
 Counterpart of ``lightgbm_tpu/ranking.py``: ``LambdarankNDCG`` (LambdaMART
 gradients with NDCG delta weights, truncation, ``lambdarank_norm`` and
 position-debiased scores), ``RankXENDCG`` and the NDCG@k and MAP@k
-metrics, the last two as plain functions (``ndcg_at_k``, ``map_at_k``)
-as ``metrics.py`` has AUC. Evaluation during training (the ``metric``
-parameter, valid sets) is ROADMAP.md Queue 1 item 12.
+metrics: plain functions (``ndcg_at_k``, ``map_at_k``) and the metric
+objects evaluation during training builds over them (``NDCGMetric``,
+``MapMetric``, one per ``eval_at`` position).
 
 Query buckets. The JAX package pads every query to the longest one (Q)
 and computes the pairwise lambdas of blocks of ``2**25 // Q**2`` queries
@@ -36,10 +36,12 @@ import numpy as np
 import torch
 
 from .config import Config
+from .metrics import Metric
 from .objectives import Objective
 
 __all__ = ["QueryBucket", "LambdarankNDCG", "RankXENDCG",
-           "create_ranking_objective", "ndcg_at_k", "map_at_k"]
+           "create_ranking_objective", "ndcg_at_k", "map_at_k",
+           "NDCGMetric", "MapMetric", "create_ranking_metric"]
 
 # elements of one block's [blk, P, P] pair tensors (the JAX package's
 # target_elems)
@@ -348,3 +350,48 @@ def map_at_k(score: torch.Tensor, label: torch.Tensor,
         denom = rel.sum(dim=1).clamp_max(float(k))
         return torch.where(denom > 0, ap_num / denom, 1.0)
     return _per_query(score, label, query_boundaries, fn)
+
+
+class NDCGMetric(Metric):
+    """NDCG@k over a dataset's queries (weights are not read, as in the
+    JAX package)."""
+
+    higher_better = True
+
+    def __init__(self, cfg: Config, k: int):
+        super().__init__(cfg)
+        self.k = k
+        self.name = f"ndcg@{k}"
+
+    def eval_with_query(self, raw_score, label, weight, dataset, convert_fn):
+        qb = dataset.query_boundaries()
+        if qb is None:
+            raise ValueError("NDCG requires query information")
+        score = raw_score[0] if raw_score.dim() == 2 else raw_score
+        return ndcg_at_k(score, label, qb, self.k, self.cfg.label_gain)
+
+
+class MapMetric(Metric):
+    """MAP@k over a dataset's queries."""
+
+    higher_better = True
+
+    def __init__(self, cfg: Config, k: int):
+        super().__init__(cfg)
+        self.k = k
+        self.name = f"map@{k}"
+
+    def eval_with_query(self, raw_score, label, weight, dataset, convert_fn):
+        qb = dataset.query_boundaries()
+        if qb is None:
+            raise ValueError("MAP requires query information")
+        score = raw_score[0] if raw_score.dim() == 2 else raw_score
+        return map_at_k(score, label, qb, self.k)
+
+
+def create_ranking_metric(kind: str, cfg: Config) -> List[Metric]:
+    """One metric object per ``eval_at`` position."""
+    ks = cfg.eval_at or [1, 2, 3, 4, 5]
+    if kind == "ndcg":
+        return [NDCGMetric(cfg, k) for k in ks]
+    return [MapMetric(cfg, k) for k in ks]

@@ -329,16 +329,16 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
 
 
 @pytest.mark.parametrize("params", [
-    {"bagging_fraction": 0.5, "bagging_freq": 1},
+    {"path_smooth": 1.0},
     {"objective": "huber"},
     {"objective": "regression_l1"},
-    {"boosting": "dart"},
-    {"feature_fraction": 0.5},
+    {"interaction_constraints": "[0,1]"},
+    {"histogram_pool_size": 100.0},
     {"linear_tree": True},
     {"monotone_constraints": [1, 0, 0]},
     {"hist_method": "pallas"},
     {"reg_sqrt": True},
-    {"metric": "auc"},
+    {"nonfinite_policy": "clamp"},
 ])
 def test_unimplemented_parameters_raise(params):
     X = np.random.RandomState(0).randn(200, 3)
