@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py            # the full-width run (one GPU)
     python3 chip_smoke.py --rows N   # the same at N training rows
+    python3 chip_smoke.py --allstate-rows N  # train_allstate at N rows
     python3 chip_smoke.py --parent smoke_checkout/parent/lightgbm_tpu_torch
                                      # also time the parent's K1 and K2
                                      # in turns
@@ -33,12 +34,16 @@ Phases, in order; any failure exits non-zero:
              main path's windows (timed), the resident capacity and one
              row past it, all-left and all-right on each path, 1 to 33
              rows at odd starts, u16 rows, u8 rows of 13 bytes, rows of
-             1000 u16 bins; route_pair (K = 4096, NC = 3) equal to its
-             plain run; each case prints its plan; then k2_alt, the
-             plans partition_plan rejects timed beside its choice;
+             1000 u16 bins; the range rule of EFB bundles (K2_RANGE_CASES:
+             a direct split with a NaN bin, multi-member ranges with and
+             without a NaN position, both default directions, both
+             paths, f32 and int8 payloads, u16 rows); route_pair (K =
+             4096, NC = 3) equal to its plain run; each case prints its
+             plan; then k2_alt, the plans partition_plan rejects timed
+             beside its choice;
 5. train   — the main path through the public API at the Higgs shape
              (10.5M x 28 training rows + 500k held out, 255 leaves, 255
-             bins, binary): 1 warm-up + 5 timed iterations, predict,
+             bins, binary): 1 warm-up + 3 timed iterations, predict,
              save/load round trip; launch counters; then k1_turns (K1 on
              the training data's bins as the main path sees it: the root
              and the ladder's windows, and the per-tree replay — the
@@ -63,7 +68,7 @@ Phases, in order; any failure exits non-zero:
              data: a 500k-row valid set binned with the train set's
              mappers, metric=[auc, binary_logloss], bagging 0.8 every
              iteration, feature_fraction 0.8, record_evaluation and
-             early_stopping(5); 1 warm-up + 5 timed iterations (iter_s,
+             early_stopping(5); 1 warm-up + 3 timed iterations (iter_s,
              eval_ms, the idle share, the in-bag window sizes); every
              tree's root count equal to its iteration's in-bag count, the
              last recorded valid AUC equal to the AUC of predict, and
@@ -75,9 +80,20 @@ Phases, in order; any failure exits non-zero:
              root counts equal to them; against the plain twin with
              float64 histogram sums the same root splits and AUC within
              0.002;
+6d. train_regression — regression_l1 with leaf renewal on the main
+             path's X with a continuous label (the logits plus Student-t
+             noise), 1 warm-up + 3 timed iterations: renew_ms by CUDA
+             events, held-out L1; against the plain twin the same root
+             splits and L1 within 0.002 relative;
 7. small runs — uint16 bins (max_bin=400) held to the float standard,
-             and a deterministic quantized run (200k x 28, no stochastic
-             rounding) whose every tree equals its plain twin's;
+             a deterministic quantized run (200k x 28, no stochastic
+             rounding) whose every tree equals its plain twin's, and
+             small_objectives: huber, fair, poisson, quantile (alpha
+             0.9), mape, gamma, tweedie, cross_entropy and
+             cross_entropy_lambda (200k x 28, 3 iterations), every tree
+             equal to its float64-sum plain twin's, save/load/predict
+             equal to the in-memory prediction; a quantized L1 run held
+             tree for tree to its twin;
 8. train_rank — lambdarank at the MS LTR shape (2.27M training rows x
              137 features in queries of ~120 documents, at most 1,251;
              10% more queries held out; 255 leaves, 255 bins): 1 warm-up
@@ -88,23 +104,34 @@ Phases, in order; any failure exits non-zero:
              the plain twin the same root split and NDCG@10 within 0.002;
 9. train_multiclass — softmax multiclass at Covertype's shape (531,012 +
              50,000 held-out rows x 54 features, 7 classes, 255 leaves,
-             enable_bundle=False): 1 warm-up + 2 timed iterations of 7
+             EFB at its default: the one-hot indicators bundle; G, B and
+             the groups printed): 1 warm-up + 1 timed iteration of 7
              trees, held-out multi_logloss and accuracy, every row's
              probabilities summing to 1, launch counters, one profiled
              iteration; against the plain twin, whose float histograms
              sum in float64 (float32 sums of 531k near-equal hessians
              drift: that twin and the drift of the root histogram are
              printed beside), the first iteration's 7 root splits and
-             multi_logloss within 0.002; then one multiclassova and one
-             quantized iteration, each with its 7 trees identical to its
-             plain twin's;
+             multi_logloss within 0.002; one unbundled iteration with the
+             same 7 root splits and multi_logloss within 0.002; then one
+             multiclassova and one quantized iteration, each with its 7
+             trees identical to its plain twin's; K1 and K2 at the
+             bundled width;
 9b. train_multiclass_dart — BASELINE.json's config 4: DART (drop_rate
              0.1, skip_drop 0) on train_multiclass's Dataset with its
-             50,000 rows as a valid set (multi_logloss), 1 warm-up + 3
+             50,000 rows as a valid set (multi_logloss), 1 warm-up + 2
              timed iterations of 7 trees; every tree after drop and
              normalize identical to the float64-sum plain twin's, and the
              recorded multi_logloss equal;
-9c. small rf and cv runs — a random forest (200k x 28, bagging 0.632, 3
+9c. train_allstate — EFB at full width: Allstate's shape (500,000 +
+             50,000 rows x 4,228 features, 33 one-hot blocks of 128, NaN
+             in column 0), binary, 255 leaves: construct and bundling
+             seconds, G, B, peak device memory, iter_s, idle share, AUC;
+             the device's bundled matrix equal to the numpy build on
+             100,000 rows; against the float64-sum plain twin the same
+             root split in every tree and AUC within 0.002; K1 and K2 at
+             the bundled width;
+9d. small rf and cv runs — a random forest (200k x 28, bagging 0.632, 3
              iterations): save/load, its raw scores the mean of its
              iterations', the JAX package's average_output model
              (JAX_RF_MODEL) predicting JAX's numbers; cv (3 folds, 3
@@ -145,6 +172,9 @@ import time
 
 import numpy as np
 
+# the range rule's "no upper bound" (K2's hi for a plain split)
+INT_MAX = 2 ** 31 - 1
+
 # H100 SXM published peaks (NVIDIA data sheet; dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -171,14 +201,55 @@ COV_FEATURES = 54
 COV_CLASSES = 7
 
 
-def make_higgs_like(n, f, seed=0):
-    """The Higgs-shaped generator of bench.py (same draws, same seed)."""
+def make_higgs_like(n, f, seed=0, target=False):
+    """The Higgs-shaped generator of bench.py (same draws, same seed).
+    ``target``: also a continuous label from the same signal, the logits
+    plus Student-t noise of 2 degrees of freedom (``RandomState(seed +
+    1)``)."""
     rs = np.random.RandomState(seed)
     X = rs.randn(n, f).astype(np.float32)
     coef = rs.randn(f).astype(np.float32)
     logits = X @ coef * 0.5 + 0.5 * rs.randn(n).astype(np.float32)
     y = (logits > 0).astype(np.float32)
-    return X, y.astype(np.float64)
+    if not target:
+        return X, y.astype(np.float64)
+    noise = np.random.RandomState(seed + 1).standard_t(2, n)
+    return X, y.astype(np.float64), logits.astype(np.float64) + noise
+
+
+ALLSTATE_CHUNK = 262_144
+
+
+def make_allstate_like(n, f, seed=0, per_group=128):
+    """The Allstate-shaped generator of bench.py (make_allstate_like over
+    allstate_chunks at its default chunk of 262,144 rows; same draws,
+    same seed): ``f // per_group`` one-hot blocks of ``per_group``
+    columns, each row one nonzero per block with a value from a fixed
+    stream (seed 12345), 10% NaN in column 0, the label the block values'
+    sum above its expectation. One float32 matrix, filled chunk by
+    chunk."""
+    groups = f // per_group
+    vals = np.random.RandomState(12345).rand(
+        groups, per_group).astype(np.float32) * 2
+    thresh = np.float32(groups)
+    X = np.empty((n, f), np.float32)
+    y = np.empty(n, np.float64)
+    start = 0
+    while start < n:
+        c = min(ALLSTATE_CHUNK, n - start)
+        rs = np.random.RandomState((seed * 1_000_003 + start) % (2 ** 31 - 1))
+        Xc = X[start:start + c]
+        Xc[:] = 0.0
+        signal = np.zeros(c, np.float32)
+        rows = np.arange(c)
+        for g in range(groups):
+            pick = rs.randint(0, per_group, c)
+            Xc[rows, g * per_group + pick] = vals[g, pick]
+            signal += vals[g, pick]
+        Xc[rs.rand(c) < 0.1, 0] = np.nan
+        y[start:start + c] = (signal > thresh).astype(np.float64)
+        start += c
+    return X, y
 
 
 def log(msg):
@@ -261,6 +332,24 @@ def profiled_ms(fn, reps, torch, by_name=None, counts=None, expect=None):
         log(f"[profiler] incomplete device trace (attempt {attempt + 1}): "
             f"{[c for c, _, _ in dev]} launches for {reps} calls")
     raise AssertionError("torch.profiler recorded no complete device trace")
+
+
+def queued_ms(fn, reps, torch):
+    """Device milliseconds per call: ``reps`` calls enqueued behind a
+    sleep kernel (~0.1 s), CUDA events from the sleep's end to the last
+    call's, so the host's enqueue is not counted (for calls that do not
+    wait for the card)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 # windows above this many rows are timed with CUDA events (a launch
@@ -486,7 +575,7 @@ def phase_k1(torch, dev, root_rows, reps):
         dst_r = torch.empty_like(rows)
         dst_p = torch.empty_like(pay)
         nl = partition_window(rows, dst_r, pay, dst_p, None, None, 0, S, 0,
-                              100, False, -1)
+                              101, INT_MAX, -1, False)
         left = window_hist(dst_r, dst_p, B, 0, S, nl, 1)
         right_k = window_hist(dst_r, dst_p, B, 0, S, nl, 2)
         n_l = int(nl.item())
@@ -614,7 +703,7 @@ def phase_k1_int(torch, dev, root_rows, reps):
         # the device) and the exact sibling subtraction
         dst_r, dst_p = torch.empty_like(rows), torch.empty_like(pay)
         nl = partition_window(rows, dst_r, pay, dst_p, None, None, 0, S, 0,
-                              B // 2, False, -1)
+                              B // 2 + 1, INT_MAX, -1, False)
         n_l = int(nl.item())
         left = window_hist(dst_r, dst_p, B, 0, S, nl, 1)
         right = window_hist(dst_r, dst_p, B, 0, S, nl, 2)
@@ -801,9 +890,17 @@ K2_CASES = (("root", None, FEATURES, BINS, "f32", 127, True),
             ("cov_100k", 100_000, COV_FEATURES, BINS, "f32", 127, True))
 
 
-def _k2_case(torch, dev, gen, S, F, B, kind, thr, pad, nan_bin):
+def direct_rule(f, thr, nan_bin, dl=True):
+    """K2's range rule ``(col, lo, hi, nan_pos, dl)`` of a plain split of
+    column ``f`` at threshold bin ``thr``: bins above ``thr`` go right,
+    the NaN bin follows ``dl``."""
+    return (f, thr + 1, INT_MAX, nan_bin, dl)
+
+
+def _k2_case(torch, dev, gen, S, F, B, kind, rule, pad):
     """One K2 case: window ``[pad, pad + S)`` of buffers of ``S + 2 * pad``
-    rows, kernel (twice) and plain on the same inputs; raises unless all
+    rows split by the range rule ``rule`` (``(col, lo, hi, nan_pos,
+    dl)``), kernel (twice) and plain on the same inputs; raises unless all
     three agree bit for bit. Returns the inputs, a run closure and the
     left count."""
     from lightgbm_tpu_torch.ops.partition import (partition_plain,
@@ -817,8 +914,7 @@ def _k2_case(torch, dev, gen, S, F, B, kind, thr, pad, nan_bin):
         d = (torch.zeros_like(rows),
              None if pay is None else torch.zeros_like(pay),
              torch.zeros_like(ids))
-        nl = fn(rows, d[0], pay, d[1], ids, d[2], pad, S, 3, thr, True,
-                nan_bin)
+        nl = fn(rows, d[0], pay, d[1], ids, d[2], pad, S, *rule)
         outs.append((nl,) + d)
     for k, what in ((0, "kernel != plain"), (1, "rerun != plain")):
         if not all(b is None or torch.equal(a, b)
@@ -828,9 +924,35 @@ def _k2_case(torch, dev, gen, S, F, B, kind, thr, pad, nan_bin):
     d = outs[0][1:]
 
     def run(fn):
-        return lambda: fn(rows, d[0], pay, d[1], ids, d[2], pad, S, 3, thr,
-                          True, nan_bin)
+        return lambda: fn(rows, d[0], pay, d[1], ids, d[2], pad, S, *rule)
     return rows, pay, run, int(outs[2][0].item())
+
+
+# K2's range rule beyond a plain split, (label, rows, features, bins,
+# payload, (lo, hi, nan_pos, dl)): a direct split with a NaN bin, and the
+# rules of multi-member EFB bundles (a member's positions [lo, hi], its NaN
+# position hi or none, either default direction), on both paths, both
+# payloads and u16 rows; column 3 of random bins
+K2_RANGE_CASES = (
+    ("range_direct_nan", 100_003, FEATURES, BINS, "f32",
+     (128, INT_MAX, 7, False)),
+    ("range_multi", 100_003, FEATURES, BINS, "f32", (40, 120, -1, True)),
+    ("range_multi_nan", 100_003, FEATURES, BINS, "int8",
+     (40, 120, 120, True)),
+    ("range_multi_nan_dl0", 100_003, FEATURES, BINS, "f32",
+     (40, 120, 120, False)),
+    ("range_one_position", 100_003, FEATURES, BINS, "int8", (1, 1, 1, False)),
+    ("range_multi_stream", 1_500_001, FEATURES, BINS, "f32",
+     (40, 120, -1, False)),
+    ("range_multi_nan_stream", 1_500_001, FEATURES, BINS, "int8",
+     (40, 120, 120, True)),
+    ("range_multi_nan_stream_f32", 1_500_001, FEATURES, BINS, "f32",
+     (200, 254, 254, False)),
+    ("range_direct_nan_stream", 1_500_001, FEATURES, BINS, "int8",
+     (201, INT_MAX, 200, True)),
+    ("range_multi_u16", 70_001, 9, 300, "int8", (100, 280, 280, False)),
+    ("range_multi_u16_stream", 2_000_003, 9, 300, "f32",
+     (100, 280, -1, True)))
 
 
 def _k2_ragged(torch, dev, gen):
@@ -838,8 +960,8 @@ def _k2_ragged(torch, dev, gen):
     equal."""
     for kind in ("f32", "int8", "none"):
         for cnt in range(1, 34):
-            _k2_case(torch, dev, gen, cnt, FEATURES, BINS, kind, 127,
-                     2 * cnt * cnt + 1, -1)
+            _k2_case(torch, dev, gen, cnt, FEATURES, BINS, kind,
+                     direct_rule(3, 127, -1), 2 * cnt * cnt + 1)
     log("[k2] ragged: 1 to 33 rows at odd starts, f32/int8/no payload: "
         "kernel = rerun = plain")
 
@@ -903,8 +1025,8 @@ def phase_k2(torch, dev, root_rows, reps):
         S = {None: root_rows, "cap": cap, "cap+1": cap + 1}.get(S, S)
         pad = 1000  # the window sits inside larger buffers
         nan_bin = 7 if label == "mid" else -1
-        rows, pay, run, nl = _k2_case(torch, dev, gen, S, F, B, kind, thr,
-                                      pad, nan_bin)
+        rows, pay, run, nl = _k2_case(torch, dev, gen, S, F, B, kind,
+                                      direct_rule(3, thr, nan_bin), pad)
         plan = partition_plan(S, F, bb, pb, sms)
         paths.add((plan.path, kind))
         want = S if "all_left" in label else 0 if "all_right" in label \
@@ -932,6 +1054,23 @@ def phase_k2(torch, dev, root_rows, reps):
                   for k in ("f32", "int8", "none")}
     if not want_paths <= paths:
         raise AssertionError(f"K2 cases missed {want_paths - paths}")
+    range_paths = set()
+    for label, S, F, B, kind, rule in K2_RANGE_CASES:
+        pb = {"f32": 8, "int8": 2, "none": 0}[kind]
+        bb = 1 if B <= 256 else 2
+        rows, pay, run, nl = _k2_case(torch, dev, gen, S, F, B, kind,
+                                      (3,) + rule, 1000)
+        plan = partition_plan(S, F, bb, pb, sms)
+        range_paths.add((plan.path, kind))
+        log(f"[k2] {label} S={S} F={F} {rows.dtype} payload={kind} rule "
+            f"(lo, hi, nan_pos, dl)={rule} n_left={nl} plan: "
+            f"{_plan_str(plan)}; kernel = rerun = plain")
+        del rows, pay, run
+    want_paths = {(p, k) for p in ("resident", "stream")
+                  for k in ("f32", "int8")}
+    if not want_paths <= range_paths:
+        raise AssertionError(f"K2 range cases missed "
+                             f"{want_paths - range_paths}")
     _k2_ragged(torch, dev, gen)
     _k2_route_pair(torch, dev, gen)
     return shapes, phase_k2_alternatives(torch, dev, gen, root_rows, reps,
@@ -972,8 +1111,8 @@ def phase_k2_alternatives(torch, dev, gen, root_rows, reps, sms):
              torch.empty_like(ids))
         p = (torch.empty_like(rows), torch.empty_like(pay),
              torch.empty_like(ids))
-        nl_p = partition_plain(rows, p[0], pay, p[1], ids, p[2], 0, S, 3,
-                               127, True, -1)
+        nl_p = partition_plain(rows, p[0], pay, p[1], ids, p[2], 0, S,
+                               *direct_rule(3, 127, -1))
         chosen = partition_plan(S, FEATURES, 1, pb, sms)
         plans = [("chosen", chosen)] + [
             ("alt", _alt_plan(S, FEATURES, 1, pb, sms, path,
@@ -981,8 +1120,8 @@ def phase_k2_alternatives(torch, dev, gen, root_rows, reps, sms):
             for path, r, st, th in alts]
         for tag, plan in plans:
             def call(plan=plan):
-                return _launch(rows, d[0], pay, d[1], ids, d[2], 0, S, 3,
-                               127, True, -1, plan)
+                return _launch(rows, d[0], pay, d[1], ids, d[2], 0, S,
+                               *direct_rule(3, 127, -1), plan)
             nl = call()
             if not (torch.equal(nl, nl_p) and all(
                     torch.equal(a, b) for a, b in zip(d, p))):
@@ -994,6 +1133,158 @@ def phase_k2_alternatives(torch, dev, gen, root_rows, reps, sms):
             log(f"[k2_alt] {label} S={S} payload={kind} {tag:6s} "
                 f"{_plan_str(plan)}: ms={ms:.5f} ({method}); = plain")
         del rows, pay, ids, d, p
+    return out
+
+
+def phase_bundled_kernels(torch, dev, info, rules, tag, reps):
+    """K1 (both paths) and K2 (both payloads) at the width of a bundled
+    matrix, on its root window (``info.bins_bundled``, ``G`` columns,
+    ``B = num_positions``), as the bundled grower calls them: K1 float
+    held to the exact sums and to its plain version, K1 int bit-exact,
+    both timed beside their plain versions, one PyTorch call and the
+    bound; K2 with the range rule of a multi-member bundle's member (and
+    of a direct column, if any), on the root (and a 10k-row window),
+    kernel = rerun = plain, the root timed. Times: ``queued_ms`` (CUDA
+    events over calls enqueued behind a sleep kernel; plain events for
+    ``bincount``, which reads back). Returns rung dicts for the K1, K1
+    int and K2 entries of the report."""
+    from lightgbm_tpu_torch.ops.histogram import hist_plain, window_hist
+    from lightgbm_tpu_torch.ops.partition import (partition_plain,
+                                                  partition_plan,
+                                                  partition_window)
+    bins = info.bins_bundled
+    S, G = bins.shape
+    B = info.num_positions
+    bb = bins.element_size()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    label = f"{tag}_root"
+    out = {}
+    # K1, float path
+    pay = torch.randn((S, 2), generator=gen, device=dev)
+    k = window_hist(bins, pay, B, 0, S)
+    tol = 1e-5 * pay.abs().sum(dim=0)[None, None, :] + 1e-6
+    err64 = float((k.double() - hist_f64(torch, bins, pay, B)).abs().max())
+    p = hist_plain(bins, pay, B)
+    err = (k - p).abs()
+    if err64 > float(tol.min()) or not bool((err <= tol).all()):
+        raise AssertionError(f"K1 {label}: kernel != exact sums ({err64}) "
+                             f"or plain ({float(err.max())})")
+    if not torch.equal(k, window_hist(bins, pay, B, 0, S)):
+        raise AssertionError(f"K1 {label}: two launches differ")
+    absmax = pay.abs().amax(dim=0)
+    method = "queued"
+    ms = queued_ms(
+        lambda: window_hist(bins, pay, B, 0, S, pay_absmax=absmax), reps,
+        torch)
+    plain_ms = queued_ms(lambda: hist_plain(bins, pay, B), reps, torch)
+    flat = ((torch.arange(G, device=dev, dtype=torch.int64) * B)[None]
+            + bins.to(torch.int64)).reshape(-1)
+    weights = [pay[:, c].repeat_interleave(G) for c in range(2)]
+
+    def library():
+        for w in weights:
+            torch.bincount(flat, weights=w, minlength=G * B)
+    # bincount reads its input's maximum back to the host: plain events
+    lib_ms = events_ms(library, max(3, reps // 3), torch)
+    del flat, weights
+    bound_ms, bound_by = _k1_bound(S, G, bb, 8, B, FP32_OPS_PER_S)
+    plan, plan_msg = k1_plan(S, G, B, bb, False, 8, FP32_OPS_PER_S, sms)
+    out["k1"] = dict(shape=label, rows=S, features=G, bins=B, plan=plan,
+                     held_to="plain", max_abs_err=float(err.max()),
+                     max_abs_err_exact=err64, ms=ms, method=method,
+                     plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=bound_ms, bound_by=bound_by)
+    log(f"[k1] {label} S={S} G={G} B={B} ms={ms:.5f} ({method}) plain_ms="
+        f"{plain_ms:.5f} library_ms={lib_ms:.5f} bound_ms={bound_ms:.5f} "
+        f"max_abs_err vs plain={float(err.max()):.3g}, vs exact="
+        f"{err64:.3g}; bit-identical reruns; {plan_msg}")
+    del k, p, err
+    # K1, int path
+    qpay = _quant_pay(torch, dev, S, gen)
+    k = window_hist(bins, qpay, B, 0, S)
+    if k.dtype != torch.int32 or not torch.equal(k, hist_plain(bins, qpay,
+                                                               B)):
+        raise AssertionError(f"K1 int {label}: kernel != plain")
+    if not torch.equal(k, window_hist(bins, qpay, B, 0, S)):
+        raise AssertionError(f"K1 int {label}: two launches differ")
+    ms = queued_ms(lambda: window_hist(bins, qpay, B, 0, S), reps, torch)
+    plain_ms = queued_ms(lambda: hist_plain(bins, qpay, B), reps, torch)
+    lib, lib_out = _int_library(torch, bins, qpay, B)
+    lib()
+    if not torch.equal(lib_out.reshape(G, B, 2), k):
+        raise AssertionError(f"K1 int {label}: scatter_add_ != kernel")
+    lib_ms = queued_ms(lib, max(3, reps // 3), torch)
+    del lib, lib_out
+    bound_ms, bound_by = _k1_bound(S, G, bb, 2, B, INT32_OPS_PER_S)
+    plan, plan_msg = k1_plan(S, G, B, bb, True, 2, INT32_OPS_PER_S, sms)
+    out["k1_int"] = dict(shape=label, rows=S, features=G, bins=B,
+                         plan=plan, max_abs_err=0.0, ms=ms, method=method,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+    log(f"[k1_int] {label} S={S} G={G} B={B} ms={ms:.5f} ({method}) "
+        f"plain_ms={plain_ms:.5f} library_ms={lib_ms:.5f} bound_ms="
+        f"{bound_ms:.5f} exact, bit-identical reruns; {plan_msg}")
+    del k
+    # K2: a multi-member bundle's member (a NaN one where there is one)
+    # and a direct column, split at the middle of their bins
+    multi = [j for g in info.groups if len(g) > 1 for j in g]
+    nan_multi = [j for j in multi if rules.nan[j] >= 0]
+    picks = [("multi", (nan_multi or multi)[0])]
+    direct = [g[0] for g in info.groups if len(g) == 1]
+    if direct:
+        picks.append(("direct", direct[0]))
+    ids = torch.arange(S, device=dev, dtype=torch.int32)
+    out["k2"] = []
+    for (kind_f, f), (kind, pl) in ((pk, py) for pk in picks
+                                    for py in (("f32", pay),
+                                               ("int8", qpay))):
+        # the middle of the member's value bins (its NaN bin is its last),
+        # missing rows to the right
+        has_nan = rules.nan[f] >= 0
+        t = max(0, (int(rules.nb[f]) - 2 - int(has_nan)) // 2)
+        col, lo, hi, nan_pos = rules(f, t)
+        rule = (col, lo, hi, nan_pos, False)
+        for cnt in sorted({S, min(S, 10_007)}, reverse=True):
+            res = []
+            for fn in (partition_window, partition_window, partition_plain):
+                d = (torch.empty_like(bins), torch.empty_like(pl),
+                     torch.empty_like(ids))
+                nl = fn(bins, d[0], pl, d[1], ids, d[2], 0, cnt, *rule)
+                res.append((nl,) + d)
+            for j in (0, 1):
+                if not all(torch.equal(a[:cnt], b[:cnt])
+                           for a, b in zip(res[j], res[2])):
+                    raise AssertionError(f"K2 {label} {kind_f} {kind} "
+                                         f"{cnt} rows: != plain")
+            pb = 2 * pl.element_size()
+            kp = partition_plan(cnt, G, bb, pb, sms)
+            msg = (f"[k2] {label} {kind_f} member f={f} t={t} rule (col, "
+                   f"lo, hi, nan_pos)={(col, lo, hi, nan_pos)} rows={cnt} "
+                   f"G={G} payload={kind} n_left={int(res[2][0])} plan: "
+                   f"{_plan_str(kp)}; kernel = rerun = plain")
+            if cnt == S and kind_f == "multi":
+                d = res[0][1:]
+
+                def call(fn, d=d, pl=pl):
+                    return fn(bins, d[0], pl, d[1], ids, d[2], 0, S, *rule)
+                ms = queued_ms(lambda: call(partition_window), reps, torch)
+                plain_ms = queued_ms(lambda: call(partition_plain), reps,
+                                     torch)
+                bound_ms = _k2_bound(S, G, bb, pb)
+                out["k2"].append(dict(
+                    shape=f"{label}_{kind}", rows=S, features=G,
+                    payload=kind, n_left=int(res[2][0]), path=kp.path,
+                    plan=kp._asdict(), rule=[col, lo, hi, nan_pos],
+                    max_abs_err=0.0, ms=ms, method=method,
+                    plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                    bound_by="bytes"))
+                msg += (f"; ms={ms:.5f} ({method}) plain_ms={plain_ms:.5f} "
+                        f"bound_ms={bound_ms:.5f}")
+            log(msg)
+            del res
+    del pay, qpay, ids
     return out
 
 
@@ -1051,6 +1342,19 @@ def load_parent(path):
     return lambda module: importlib.import_module(f"{name}.{module}")
 
 
+def split_call(pw):
+    """A K2 wrapper ``pw`` as a function of a plain split's ``(..., begin,
+    cnt, f, t, dl, nan_bin)``: by its range rule, or with the arguments
+    themselves for a parent's wrapper from before the range rule."""
+    if "nan_pos" not in inspect.signature(pw).parameters:
+        return pw
+
+    def call(*args):
+        *head, f, t, dl, nan_bin = args
+        return pw(*head, *direct_rule(f, t, nan_bin, dl))
+    return call
+
+
 def phase_k2_turns(torch, dev, bins, tree, used, nan_bins, reps,
                    parent=None):
     """K2 as the main path sees it: the first trained tree's partitions
@@ -1094,11 +1398,12 @@ def phase_k2_turns(torch, dev, bins, tree, used, nan_bins, reps,
             a.copy_(b)
 
     def replay(pw, bufs, nls, after=lambda: None):
+        call = split_call(pw)
         for sp in splits:
             s, d = bufs[sp["src"]], bufs[1 - sp["src"]]
-            nls.append(pw(s[0], d[0], s[1], d[1], s[2], d[2], sp["begin"],
-                          sp["cnt"], sp["f"], sp["t"], sp["dl"],
-                          sp["nan_bin"]))
+            nls.append(call(s[0], d[0], s[1], d[1], s[2], d[2], sp["begin"],
+                            sp["cnt"], sp["f"], sp["t"], sp["dl"],
+                            sp["nan_bin"]))
             after()
 
     def run(pw, bufs, pay, nls):
@@ -1187,13 +1492,15 @@ def phase_k2_turns(torch, dev, bins, tree, used, nan_bins, reps,
             reset(bufs, pay)
             s, d = bufs[0], bufs[1]
             sp = splits[0]
+            call = split_call(pw)
             t["root_ms"] = events_ms(
-                lambda: pw(s[0], d[0], s[1], d[1], s[2], d[2], 0, n, sp["f"],
-                           sp["t"], sp["dl"], sp["nan_bin"]), reps, torch)
+                lambda: call(s[0], d[0], s[1], d[1], s[2], d[2], 0, n,
+                             sp["f"], sp["t"], sp["dl"], sp["nan_bin"]),
+                reps, torch)
             t["100k_ms"] = profiled_ms(
-                lambda: pw(s[0], d[0], s[1], d[1], s[2], d[2], 0,
-                           min(n, 100_000), sp["f"], sp["t"], sp["dl"],
-                           sp["nan_bin"]),
+                lambda: call(s[0], d[0], s[1], d[1], s[2], d[2], 0,
+                             min(n, 100_000), sp["f"], sp["t"], sp["dl"],
+                             sp["nan_bin"]),
                 reps, torch)
             turns.append(t)
             log(f"[k2_turns] {name:6s} {kind:4s} root={t['root_ms']:.5f} "
@@ -1297,7 +1604,8 @@ def _drive(torch, lgb, dev, params, ds, Xv, yv, iters, tag, scorer=None,
         + " ".join(f"{k}={v:.6f}" for k, v in metrics.items())
         + f" roundtrip_max_abs={rt:.3g}")
     return dict(bst=bst, counts=counts, leaves=leaves, iter_s=iter_s,
-                peak=peak, predict_s=predict_s, **metrics, **extra)
+                warmup_s=warm_s, peak=peak, predict_s=predict_s, **metrics,
+                **extra)
 
 
 def _check_counts(tag, counts, leaves, hist_key):
@@ -1376,7 +1684,8 @@ def phase_train(torch, lgb, dev, n_train, iters, reps, parent):
     in turns on its data and its first tree. ``parent``: a loader of the
     parent commit's modules (:func:`load_parent`) or None."""
     t0 = time.perf_counter()
-    X, y = make_higgs_like(n_train + VALID_ROWS, FEATURES)
+    X, y, target = make_higgs_like(n_train + VALID_ROWS, FEATURES,
+                                   target=True)
     Xt, yt, Xv, yv = X[:n_train], y[:n_train], X[n_train:], y[n_train:]
     log(f"[train] data rows={n_train}+{VALID_ROWS} features={FEATURES} "
         f"gen_s={time.perf_counter() - t0:.2f}")
@@ -1414,7 +1723,9 @@ def phase_train(torch, lgb, dev, n_train, iters, reps, parent):
                              "the plain run's")
     del r["bst"], bst_p
     return dict(r, auc_plain=auc_p, construct_s=construct_s, profile=prof,
-                ds=ds, Xv=Xv, yv=yv, turns=turns, k2_turns=k2_turns)
+                ds=ds, Xv=Xv, yv=yv, turns=turns, k2_turns=k2_turns,
+                Xt=Xt, target=target[:n_train],
+                target_valid=target[n_train:])
 
 
 def phase_train_quant(torch, lgb, dev, tr, iters):
@@ -1859,18 +2170,22 @@ def phase_train_rank(torch, lgb, dev, iters):
                 profile=prof)
 
 
-def phase_train_multiclass(torch, lgb, dev, iters):
+def phase_train_multiclass(torch, lgb, dev, iters, reps):
     """softmax multiclass at Covertype's shape (531,012 training + 50,000
-    held-out rows x 54 features, 7 classes, 255 leaves, 255 bins,
-    ``enable_bundle=False``): 1 warm-up + ``iters`` timed iterations of 7
+    held-out rows x 54 features, 7 classes, 255 leaves, 255 bins, EFB at
+    its default, so the sparse one-hot indicators bundle): the bundles
+    (G, B, group sizes); 1 warm-up + ``iters`` timed iterations of 7
     trees, held-out multi_logloss and accuracy, one profiled iteration;
     against the plain twin, the first iteration's 7 root splits and
     multi_logloss within 0.002. The plain twin's float histograms are
     summed in float64 (:func:`exact_float_sums`): at this shape float32
     sums drift far from the exact ones (printed beside, with the twin
-    that sums in float32). Then one multiclassova iteration and one
-    quantized iteration (round to nearest), each with its first trees
-    identical to its plain twin's."""
+    that sums in float32). Then one iteration unbundled
+    (``enable_bundle=False``): the same 7 root splits as the bundled
+    run's first iteration, multi_logloss within 0.002 of it. Then one
+    multiclassova iteration and one quantized iteration (round to
+    nearest), each with its first trees identical to its plain twin's;
+    then K1 and K2 at the bundled width (:func:`phase_bundled_kernels`)."""
     from lightgbm_tpu_torch.metrics import multi_logloss
     from lightgbm_tpu_torch.ops.histogram import plain_kernels
     t0 = time.perf_counter()
@@ -1880,18 +2195,17 @@ def phase_train_multiclass(torch, lgb, dev, iters):
     log(f"[train_multiclass] data rows={n}+{COV_VALID} features="
         f"{COV_FEATURES} classes={COV_CLASSES} class share="
         f"{[round(float(np.mean(yt == c)), 4) for c in range(COV_CLASSES)]} "
-        f"reduced: enable_bundle=False (EFB is not in the port) "
         f"gen_s={time.perf_counter() - t0:.2f}")
     params = {"objective": "multiclass", "num_class": COV_CLASSES,
               "num_leaves": 255, "max_bin": BINS, "learning_rate": 0.1,
-              "enable_bundle": False, "verbosity": -1,
-              "device_type": dev.type}
+              "verbosity": -1, "device_type": dev.type}
     t0 = time.perf_counter()
-    ds = lgb.Dataset(Xt, label=yt, params={
-        "max_bin": BINS, "enable_bundle": False, "device_type": dev.type})
+    ds = lgb.Dataset(Xt, label=yt, params={"max_bin": BINS,
+                                           "device_type": dev.type})
     ds.construct()
     torch.cuda.synchronize()
     construct_s = time.perf_counter() - t0
+    bundles = _bundle_stats(torch, lgb, ds, params, "train_multiclass")
     log(f"[train_multiclass] construct_s={construct_s:.3f}")
     yv_t = torch.as_tensor(yv, device=dev)
 
@@ -1939,7 +2253,34 @@ def phase_train_multiclass(torch, lgb, dev, iters):
         raise AssertionError(
             f"train_multiclass: multi_logloss {r['multi_logloss']} not "
             f"within 0.002 of the plain run's {m_p['multi_logloss']}")
+    # one iteration unbundled, against the bundled run's first
+    ll_b1 = scorer(r["bst"].predict(Xv, num_iteration=1))["multi_logloss"]
     del r["bst"], bst_p, bst_f
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst_u = lgb.train({**params, "enable_bundle": False}, ds, 1)
+    torch.cuda.synchronize()
+    train_s_u = time.perf_counter() - t0
+    counts_u = _read_counts()
+    _check_counts("train_multiclass_unbundled", counts_u,
+                  [t.num_leaves for t in bst_u._models], "hist")
+    ll_u = scorer(bst_u.predict(Xv))["multi_logloss"]
+    roots_u = roots(bst_u)
+    log(f"[train_multiclass_unbundled] one iteration, {X.shape[1]} "
+        f"columns: root splits {roots_u} (bundled: {roots_k}); "
+        f"multi_logloss={ll_u:.6f} (bundled, first iteration: "
+        f"{ll_b1:.6f}); launches={json.dumps(counts_u)}; train seconds "
+        f"for the iteration, set-up included: {train_s_u:.4f} (bundled "
+        f"warm-up: {r['warmup_s']:.4f})")
+    if roots_u != roots_k:
+        raise AssertionError("train_multiclass: the unbundled iteration's "
+                             "root splits differ from the bundled run's")
+    if abs(ll_u - ll_b1) > 0.002:
+        raise AssertionError(f"train_multiclass: unbundled multi_logloss "
+                             f"{ll_u} not within 0.002 of the bundled "
+                             f"{ll_b1}")
+    del bst_u
     variants = {}
     for tag, extra, hist_key in (
             ("ova", {"objective": "multiclassova"}, "hist"),
@@ -1967,11 +2308,23 @@ def phase_train_multiclass(torch, lgb, dev, iters):
                                  "differ from the plain run's")
         variants[tag] = dict(counts=counts, leaves=leaves, same_trees=same,
                              bit_equal_leaf_values=exact)
+        del bst, ref
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.ops.partition import RangeRules
+    info = ds.bundles(Config.from_params(params))
+    kern = phase_bundled_kernels(
+        torch, dev, info, RangeRules(ds.feat_num_bins(), ds.feat_nan_bin(),
+                                     info), "cov_bundled", reps)
     return dict(r, multi_logloss_plain=m_p["multi_logloss"],
                 multi_logloss_plain_f32=m_f["multi_logloss"],
                 f32_drift=f32_drift, construct_s=construct_s, profile=prof,
                 variants=variants, ds=ds, Xv=Xv, yv=yv, scorer=scorer,
-                params=params)
+                params=params, bundles=bundles,
+                unbundled=dict(counts=counts_u, roots=roots_u,
+                               train_s=train_s_u,
+                               multi_logloss=ll_u,
+                               bundled_first_multi_logloss=ll_b1),
+                kernels=kern)
 
 
 class _RowWeights:
@@ -2202,7 +2555,7 @@ def phase_train_goss(torch, lgb, dev, tr, iters):
 def phase_train_multiclass_dart(torch, lgb, dev, trm, iters):
     """BASELINE.json's config 4 at Covertype's shape: DART multiclass on
     ``train_multiclass``'s data and Dataset (531,012 + 50,000 rows x 54,
-    7 classes, 255 leaves, ``enable_bundle=False``), ``drop_rate=0.1``,
+    7 classes, 255 leaves, bundled), ``drop_rate=0.1``,
     ``metric=multi_logloss`` on the 50,000 held-out rows as a valid set;
     1 warm-up + ``iters`` timed iterations of 7 trees. ``skip_drop=0``:
     with DART's default of 0.5 each iteration skips its drop with
@@ -2397,6 +2750,271 @@ def phase_small_rf_cv(torch, lgb, dev):
 
 
 
+ALLSTATE_ROWS = 500_000
+ALLSTATE_VALID = 50_000
+ALLSTATE_FEATURES = 4228
+
+
+def phase_train_allstate(torch, lgb, dev, n_train, iters, reps):
+    """EFB at full width: Allstate's shape (``make_allstate_like``, 4,228
+    features in 33 one-hot blocks of 128 with NaN in column 0;
+    ``n_train`` (500,000) training rows, seed 0, and 50,000 held out,
+    seed 1), binary, 255
+    leaves, 255 bins, EFB at its default. Reduced: rows 13,200,000 ->
+    500,000 (the float32 input alone would be ~223 GB of host memory);
+    the bundling sample stays 200,000 rows, so G is that of a larger run.
+    Prints construct_s, the bundling seconds, G, B, the peak device
+    memory, iter_s (1 warm-up + ``iters`` timed), the idle share and AUC.
+    Checks: the bundled matrix built on the device equals the numpy build
+    from the same plan on 100,000 of its rows; against the plain twin
+    (float64 histogram sums, the same Dataset) the same root split in
+    every tree and AUC within 0.002; K1 and K2 launched at G columns;
+    then K1 and K2 at this width alone (:func:`phase_bundled_kernels`)."""
+    from lightgbm_tpu_torch.ops.bundling import bundle_columns_np
+    from lightgbm_tpu_torch.ops.partition import RangeRules
+    t0 = time.perf_counter()
+    Xt, yt = make_allstate_like(n_train, ALLSTATE_FEATURES, seed=0)
+    Xv, yv = make_allstate_like(ALLSTATE_VALID, ALLSTATE_FEATURES, seed=1)
+    log(f"[train_allstate] data rows={n_train}+{ALLSTATE_VALID} "
+        f"features={ALLSTATE_FEATURES} positive share={float(yt.mean()):.4f}"
+        f" reduced: rows 13200000 -> {n_train} (host memory) "
+        f"gen_s={time.perf_counter() - t0:.2f}")
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": BINS,
+              "learning_rate": 0.1, "verbosity": -1,
+              "device_type": dev.type}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(Xt, label=yt, params={"max_bin": BINS,
+                                           "device_type": dev.type})
+    ds.construct()
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    log(f"[train_allstate] construct_s={construct_s:.3f} used features="
+        f"{len(ds.mappers)} device bytes={torch.cuda.memory_allocated()}")
+    del Xt
+    bundles = _bundle_stats(torch, lgb, ds, params, "train_allstate")
+    from lightgbm_tpu_torch.config import Config
+    info = ds.bundles(Config.from_params(params))
+    host = ds._bins[:100_000].numpy()
+    want = bundle_columns_np(host, info.groups, info.offset_of, np.uint8)
+    if not np.array_equal(info.bins_bundled[:100_000].cpu().numpy(), want):
+        raise AssertionError("train_allstate: the bundled matrix built on "
+                             "the device != the numpy build")
+    log(f"[train_allstate] the device's bundled matrix equals the numpy "
+        f"build from the same plan on {len(host)} rows")
+    del host, want
+    r = _drive(torch, lgb, dev, params, ds, Xv, yv, iters, "train_allstate")
+    _check_counts("train_allstate", r["counts"], r["leaves"], "hist")
+    prof = profile_iteration(torch, r["bst"])
+    with exact_float_sums(torch):
+        bst_p, m_p = _plain_twin(torch, lgb, dev, params, ds, Xv, yv,
+                                 1 + iters, "train_allstate")
+    roots_k = [_root_split_of(t) for t in r["bst"]._models[:1 + iters]]
+    roots_p = [_root_split_of(t) for t in bst_p._models]
+    log(f"[train_allstate] root splits kernel={roots_k} plain={roots_p}; "
+        f"auc={r['auc']:.6f} plain={m_p['auc']:.6f}; peak_mem_bytes="
+        f"{r['peak']}")
+    if roots_k != roots_p:
+        raise AssertionError("train_allstate: root splits differ from the "
+                             "plain run's")
+    if abs(r["auc"] - m_p["auc"]) > 0.002:
+        raise AssertionError(f"train_allstate: AUC {r['auc']} not within "
+                             f"0.002 of the plain run's {m_p['auc']}")
+    del r["bst"], bst_p
+    kern = phase_bundled_kernels(
+        torch, dev, info, RangeRules(ds.feat_num_bins(), ds.feat_nan_bin(),
+                                     info), "allstate_bundled", reps)
+    del ds, info
+    return dict(r, auc_plain=m_p["auc"], construct_s=construct_s,
+                bundles=bundles, profile=prof, kernels=kern,
+                roots=roots_k)
+
+
+def _root_split_of(tree):
+    return int(tree.split_feature[0]), int(tree.threshold_bin[0])
+
+
+def phase_train_regression(torch, lgb, dev, tr, iters):
+    """L1 regression with leaf renewal at the Higgs shape: the main
+    path's X (10.5M x 28, ``make_higgs_like`` seed 0) with a continuous
+    label, the generator's logits (the binary label's signal) plus
+    Student-t noise of 2 degrees of freedom (``make_higgs_like(...,
+    target=True)``); ``objective=regression_l1``, 255 leaves, 255 bins, 1
+    warm-up + ``iters`` timed iterations, every tree's leaves renewed as
+    the median of their residuals (a sort of all 10.5M rows per tree).
+    Prints iter_s, renew_ms (CUDA events around each renewal) and the L1
+    metric on the 500k held-out rows; against the plain twin, the same
+    root split in every tree and L1 within 0.002 relative."""
+    from lightgbm_tpu_torch.models import gbdt
+    Xt, tt, tv, Xv = tr["Xt"], tr["target"], tr["target_valid"], tr["Xv"]
+    params = {"objective": "regression_l1", "num_leaves": 255,
+              "max_bin": BINS, "learning_rate": 0.1, "verbosity": -1,
+              "device_type": dev.type}
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(Xt, label=tt, reference=tr["ds"]).construct()
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    tv_t = torch.as_tensor(tv, device=dev)
+
+    def scorer(p):
+        if p.shape != (len(tv),) or not np.all(np.isfinite(p)):
+            raise AssertionError("train_regression: predictions are not "
+                                 "finite [n] values")
+        return dict(l1=float((torch.as_tensor(p, device=dev) - tv_t).abs()
+                             .mean()))
+    renew_ms = []
+    renew = gbdt.renew_leaf_values
+
+    def timed_renew(*args, **kw):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = renew(*args, **kw)
+        b.record()
+        b.synchronize()
+        renew_ms.append(a.elapsed_time(b))
+        return out
+    gbdt.renew_leaf_values = timed_renew
+    try:
+        r = _drive(torch, lgb, dev, params, ds, Xv, tv, iters,
+                   "train_regression", scorer)
+    finally:
+        gbdt.renew_leaf_values = renew
+    _check_counts("train_regression", r["counts"], r["leaves"], "hist")
+    bst_p, m_p = _plain_twin(torch, lgb, dev, params, ds, Xv, tv, 1 + iters,
+                             "train_regression", scorer)
+    roots_k = [_root_split_of(t) for t in r["bst"]._models]
+    roots_p = [_root_split_of(t) for t in bst_p._models]
+    log(f"[train_regression] construct_s={construct_s:.3f} renew_ms="
+        f"{[round(x, 3) for x in renew_ms]} root splits kernel={roots_k} "
+        f"plain={roots_p}; l1={r['l1']:.6f} plain={m_p['l1']:.6f}")
+    if len(renew_ms) != 1 + iters:
+        raise AssertionError("train_regression: not every tree was renewed")
+    if roots_k != roots_p:
+        raise AssertionError("train_regression: root splits differ from "
+                             "the plain run's")
+    if abs(r["l1"] - m_p["l1"]) > 0.002 * m_p["l1"]:
+        raise AssertionError(f"train_regression: L1 {r['l1']} not within "
+                             f"0.002 relative of the plain run's "
+                             f"{m_p['l1']}")
+    del r["bst"], bst_p, ds
+    return dict(r, l1_plain=m_p["l1"], renew_ms=renew_ms,
+                construct_s=construct_s)
+
+
+SMALL_OBJECTIVES = ("huber", "fair", "poisson", "quantile", "mape", "gamma",
+                    "tweedie", "cross_entropy", "cross_entropy_lambda")
+
+
+def small_label(objective, signal, rs):
+    """A label in each objective's domain from a signal."""
+    n = signal.shape[0]
+    if objective == "poisson":
+        return rs.poisson(np.exp(signal / 3)).astype(np.float64)
+    if objective == "gamma":
+        return rs.gamma(2.0, np.exp(signal / 4))
+    if objective == "tweedie":
+        return np.where(rs.rand(n) < 0.3, 0.0,
+                        rs.gamma(1.5, np.exp(signal / 4)))
+    if objective.startswith("cross_entropy"):
+        return 1.0 / (1.0 + np.exp(-(signal + 0.5 * rs.randn(n))))
+    if objective == "mape":
+        return 5.0 + signal + rs.standard_t(3, n)
+    return signal + rs.standard_t(2, n)
+
+
+def phase_small_objectives(torch, lgb, dev):
+    """Every other new objective on 200,000 x 28 rows (the Higgs-shaped
+    X, seed 3; a label in each one's domain from its continuous target
+    squashed into (-3, 3) by ``3 tanh(t / 3)``), 63 leaves,
+    3 iterations (quantile at alpha 0.9): every tree equal to its plain
+    twin's with float64 histogram sums, and save, load and predict equal
+    to the in-memory prediction, output transform included; then a
+    quantized L1 run (round to nearest, with renewal) held tree for tree,
+    leaf values included, to its plain twin."""
+    from lightgbm_tpu_torch.ops.histogram import plain_kernels
+    X, _, target = make_higgs_like(200_000, FEATURES, seed=3, target=True)
+    sig = 3.0 * np.tanh(target / 3.0)
+    rs = np.random.RandomState(3)
+    out = {}
+    for obj in SMALL_OBJECTIVES + ("regression_l1",):
+        y = small_label(obj, sig, rs)
+        params = {"objective": obj, "num_leaves": 63, "max_bin": BINS,
+                  "verbosity": -1, "device_type": dev.type}
+        if obj == "quantile":
+            params["alpha"] = 0.9
+        if obj == "regression_l1":
+            params.update(use_quantized_grad=True,
+                          stochastic_rounding=False)
+        ds = lgb.Dataset(X, label=y, params=params)
+        _reset_counts()
+        bst = lgb.train(params, ds, 3)
+        counts = _read_counts()
+        _check_counts(f"small_{obj}", counts,
+                      [t.num_leaves for t in bst._models],
+                      "hist_int" if obj == "regression_l1" else "hist")
+        with plain_kernels(), exact_float_sums(torch):
+            ref = lgb.train(params, ds, 3)
+        exact = obj == "regression_l1"
+        same = [int(_same_structure(a, b) and (
+            np.array_equal(a.leaf_value, b.leaf_value) if exact
+            else np.allclose(a.leaf_value, b.leaf_value, rtol=1e-4,
+                             atol=1e-5)))
+            for a, b in zip(bst._models, ref._models)]
+        p = bst.predict(X[:50_000])
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "model.txt")
+            bst.save_model(path)
+            p2 = lgb.Booster(model_file=path,
+                             params={"device_type": dev.type}).predict(
+                X[:50_000])
+        rt = float(np.max(np.abs(p2 - p) / np.maximum(1.0, np.abs(p))))
+        log(f"[small_objectives] {obj}: 3 trees of "
+            f"{[t.num_leaves for t in bst._models]} leaves, launches="
+            f"{json.dumps(counts)}, trees identical to the plain run's"
+            f"{' (leaf values bit-equal)' if exact else ''}: {same}; "
+            f"predictions {float(p.min()):.4g}..{float(p.max()):.4g}, "
+            f"save/load relative max diff {rt:.3g}")
+        if len(same) != 3 or not all(same):
+            raise AssertionError(f"small {obj}: trees differ from the plain "
+                                 "run's")
+        if not np.all(np.isfinite(p)) or rt > 1e-6:
+            raise AssertionError(f"small {obj}: save/load/predict differs "
+                                 "from the in-memory prediction")
+        out[obj] = dict(counts=counts, same_trees=same, roundtrip=rt)
+        del bst, ref, ds
+    return out
+
+
+def _bundle_stats(torch, lgb, ds, params, tag):
+    """Bundle the Dataset as training will (``Dataset.bundles``), timed,
+    and print the plan: G bundle columns, B positions, the groups' sizes;
+    the device's memory after it (the unbundled matrix then waits on the
+    host)."""
+    from lightgbm_tpu_torch.config import Config
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = ds.bundles(Config.from_params(params))
+    torch.cuda.synchronize()
+    bundle_s = time.perf_counter() - t0
+    if info is None:
+        raise AssertionError(f"{tag}: the data did not bundle")
+    sizes = sorted((len(g) for g in info.groups), reverse=True)
+    multi = [n for n in sizes if n > 1]
+    out = dict(bundle_s=bundle_s, features=len(ds.mappers),
+               G=int(info.bins_bundled.shape[1]), B=int(info.num_positions),
+               multi_groups=len(multi), largest_groups=sizes[:8],
+               bundled_features=sum(multi),
+               dtype=str(info.bins_bundled.dtype),
+               device_bytes_after=torch.cuda.memory_allocated())
+    log(f"[{tag}] bundling: seconds={bundle_s:.2f} features={out['features']}"
+        f" -> G={out['G']} columns, B={out['B']} positions "
+        f"({out['dtype']}); {len(multi)} multi-member bundles of "
+        f"{sum(multi)} features, largest {sizes[:8]}; device bytes "
+        f"allocated after bundling={out['device_bytes_after']}")
+    return out
+
+
 def _f32_drift(torch, ds, yt):
     """The root histogram of class 0 at iteration 0 (every hessian
     1/7): the plain version's float32 sums and K1's against the float64
@@ -2429,10 +3047,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=HIGGS_ROWS,
                     help="training rows (default: the Higgs 10.5M)")
-    ap.add_argument("--iters", type=int, default=5,
+    ap.add_argument("--iters", type=int, default=3,
                     help="timed iterations after the warm-up one (at most "
-                         "3 in train_goss, train_rank and "
-                         "train_multiclass_dart, 2 in train_multiclass)")
+                         "3 in train_goss, train_regression and "
+                         "train_rank, 2 in train_multiclass_dart and "
+                         "train_allstate, 1 in train_multiclass; at least "
+                         "3 for train_goss to sample twice)")
+    ap.add_argument("--allstate-rows", type=int, default=ALLSTATE_ROWS,
+                    help="train_allstate's training rows (default 500,000)")
     ap.add_argument("--reps", type=int, default=20,
                     help="launches per kernel timing")
     ap.add_argument("--parent", default=None,
@@ -2487,19 +3109,27 @@ def main(argv=None):
     tv = phase_train_valid(torch, lgb, dev, tr, args.iters)
     done("train_valid")
     tg = phase_train_goss(torch, lgb, dev, tr, min(args.iters, 3))
-    del tr["ds"]
     done("train_goss")
+    trg = phase_train_regression(torch, lgb, dev, tr, min(args.iters, 3))
+    for key in ("ds", "Xt", "target", "target_valid"):
+        del tr[key]
+    done("train_regression")
     phase_train_u16(torch, lgb, dev)
     phase_train_quant_small(torch, lgb, dev)
+    small = phase_small_objectives(torch, lgb, dev)
     done("small runs")
     trr = phase_train_rank(torch, lgb, dev, min(args.iters, 3))
     done("train_rank")
-    trm = phase_train_multiclass(torch, lgb, dev, min(args.iters, 2))
+    trm = phase_train_multiclass(torch, lgb, dev, min(args.iters, 1),
+                                 args.reps)
     done("train_multiclass")
     trd = phase_train_multiclass_dart(torch, lgb, dev, trm,
-                                      min(args.iters, 3))
+                                      min(args.iters, 2))
     del trm["ds"]
     done("train_multiclass_dart")
+    tas = phase_train_allstate(torch, lgb, dev, args.allstate_rows,
+                               min(args.iters, 2), args.reps)
+    done("train_allstate")
     phase_small_rf_cv(torch, lgb, dev)
     done("small rf and cv runs")
 
@@ -2540,7 +3170,19 @@ def main(argv=None):
                 "train_multiclass": trm["counts"][key],
                 "train_valid": tv["counts"][key],
                 "train_goss": tg["counts"][key],
-                "train_multiclass_dart": trd["counts"][key]}
+                "train_multiclass_dart": trd["counts"][key],
+                "train_multiclass_unbundled":
+                    trm["unbundled"]["counts"][key],
+                "train_regression": trg["counts"][key],
+                "train_allstate": tas["counts"][key],
+                "small_objectives": sum(v["counts"][key]
+                                        for v in small.values())}
+
+    # the rungs at the bundled widths join each kernel's ladder
+    for key, shapes in (("k1", k1), ("k1_int", k1i), ("k2", k2)):
+        for ph in (trm, tas):
+            extra = ph["kernels"][key]
+            shapes.extend(extra if isinstance(extra, list) else [extra])
 
     part = entry("partition", "lightgbm_tpu_torch/csrc/partition.cu",
                  "lightgbm_tpu/ops/partition_kernel.py:97",

@@ -7,7 +7,12 @@ once — mappers found on the host from a row sample, exactly as
 the JAX package does, or taken from a ``reference`` Dataset (a valid
 set), the bin matrix built on the device — and kept as a row-major
 ``[n, F]`` u8 tensor (u16 when a feature has more than 256 bins), the
-layout the grower streams. ``Booster`` trains through
+layout the grower streams. With ``enable_bundle`` (the default),
+``Dataset.bundles`` bundles mutually exclusive sparse features (EFB,
+``ops/bundling.py``) into an ``[n, G]`` matrix built on the device;
+while the bundled matrix is on the device, the ``[n, F]`` one waits on
+the host, and the other way round, so one training matrix at a time
+takes device memory. ``Booster`` trains through
 ``models/gbdt.py`` (with valid sets and their metrics: ``add_valid``,
 ``eval_train``, ``eval_valid``), predicts through ``prediction.py`` and
 reads and writes the JAX package's model text.
@@ -65,6 +70,7 @@ class Dataset:
         self.params = dict(params or {})
         self.free_raw_data = free_raw_data
         self._bins: Optional[torch.Tensor] = None
+        self._bundle_cache: Dict[int, Any] = {}
         self._query_boundaries: Optional[np.ndarray] = None
 
     # -- construction ---------------------------------------------------
@@ -156,29 +162,47 @@ class Dataset:
         used = [j for j, m in enumerate(full) if not m.is_trivial]
         self._used_features = np.asarray(used, dtype=np.int32)
         self.mappers = [full[j] for j in used]
-        self._check_bundling(cfg)
-
-    def _check_bundling(self, cfg: Config) -> None:
-        """The JAX package bundles mutually exclusive sparse features
-        (EFB) when ``enable_bundle`` is on, its default; a feature joins
-        a bundle only when at least 80% of its sampled rows sit in its
-        zero bin. The port has no EFB yet, so it refuses data on which
-        bundling could apply rather than growing different trees."""
-        if not cfg.enable_bundle or len(self.mappers) < 3:
-            return
-        sparse = sum(m.sparse_rate >= 0.8 for m in self.mappers)
-        if sparse >= 2:
-            raise NotImplementedError(
-                f"{sparse} features are >= 80% zeros, so the JAX package "
-                "would bundle them (EFB), which is not in the port yet "
-                "(ROADMAP.md Queue 1 item 15); pass enable_bundle=False "
-                "to train without bundling")
 
     # -- accessors ------------------------------------------------------
     def device_bins(self) -> torch.Tensor:
-        """``[n, F]`` row-major bin tensor on the device."""
+        """``[n, F]`` row-major bin tensor on the device (any bundled
+        matrix of this Dataset waits on the host meanwhile)."""
         self.construct()
+        if self._bins.device != self.device:
+            self._park_bundles()
+            self._bins = self._bins.to(self.device)
         return self._bins
+
+    def _park_bundles(self) -> None:
+        for cap, info in self._bundle_cache.items():
+            if info is not None and info.bins_bundled.device.type != "cpu":
+                self._bundle_cache[cap] = info._replace(
+                    bins_bundled=info.bins_bundled.cpu())
+
+    def bundles(self, cfg: Config):
+        """The exclusive feature bundling of this Dataset
+        (``ops/bundling.py`` ``BundleInfo``, its bundled ``[n, G]``
+        matrix on the device), or None when ``enable_bundle`` is off or
+        bundling would not reduce the column count. Built once per bin
+        matrix and ``max_cat_to_onehot``. While the bundled matrix is on
+        the device, the ``[n, F]`` one waits on the host."""
+        self.construct()
+        if not cfg.enable_bundle:
+            return None
+        cap = cfg.max_cat_to_onehot
+        if cap not in self._bundle_cache:
+            from .ops.bundling import build_bundles
+            self._bundle_cache[cap] = build_bundles(
+                self.device_bins(), self.mappers, max_cat_onehot=cap)
+        info = self._bundle_cache[cap]
+        if info is None:
+            return None
+        if info.bins_bundled.device != self.device:
+            self._park_bundles()
+            info = self._bundle_cache[cap] = info._replace(
+                bins_bundled=info.bins_bundled.to(self.device))
+        self._bins = self._bins.cpu()
+        return info
 
     def num_data(self) -> int:
         self.construct()

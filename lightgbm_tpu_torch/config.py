@@ -151,6 +151,12 @@ _OBJECTIVE_ALIASES = {
     "l2": "regression", "mean_squared_error": "regression",
     "mse": "regression", "l2_root": "regression",
     "root_mean_squared_error": "regression", "rmse": "regression",
+    "regression_l1": "regression_l1", "l1": "regression_l1",
+    "mean_absolute_error": "regression_l1", "mae": "regression_l1",
+    "huber": "huber", "fair": "fair", "poisson": "poisson",
+    "quantile": "quantile",
+    "mape": "mape", "mean_absolute_percentage_error": "mape",
+    "gamma": "gamma", "tweedie": "tweedie",
     "binary": "binary",
     "multiclass": "multiclass", "softmax": "multiclass",
     "multiclassova": "multiclassova", "multiclass_ova": "multiclassova",
@@ -159,6 +165,9 @@ _OBJECTIVE_ALIASES = {
     "rank_xendcg": "rank_xendcg", "xendcg": "rank_xendcg",
     "xe_ndcg": "rank_xendcg", "xe_ndcg_mart": "rank_xendcg",
     "xendcg_mart": "rank_xendcg",
+    "cross_entropy": "cross_entropy", "xentropy": "cross_entropy",
+    "cross_entropy_lambda": "cross_entropy_lambda",
+    "xentlambda": "cross_entropy_lambda",
 }
 
 _Q1 = "ROADMAP.md Queue 1 item {}"
@@ -186,7 +195,9 @@ NOT_IMPLEMENTED: Dict[str, tuple] = {
     "num_devices": (0, _Q1.format(20)),
     "num_machines": (1, _Q1.format(20)),
     "nonfinite_policy": ("raise", _Q1.format(21)),
-    "reg_sqrt": (False, _Q1.format(11)),
+    # the JAX package fits raw labels under reg_sqrt (it never calls
+    # transform_label) while LightGBM fits transformed ones
+    "reg_sqrt": (False, "ROADMAP.md Queue 3, reg_sqrt"),
     "hist_method": ("auto", _TPU_KNOB),
     "hist_precision": ("default", _TPU_KNOB),
     "hist_dtype": ("float32", _TPU_KNOB),
@@ -202,11 +213,12 @@ NOT_IMPLEMENTED: Dict[str, tuple] = {
 
 def canonical_objective(name: str) -> str:
     key = str(name).strip().lower()
-    if key not in _OBJECTIVE_ALIASES:
+    if key in ("none", "null", "custom", "na"):
         raise NotImplementedError(
-            f"objective={name!r} is not in the port yet (binary, L2 "
-            "regression, multiclass, multiclassova, lambdarank and "
-            f"rank_xendcg are; the rest is {_Q1.format(11)})")
+            f"objective={name!r} (a custom objective) is not in the port "
+            f"yet ({_Q1.format(22)})")
+    if key not in _OBJECTIVE_ALIASES:
+        raise ValueError(f"Unknown objective: {name}")
     return _OBJECTIVE_ALIASES[key]
 
 
@@ -338,6 +350,9 @@ class Config:
     use_missing: bool = True
     zero_as_missing: bool = False
     enable_bundle: bool = True
+    # read by bundling's eligibility test (categorical features are
+    # ROADMAP.md Queue 1 item 13)
+    max_cat_to_onehot: int = 4
     num_class: int = 1
     is_unbalance: bool = False
     scale_pos_weight: float = 1.0
@@ -348,10 +363,10 @@ class Config:
     lambdarank_norm: bool = True
     label_gain: List[float] = field(default_factory=list)
     lambdarank_position_bias_regularization: float = 0.0
-    # read by the metrics (metrics.py, ranking.py); the huber, quantile,
-    # fair and tweedie objectives are ROADMAP.md Queue 1 item 11
+    # huber / quantile, fair, poisson, tweedie (objectives and metrics)
     alpha: float = 0.9
     fair_c: float = 1.0
+    poisson_max_delta_step: float = 0.7
     tweedie_variance_power: float = 1.5
     eval_at: List[int] = field(default_factory=lambda: [1, 2, 3, 4, 5])
     multi_error_top_k: int = 1
@@ -392,11 +407,13 @@ class Config:
         "other_rate": (0.0, 1.0),
         "metric_freq": (1, None),
         "max_bin": (2, None),
+        "max_cat_to_onehot": (1, None),
         "min_data_in_bin": (1, None),
         "bin_construct_sample_cnt": (1, None),
         "sigmoid": (0.0, None, "gt"),
         "alpha": (0.0, None, "gt"),
         "fair_c": (0.0, None, "gt"),
+        "poisson_max_delta_step": (0.0, None, "gt"),
         "tweedie_variance_power": (1.0, 2.0),
         "scale_pos_weight": (0.0, None, "gt"),
         "num_grad_quant_bins": (2, None),

@@ -11,9 +11,14 @@
 // A row is its F bins (u8/u16), optionally its payload and its int32 row
 // id. The payload is the row's (grad, hess) pair: 8 bytes (an f32 pair) on
 // the float path, 2 bytes (an int8 pair, moved as one 16-bit word) on the
-// quantized path. The decision is the numerical split rule of the JAX
-// grower (ops/grow.py chunk_goleft): the NaN bin follows default_left,
-// every other bin goes left when bin <= threshold_bin. The result is a
+// quantized path. The decision is the range rule of the JAX grower's
+// chunk_goleft (ops/grow.py), for plain and EFB-bundled bin columns: a
+// row whose bin v in column `col` is the missing position follows
+// default_left; any other row goes right iff lo <= v <= hi. A plain split
+// at threshold t is lo = t + 1, hi = INT_MAX, the missing position its NaN
+// bin (or -1); a bundle member at offset off with nb bins is lo = off + t,
+// hi = off + nb - 2, the missing position off + nb - 2 when it has a NaN
+// bin (ops/partition.py RangeRules makes both). The result is a
 // permutation, so it is bit-exact against the plain version.
 //
 // What bounds it on the H100: bytes. The least a call can move is the
@@ -120,8 +125,15 @@ struct Streams {
   int unit[3];
 };
 
-__device__ __forceinline__ bool go_left(int v, int t, int dl, int nan_bin) {
-  return (nan_bin >= 0 && v == nan_bin) ? (dl != 0) : (v <= t);
+// The split decision on one bin: see the top of the file. v is a u8/u16
+// bin (0 to 65535), so hi = INT_MAX never overflows and a missing position
+// of -1 never matches.
+struct Rule {
+  int lo, hi, nan_pos, dl;
+};
+
+__device__ __forceinline__ bool go_left(int v, const Rule& r) {
+  return v == r.nan_pos ? (r.dl != 0) : !(v >= r.lo && v <= r.hi);
 }
 
 __device__ __forceinline__ unsigned long long ld_relaxed(
@@ -212,8 +224,8 @@ __device__ __forceinline__ void stage_rows(const Streams& s, const Layout& L,
 // indices in row order, perm[nl, nr) the right rows'. Returns nl to every
 // thread. `scan` holds 32 ints.
 template <typename BinT>
-__device__ int rank_rows(const BinT* bins, int F, int f, int t, int dl,
-                         int nan_bin, int nr, uint16_t* perm, int* scan) {
+__device__ int rank_rows(const BinT* bins, int F, int f, const Rule& rule,
+                         int nr, uint16_t* perm, int* scan) {
   const int T = blockDim.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -223,7 +235,7 @@ __device__ int rank_rows(const BinT* bins, int F, int f, int t, int dl,
   const int r1 = min(nr, r0 + ch);
   int c = 0;
   for (int r = r0; r < r1; ++r)
-    c += go_left((int)bins[(size_t)r * F + f], t, dl, nan_bin);
+    c += go_left((int)bins[(size_t)r * F + f], rule);
   int x = c;  // inclusive scan within the warp
   for (int o = 1; o < 32; o <<= 1) {
     const int y = __shfl_up_sync(0xffffffffu, x, o);
@@ -243,7 +255,7 @@ __device__ int rank_rows(const BinT* bins, int F, int f, int t, int dl,
   const int nl = scan[T / 32 - 1];
   int lo = x - c + (warp > 0 ? scan[warp - 1] : 0);
   for (int r = r0; r < r1; ++r) {
-    if (go_left((int)bins[(size_t)r * F + f], t, dl, nan_bin))
+    if (go_left((int)bins[(size_t)r * F + f], rule))
       perm[lo++] = (uint16_t)r;
     else
       perm[nl + r - lo] = (uint16_t)r;
@@ -335,8 +347,8 @@ __device__ __forceinline__ void move_rows(const Streams& s, int k,
 // Path 1: the whole window in the blocks' shared memory, one launch.
 template <typename BinT>
 __global__ void __launch_bounds__(512, 2)
-    part_resident(Streams s, long long cnt, int F, int f, int t, int dl,
-                  int nan_bin, int rows, int* __restrict__ counts,
+    part_resident(Streams s, long long cnt, int F, int f, Rule rule,
+                  int rows, int* __restrict__ counts,
                   int* __restrict__ n_left) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = layout(rows, F, (int)sizeof(BinT), s.row_bytes[1], 1);
@@ -360,7 +372,7 @@ __global__ void __launch_bounds__(512, 2)
     __syncthreads();  // the ragged bytes are visible
     mbar_wait(bar, 0);
     nl = rank_rows(reinterpret_cast<const BinT*>(staged(s, L, smem, 0, row0)),
-                   F, f, t, dl, nan_bin, nr, perm, scan);
+                   F, f, rule, nr, perm, scan);
   }
   if (tid == 0) counts[blockIdx.x] = nl;
   cg::this_grid().sync();
@@ -396,7 +408,7 @@ __global__ void __launch_bounds__(512, 2)
 template <typename BinT>
 __global__ void __launch_bounds__(kColumnThreads)
     part_column(const BinT* __restrict__ bins, long long cnt, int F, int f,
-                int t, int dl, int nan_bin, int rows,
+                Rule rule, int rows,
                 unsigned long long* __restrict__ status,
                 int* __restrict__ n_left) {
   __shared__ int warp_sums[kColumnThreads / 32];
@@ -409,7 +421,7 @@ __global__ void __launch_bounds__(kColumnThreads)
   const BinT* col = bins + row0 * F + f;
   int c = 0;
   for (int r = tid; r < tr; r += kColumnThreads)
-    c += go_left((int)__ldg(col + (size_t)r * F), t, dl, nan_bin);
+    c += go_left((int)__ldg(col + (size_t)r * F), rule);
   c = __reduce_add_sync(0xffffffffu, c);
   if (lane == 0) warp_sums[warp] = c;
   __syncthreads();
@@ -444,8 +456,8 @@ __global__ void __launch_bounds__(kColumnThreads)
 // which is cleared.
 template <typename BinT>
 __global__ void __launch_bounds__(512, 2)
-    part_move(Streams s, long long cnt, int F, int f, int t, int dl,
-              int nan_bin, int rows, int stages, long long ntiles,
+    part_move(Streams s, long long cnt, int F, int f, Rule rule, int rows,
+              int stages, long long ntiles,
               unsigned long long* __restrict__ status,
               const int* __restrict__ n_left_ptr) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -494,8 +506,8 @@ __global__ void __launch_bounds__(512, 2)
     }
     mbar_wait(&bars[k], parity);
     const int nl = rank_rows(
-        reinterpret_cast<const BinT*>(staged(s, L, buf, 0, row0)), F, f, t,
-        dl, nan_bin, tr, perm, scan);
+        reinterpret_cast<const BinT*>(staged(s, L, buf, 0, row0)), F, f, rule,
+        tr, perm, scan);
     const long long before = scan[32] - nl;
     for (int q = 0; q < 3; ++q)
       if (s.src[q])
@@ -517,8 +529,8 @@ int unit_of(int row_bytes, const void* a, const void* b) {
 }
 
 template <typename BinT>
-cudaError_t launch(Streams s, long long cnt, int F, int f, int t, int dl,
-                   int nan_bin, int path, int nblocks, int rows, int stages,
+cudaError_t launch(Streams s, long long cnt, int F, int f, Rule rule,
+                   int path, int nblocks, int rows, int stages,
                    long long tiles, int threads, int smem, int* counts,
                    unsigned long long* status, int* n_left,
                    cudaStream_t stream) {
@@ -527,23 +539,22 @@ cudaError_t launch(Streams s, long long cnt, int F, int f, int t, int dl,
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
-    void* args[] = {&s, &cnt, &F, &f, &t, &dl, &nan_bin, &rows, &counts,
-                    &n_left};
+    void* args[] = {&s, &cnt, &F, &f, &rule, &rows, &counts, &n_left};
     return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern),
                                        dim3(nblocks), dim3(threads), args,
                                        (size_t)smem, stream);
   }
   part_column<BinT><<<(unsigned)tiles, kColumnThreads, 0, stream>>>(
-      reinterpret_cast<const BinT*>(s.src[0]), cnt, F, f, t, dl, nan_bin, rows,
-      status, n_left);
+      reinterpret_cast<const BinT*>(s.src[0]), cnt, F, f, rule, rows, status,
+      n_left);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   auto* kern = part_move<BinT>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem);
   if (e != cudaSuccess) return e;
-  kern<<<nblocks, threads, smem, stream>>>(s, cnt, F, f, t, dl, nan_bin, rows,
-                                           stages, tiles, status, n_left);
+  kern<<<nblocks, threads, smem, stream>>>(s, cnt, F, f, rule, rows, stages,
+                                           tiles, status, n_left);
   return cudaGetLastError();
 }
 
@@ -592,11 +603,12 @@ extern "C" int partition_cooperative(int device) {
 // move-pass blocks with a ring of `stages` buffers). pay_bytes is a
 // payload row's width: 8 (f32 pair), 2 (int8 pair) or 0 (no payload;
 // pay_* are then ignored). ids_* may be null. `n_left` receives the left
-// count. Returns the first CUDA error (0 = success).
+// count. Rows split on bin column f by the range rule (lo, hi, nan_pos,
+// dl) above. Returns the first CUDA error (0 = success).
 extern "C" int partition_window(
     const void* bins_src, void* bins_dst, int bin_bytes, const void* pay_src,
     void* pay_dst, int pay_bytes, const void* ids_src, void* ids_dst,
-    long long cnt, int F, int f, int t, int dl, int nan_bin, int path,
+    long long cnt, int F, int f, int lo, int hi, int nan_pos, int dl, int path,
     int nblocks, int rows, int stages, long long tiles, int threads,
     int smem, void* counts, void* status, void* n_left, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -627,13 +639,12 @@ extern "C" int partition_window(
     s.row_bytes[k] = rbs[k];
     s.unit[k] = on ? unit_of(rbs[k], srcs[k], dsts[k]) : 1;
   }
+  const Rule rule{lo, hi, nan_pos, dl};
   int* c = static_cast<int*>(counts);
   unsigned long long* sw = static_cast<unsigned long long*>(status);
   if (bin_bytes == 1)
-    return (int)launch<uint8_t>(s, cnt, F, f, t, dl, nan_bin, path, nblocks,
-                                rows, stages, tiles, threads, smem, c, sw, nl,
-                                st);
-  return (int)launch<uint16_t>(s, cnt, F, f, t, dl, nan_bin, path, nblocks,
-                               rows, stages, tiles, threads, smem, c, sw, nl,
-                               st);
+    return (int)launch<uint8_t>(s, cnt, F, f, rule, path, nblocks, rows, stages,
+                                tiles, threads, smem, c, sw, nl, st);
+  return (int)launch<uint16_t>(s, cnt, F, f, rule, path, nblocks, rows,
+                               stages, tiles, threads, smem, c, sw, nl, st);
 }

@@ -339,8 +339,9 @@ def _subset_dataset(full: Dataset, idx: np.ndarray) -> Dataset:
     sub.__dict__.update(full.__dict__)
     sub.reference = full
     idx = np.asarray(idx, np.int64)
-    sub._bins = _take_rows(full._bins, torch.as_tensor(idx,
-                                                       device=full.device))
+    sub._bins = _take_rows(full._bins, torch.as_tensor(
+        idx, device=full._bins.device))
+    sub._bundle_cache = {}
     sub._n = len(idx)
     sub.data = None
     sub.label = np.asarray(full.get_label())[idx]

@@ -17,7 +17,9 @@ step (``_fused_iter_step``) and of its eager path for ranking:
   non-finite guard of the default ``nonfinite_policy="raise"`` over the
   gradients, the hessians and every tree's fitted leaf values (as the
   JAX package's ``_leaf_value_guard``; it raises naming what was not
-  finite, before any tree of the iteration is kept), shrinkage by
+  finite, before any tree of the iteration is kept), for the L1 family
+  the leaf values renewed as percentiles of the residuals
+  (``ops/renew.py``, after the quantized path's own renewal), shrinkage by
   ``learning_rate``, and the score update ``score[k] += learning_rate *
   leaf_value[row_leaf]``;
 - quantized-gradient training (``use_quantized_grad``): with
@@ -80,7 +82,9 @@ import torch
 
 from ..config import Config
 from ..ops.grow import GrowConfig, Grower
+from ..ops.partition import RangeRules
 from ..ops.predict import predict_leaf_binned
+from ..ops.renew import renew_leaf_values
 from ..ops.split import SplitParams
 from .tree import Tree, tree_from_arrays
 
@@ -110,12 +114,13 @@ def bynode_uniform(gen: torch.Generator, it: int, k: int, node: int,
     return torch.rand(F, generator=gen, device=gen.device)
 
 
-def _tree_leaves(tree: Tree, dataset) -> torch.Tensor:
+def _tree_leaves(tree: Tree, dataset, bundle=None) -> torch.Tensor:
     """``[n]`` leaf of every row of ``dataset`` in a host tree, routed
     over its bins: the tree's bin thresholds when it was grown on these
     mappers, else its real thresholds mapped onto them (a loaded
-    model)."""
-    bins = dataset.device_bins()
+    model). With ``bundle`` (the dataset's EFB plan) the walk runs on the
+    bundled matrix, by each split's range rule."""
+    bins = dataset.device_bins() if bundle is None else bundle.bins_bundled
     nn = tree.num_nodes
     inner = dataset.inner_feature_index(tree.split_feature)
     tb = np.asarray(tree.threshold_bin, np.int64).copy()
@@ -130,15 +135,18 @@ def _tree_leaves(tree: Tree, dataset) -> torch.Tensor:
                 depth[c] = depth[i] + 1
             else:
                 deepest = max(deepest, int(depth[i]) + 1)
+    rules = None if bundle is None else RangeRules(
+        dataset.feat_num_bins(), dataset.feat_nan_bin(), bundle)
     return predict_leaf_binned(
         inner, tb, (tree.decision_type & 2) != 0, tree.left_child,
-        tree.right_child, dataset.feat_nan_bin(), bins, deepest)
+        tree.right_child, dataset.feat_nan_bin(), bins, deepest, rules)
 
 
-def tree_values(tree: Tree, dataset) -> torch.Tensor:
+def tree_values(tree: Tree, dataset, bundle=None) -> torch.Tensor:
     """``[n]`` float32 output of a host tree on every row of
     ``dataset`` (its leaf values rounded to float32, as the JAX
-    package's ``_predict_tree_binned_host``)."""
+    package's ``_predict_tree_binned_host``); ``bundle``: route over the
+    dataset's bundled matrix."""
     n = dataset.num_data()
     dev = dataset.device
     lv = torch.as_tensor(np.asarray(tree.leaf_value, np.float32),
@@ -146,7 +154,7 @@ def tree_values(tree: Tree, dataset) -> torch.Tensor:
     if tree.num_leaves <= 1:
         return torch.full((n,), float(lv[0]), dtype=torch.float32,
                           device=dev)
-    return lv[_tree_leaves(tree, dataset)]
+    return lv[_tree_leaves(tree, dataset, bundle)]
 
 
 class _ValidData:
@@ -195,10 +203,13 @@ class GBDTBooster:
                               np.float64).reshape(K)
         self.init_score = init
         self.score = self._base_score(self.n, user_init, True)
+        # EFB: train on the bundled matrix when the Dataset bundles
+        self.bundle = train_set.bundles(cfg)
         self.grower = Grower(
             GrowConfig(
                 num_leaves=cfg.num_leaves,
-                num_bins=train_set.num_total_bins(),
+                num_bins=train_set.num_total_bins() if self.bundle is None
+                else self.bundle.num_positions,
                 max_depth=cfg.max_depth,
                 split=SplitParams(
                     lambda_l1=cfg.lambda_l1, lambda_l2=cfg.lambda_l2,
@@ -210,8 +221,9 @@ class GBDTBooster:
                 quant_bins=cfg.num_grad_quant_bins,
                 renew_leaf=cfg.quant_train_renew_leaf,
                 bynode=cfg.feature_fraction_bynode),
-            train_set.device_bins(), train_set.feat_num_bins(),
-            train_set.feat_nan_bin())
+            None if self.bundle is not None else train_set.device_bins(),
+            train_set.feat_num_bins(), train_set.feat_nan_bin(),
+            bundle=self.bundle)
         self._rounding_gen = None
         if cfg.use_quantized_grad and cfg.stochastic_rounding:
             self._rounding_gen = self._generator(
@@ -253,7 +265,7 @@ class GBDTBooster:
                                  dataset.get_init_score(),
                                  not (self._fold_bias or is_rf))
         for i, tree in enumerate(self.models):
-            score[i % self.K] += tree_values(tree, dataset)
+            score[i % self.K] += self._tree_values(tree, dataset)
         if is_rf and self.iter_ > 0:
             score = score / self.iter_
         return score
@@ -362,6 +374,9 @@ class GBDTBooster:
                 "(nonfinite_policy='raise')")
         grew_any = False
         for k, (arrays, row_leaf) in enumerate(grown):
+            if arrays.num_leaves > 1 and self.objective.need_renew:
+                arrays = arrays._replace(leaf_value=self._renewed(
+                    arrays, row_leaf, k, row_w))
             tree = tree_from_arrays(arrays, self.train_set.mappers,
                                     self.train_set.used_feature_indices())
             fold_now = is_rf or (it == 0 and self._fold_bias)
@@ -397,6 +412,35 @@ class GBDTBooster:
             self._dart_normalize(drop_idx)
         self.iter_ += 1
         return not grew_any
+
+    def _tree_values(self, tree: Tree, dataset) -> torch.Tensor:
+        """:func:`tree_values`, over the bundled matrix for the train
+        set of a bundled run."""
+        bundle = self.bundle if dataset is self.train_set else None
+        return tree_values(tree, dataset, bundle)
+
+    def _renewed(self, arrays, row_leaf: torch.Tensor, k: int,
+                 row_w: Optional[torch.Tensor]) -> np.ndarray:
+        """RenewTreeOutput of the L1 family: the tree's leaf values as
+        percentiles of the residuals against the current score (the init
+        score under rf), weighted by the objective's renewal weights
+        times the bagging weights; leaves without weight keep theirs."""
+        obj = self.objective
+        if self.cfg.boosting == "rf":
+            base = torch.full((self.n,), float(self.init_score[k]),
+                              dtype=torch.float32, device=self.device)
+        else:
+            base = self.score[k]
+        rw = obj.renew_weight(self.label, self.weight)
+        if row_w is None:
+            row_w = torch.ones(self.n, dtype=torch.float32,
+                               device=self.device)
+        rw = row_w if rw is None else row_w * rw
+        out = renew_leaf_values(
+            row_leaf, obj.renew_residual(base, self.label), rw,
+            self.cfg.num_leaves, obj.renew_alpha,
+            torch.as_tensor(arrays.leaf_value, device=self.device))
+        return out.cpu().numpy()
 
     def _average_in(self, k: int, it: int, train_out, valid_out) -> None:
         """rf: the scores are the running average of the trees' outputs
@@ -434,7 +478,7 @@ class GBDTBooster:
         tree = self.models[i]
 
         def scaled(ds):
-            out = tree_values(tree, ds)
+            out = self._tree_values(tree, ds)
             return out if factor == 1.0 else out * factor
         self.score[k] += scaled(self.train_set)
         for v in self.valid_sets:

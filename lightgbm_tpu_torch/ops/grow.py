@@ -53,6 +53,16 @@ over all ``n`` rows before the gather, as in JAX. Out-of-bag rows get
 their leaf by routing their bins through the finished tree
 (:func:`ops.predict.predict_leaf_binned`).
 
+Exclusive feature bundling (the JAX grower's ``bundled`` branches): with
+a ``bundle`` (``ops/bundling.py`` ``BundleInfo``) the grower runs on the
+bundled ``[n, G]`` matrix — K1 at ``G`` columns and ``B =
+num_positions``, the histogram cache ``[L, G, B, 2]``, the search
+:func:`ops.split.find_best_split_bundled`, and K2 and the out-of-bag walk
+on the range rule of each split's bundle column
+(:class:`ops.partition.RangeRules`). The records, ``TreeArrays`` and
+``row_leaf`` keep original feature ids and member-local thresholds, so
+the model does not depend on the bundling.
+
 Column sampling: ``grow`` takes the tree's ``feature_mask``
 (``feature_fraction``) and, with ``GrowConfig.bynode < 1``, a function
 giving the uniform ``[F]`` draw of node ``i`` (0 for the root, ``2 *
@@ -77,12 +87,13 @@ import numpy as np
 import torch
 
 from .histogram import subtract_histogram, window_hist
-from .partition import partition_window
+from .partition import RangeRules, partition_window
 from .predict import predict_leaf_binned
 from .quantize import dequantize, discretize
-from .split import F_, FIELDS, SplitParams, find_best_split, leaf_output
+from .split import (F_, FIELDS, BundleTables, SplitParams, find_best_split,
+                    find_best_split_bundled, leaf_output)
 
-__all__ = ["GrowConfig", "TreeArrays", "Grower", "grow_tree"]
+__all__ = ["GrowConfig", "TreeArrays", "Grower", "grow_tree", "root_totals"]
 
 NF = len(FIELDS)
 
@@ -191,20 +202,40 @@ def _apply_split(t: dict, rec: np.ndarray, leaf: int, R: int, ns: int,
     t["num_leaves"] += 1
 
 
-class Grower:
-    """Grows trees over one dataset's row-major ``[n, F]`` bin tensor.
+def root_totals(full: torch.Tensor):
+    """The float path's root totals: the sums of the weighted gradients
+    and hessians ``[n, 2]`` over every row, in float32. The order of the
+    sum is torch's, not XLA's, so the totals can differ from the JAX
+    package's by an ulp; a child whose hessian sum is the parent's less
+    a nearly equal sum carries that ulp into its output (ROADMAP.md
+    Queue 3). The CPU tests hand in XLA's sums through this function."""
+    return full[:, 0].sum(), full[:, 1].sum()
 
-    The ping-pong buffers (``2 * n * (F + 12)`` bytes, ``2 * n * (F + 6)``
-    when quantized) and the per-leaf histogram cache (``L * F * B * 8``
-    bytes, f32 or int32) are allocated once and reused by every tree."""
+
+class Grower:
+    """Grows trees over one dataset's row-major ``[n, F]`` bin tensor, or
+    with a ``bundle``, over its bundled ``[n, G]`` matrix
+    (``bundle.bins_bundled``; ``bins`` is then None).
+
+    The ping-pong buffers (``2 * n * (C + 12)`` bytes, ``2 * n * (C + 6)``
+    when quantized, for ``C`` bin columns) and the per-leaf histogram
+    cache (``L * C * B * 8`` bytes, f32 or int32) are allocated once and
+    reused by every tree."""
 
     def __init__(self, cfg: GrowConfig, bins: torch.Tensor,
-                 feat_num_bins, feat_nan_bin, feature_mask=None):
-        n, F = bins.shape
+                 feat_num_bins, feat_nan_bin, feature_mask=None,
+                 bundle=None):
+        if bundle is not None:
+            bins = bundle.bins_bundled
+        n, C = bins.shape
         dev = bins.device
         L, B = cfg.num_leaves, cfg.num_bins
+        F = len(feat_num_bins)
         self.cfg, self.n, self.F, self.dev = cfg, n, F, dev
         self.bins = bins
+        self.bundled = bundle is not None
+        self.tables = BundleTables.of(bundle, dev) if self.bundled else None
+        self.rules = RangeRules(feat_num_bins, feat_nan_bin, bundle)
         self.fnb = torch.as_tensor(np.asarray(feat_num_bins, np.int64),
                                    device=dev)
         self.fnan_host = np.asarray(feat_nan_bin, np.int64)
@@ -213,17 +244,20 @@ class Grower:
             else np.asarray(feature_mask, bool)
         self.fmask_host = fm
         self.fmask = torch.as_tensor(fm, device=dev)
-        self.bins2 = torch.empty((2, n, F), dtype=bins.dtype, device=dev)
+        self.bins2 = torch.empty((2, n, C), dtype=bins.dtype, device=dev)
         q = cfg.quantized
         self.pay2 = torch.empty((2, n, 2), device=dev,
                                 dtype=torch.int8 if q else torch.float32)
         self.ids2 = torch.empty((2, n), dtype=torch.int32, device=dev)
-        self.hists = torch.empty((L, F, B, 2), device=dev,
+        self.hists = torch.empty((L, C, B, 2), device=dev,
                                  dtype=torch.int32 if q else torch.float32)
         self.best = torch.empty((L, NF), dtype=torch.float32, device=dev)
         self.row_ids = torch.arange(n, dtype=torch.int32, device=dev)
 
     def _search(self, hist2, g, h, c, fmask):
+        if self.bundled:
+            return find_best_split_bundled(hist2, g, h, c, self.tables,
+                                           fmask, self.cfg.split)
         return find_best_split(hist2, g, h, c, self.fnb, self.fnan,
                                fmask, self.cfg.split)
 
@@ -296,8 +330,7 @@ class Grower:
             # every row hits feature 0 once
             tg, th = hist_f(root_hist[0]).sum(dim=0).unbind()
         else:
-            tg = full[:, 0].sum()
-            th = full[:, 1].sum()
+            tg, th = root_totals(full)
         tc = torch.full((), float(m), dtype=torch.float32, device=self.dev)
         root_mask = self._node_mask(node_uniform(0), fmask, usable) \
             if bynode else fmask
@@ -327,12 +360,12 @@ class Grower:
             src = int(leaf_buf[leaf])
             dst = 1 - src
             begin, cnt = int(leaf_begin[leaf]), int(leaf_count[leaf])
-            f = int(r[F_["feature"]])
+            col, lo, hi, nan_pos = self.rules(int(r[F_["feature"]]),
+                                              int(r[F_["threshold_bin"]]))
             nl = partition_window(
                 self.bins2[src], self.bins2[dst], self.pay2[src],
                 self.pay2[dst], self.ids2[src], self.ids2[dst], begin, cnt,
-                f, int(r[F_["threshold_bin"]]),
-                bool(r[F_["default_left"]]), int(self.fnan_host[f]))
+                col, lo, hi, nan_pos, bool(r[F_["default_left"]]))
             est_left_small = r[F_["left_count"]] <= r[F_["right_count"]]
             small = window_hist(self.bins2[dst], self.pay2[dst], B, begin,
                                 cnt, nl, 1 if est_left_small else 2,
@@ -381,8 +414,9 @@ class Grower:
             row_leaf[oob] = predict_leaf_binned(
                 t["split_feature"][:nn], t["threshold_bin"][:nn],
                 t["default_left"][:nn], t["left_child"][:nn],
-                t["right_child"][:nn], self.fnan, _take_rows(self.bins, oob),
-                int(t["leaf_depth"][:nleaves].max()))
+                t["right_child"][:nn], self.fnan_host,
+                _take_rows(self.bins, oob),
+                int(t["leaf_depth"][:nleaves].max()), rules=self.rules)
         if cfg.quantized and cfg.renew_leaf:
             t["leaf_value"][:nleaves] = self._renewed_leaf_values(
                 grad, hess, row_leaf, nleaves)

@@ -7,9 +7,12 @@ grower (``ops/grow.py`` ``part_apply``).
 
 - :func:`partition_window` — moves the rows of one leaf's window
   ``[begin, begin + cnt)`` from the source buffers of a ping-pong pair
-  into the same window of the destination buffers: rows that go left
-  (the numerical split rule of ``chunk_goleft``) to the front, the
-  others to the back, each side in its original order. A row is its
+  into the same window of the destination buffers: rows that go left to
+  the front, the others to the back, each side in its original order.
+  The decision is a range rule on one bin column (:func:`go_left`, the
+  JAX grower's ``chunk_goleft``), which covers plain splits and the
+  members of EFB bundles; :class:`RangeRules` turns a split's (feature,
+  threshold) into it. A row is its
   bins, its (grad, hess) payload — an f32 pair (8 bytes) or, in
   quantized training, an int8 pair (2 bytes) — and its row id. Returns
   the window's left count as a one-element int32 tensor on the device
@@ -32,6 +35,7 @@ from __future__ import annotations
 import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import _cuda
@@ -40,7 +44,7 @@ from .histogram import SMEM_BLOCK, SMEM_RESERVED, SMEM_SM, THREADS_SM, \
 
 __all__ = ["partition_window", "partition_plain", "partition_plan",
            "resident_capacity", "smem_bytes", "PartitionPlan",
-           "route_pair", "go_left"]
+           "route_pair", "go_left", "RangeRules", "INT_MAX"]
 
 # the plan's constants (csrc/partition.cu; chosen by timing plans on an
 # H100, PERF.md): threads per block, SMALL_THREADS for resident slices of
@@ -70,23 +74,68 @@ class PartitionPlan(NamedTuple):
     smem: int        # dynamic shared memory per block, bytes
 
 
-def go_left(col: torch.Tensor, t: int, dl: bool, nan_bin: int):
-    """The split rule for one bin column: the missing bin follows the
-    default direction, every other bin goes left when ``bin <= t``."""
+INT_MAX = 2 ** 31 - 1
+
+
+def go_left(col: torch.Tensor, lo, hi, nan_pos, dl):
+    """The range rule on one bin column: a bin equal to ``nan_pos``
+    follows the default direction ``dl``; any other goes right iff
+    ``lo <= bin <= hi``. The arguments are ints, or tensors that
+    broadcast against ``col`` (one rule per row)."""
     c = col.to(torch.int64)
-    gl = c <= t
-    if nan_bin >= 0:
-        gl = torch.where(c == nan_bin, torch.full_like(gl, bool(dl)), gl)
-    return gl
+    right = (c >= lo) & (c <= hi)
+    dl = torch.as_tensor(dl, dtype=torch.bool, device=c.device)
+    return torch.where(c == nan_pos, dl, ~right)
+
+
+class RangeRules:
+    """Turns a split's (original feature ``f``, threshold bin ``t``) into
+    the range rule of the bin column it routes on, ``(col, lo, hi,
+    nan_pos)`` (``dl`` passes through): for a plain matrix, or a direct
+    (singleton) bundle, ``(f's column, t + 1, INT_MAX, f's missing bin or
+    -1)``, so the rule is the plain one (the missing bin follows ``dl``,
+    any other goes left when ``bin <= t``); for a member of a
+    multi-member bundle at offset ``off`` with ``nb`` bins, ``(its
+    bundle, off + t, off + nb - 2, off + nb - 2 or -1)``: its bins above
+    ``t`` sit at positions ``[off + t, off + nb - 2]``, its NaN bin (its
+    last) at ``off + nb - 2``. The JAX grower's ``chunk_goleft``
+    decision. Scalars give ints, arrays give int64 arrays."""
+
+    def __init__(self, feat_num_bins, feat_nan_bin, bundle=None):
+        self.nb = np.asarray(feat_num_bins, np.int64)
+        self.nan = np.asarray(feat_nan_bin, np.int64)
+        F = self.nb.shape[0]
+        if bundle is None:
+            self.col = np.arange(F, dtype=np.int64)
+            self.off = np.zeros(F, np.int64)
+            self.direct = np.ones(F, bool)
+        else:
+            self.col = np.asarray(bundle.bundle_of, np.int64)
+            self.off = np.asarray(bundle.offset_of, np.int64)
+            self.direct = np.asarray(bundle.is_direct, bool)
+
+    def __call__(self, f, t):
+        f = np.asarray(f, np.int64)
+        t = np.asarray(t, np.int64)
+        nb, nan, off = self.nb[f], self.nan[f], self.off[f]
+        direct = self.direct[f]
+        lo = np.where(direct, t + 1, off + t)
+        hi = np.where(direct, INT_MAX, off + nb - 2)
+        nan_pos = np.where(direct, nan, np.where(nan >= 0, off + nan - 1,
+                                                 -1))
+        out = (self.col[f], lo, hi, nan_pos)
+        if f.ndim == 0:
+            return tuple(int(x) for x in out)
+        return tuple(np.asarray(x, np.int64) for x in out)
 
 
 def partition_plain(bins_src, bins_dst, pay_src, pay_dst, ids_src,
-                    ids_dst, begin: int, cnt: int, f: int, t: int,
-                    dl: bool, nan_bin: int) -> torch.Tensor:
+                    ids_dst, begin: int, cnt: int, col: int, lo: int,
+                    hi: int, nan_pos: int, dl: bool) -> torch.Tensor:
     """A stable argsort of ``~go_left`` followed by gathers."""
     sl = slice(begin, begin + cnt)
     rows = bins_src[sl]
-    gl = go_left(rows[:, f], t, dl, nan_bin)
+    gl = go_left(rows[:, col], lo, hi, nan_pos, dl)
     order = torch.argsort((~gl).to(torch.int8), stable=True)
     # gathers of uint16 are not implemented on CUDA: move the same bits
     # as int16
@@ -214,21 +263,24 @@ def partition_window(bins_src: torch.Tensor, bins_dst: torch.Tensor,
                      pay_dst: Optional[torch.Tensor],
                      ids_src: Optional[torch.Tensor],
                      ids_dst: Optional[torch.Tensor],
-                     begin: int, cnt: int, f: int, t: int, dl: bool,
-                     nan_bin: int) -> torch.Tensor:
+                     begin: int, cnt: int, col: int, lo: int, hi: int,
+                     nan_pos: int, dl: bool) -> torch.Tensor:
     """Stably partition window ``[begin, begin + cnt)`` of the source
-    buffers into the destination buffers; returns ``n_left`` (int32
-    ``[1]`` on the device). ``pay_*`` (``[n, 2]`` f32 or int8) and
-    ``ids_*`` may be None."""
+    buffers into the destination buffers by the range rule ``(lo, hi,
+    nan_pos, dl)`` on bin column ``col`` (:func:`go_left`); returns
+    ``n_left`` (int32 ``[1]`` on the device). ``pay_*`` (``[n, 2]`` f32
+    or int8) and ``ids_*`` may be None."""
     _check(bins_src, bins_dst, pay_src, pay_dst, ids_src, ids_dst)
     n, F = bins_src.shape
-    if not 0 <= begin <= begin + cnt <= n or not 0 <= f < F:
-        raise ValueError("window or feature out of range")
+    if not 0 <= begin <= begin + cnt <= n or not 0 <= col < F:
+        raise ValueError("window or column out of range")
+    if not all(-2 ** 31 <= v <= INT_MAX for v in (lo, hi, nan_pos)):
+        raise ValueError("the range rule's bounds must fit an int32")
     dev = bins_src.device
     if dev.type == "cpu" or (_Force.plain and dev.type == "cuda"):
         return partition_plain(bins_src, bins_dst, pay_src, pay_dst,
-                               ids_src, ids_dst, begin, cnt, f, t, dl,
-                               nan_bin)
+                               ids_src, ids_dst, begin, cnt, col, lo, hi,
+                               nan_pos, dl)
     if dev.type != "cuda":
         raise ValueError(f"no partition kernel for device {dev}")
     if cnt == 0:
@@ -237,7 +289,7 @@ def partition_window(bins_src: torch.Tensor, bins_dst: torch.Tensor,
     plan = partition_plan(cnt, F, bins_src.element_size(), pay_bytes,
                           _num_sms(dev))
     return _launch(bins_src, bins_dst, pay_src, pay_dst, ids_src, ids_dst,
-                   begin, cnt, f, t, dl, nan_bin, plan)
+                   begin, cnt, col, lo, hi, nan_pos, dl, plan)
 
 
 # per CUDA device: the resident path's block counts and the streaming
@@ -255,7 +307,8 @@ def _scratch_for(dev: torch.device, name: str, n: int, dtype):
 
 
 def _launch(bins_src, bins_dst, pay_src, pay_dst, ids_src, ids_dst, begin,
-            cnt, f, t, dl, nan_bin, plan: PartitionPlan) -> torch.Tensor:
+            cnt, col, lo, hi, nan_pos, dl,
+            plan: PartitionPlan) -> torch.Tensor:
     """Launch ``csrc/partition.cu`` on a checked window of CUDA tensors
     by ``plan``."""
     dev = bins_src.device
@@ -284,8 +337,9 @@ def _launch(bins_src, bins_dst, pay_src, pay_dst, ids_src, ids_dst, begin,
     err = lib.partition_window(
         at(bins_src, F), at(bins_dst, F), bins_src.element_size(),
         at(pay_src, 2), at(pay_dst, 2), pay_bytes, at(ids_src, 1),
-        at(ids_dst, 1), int(cnt), F, int(f), int(t), int(bool(dl)),
-        int(nan_bin), 0 if plan.path == "resident" else 1, plan.nblocks,
+        at(ids_dst, 1), int(cnt), F, int(col), int(lo), int(hi),
+        int(nan_pos), int(bool(dl)), 0 if plan.path == "resident" else 1,
+        plan.nblocks,
         plan.rows, plan.stages, plan.tiles, plan.threads, plan.smem,
         None if counts is None else counts.data_ptr(),
         None if status is None else status.data_ptr(), n_left.data_ptr(),
@@ -314,7 +368,7 @@ def _compact(A: torch.Tensor, key: torch.Tensor) -> Tuple[torch.Tensor,
                       key.to(torch.uint8)[:, None]], dim=1).contiguous()
     dst = torch.empty_like(rows)
     nl = partition_window(rows, dst, None, None, None, None, 0, k,
-                          rows.shape[1] - 1, 0, False, -1)
+                          rows.shape[1] - 1, 1, INT_MAX, -1, False)
     out = dst[:, :4 * nc].contiguous().view(torch.int32).t().contiguous()
     return out, nl
 

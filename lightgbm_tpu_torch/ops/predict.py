@@ -7,8 +7,11 @@ GPU a gather is cheap, so rows walk down the tree one level per step,
 all trees of a forest at once, for as many steps as the deepest tree
 has levels. The decisions are the JAX package's:
 
-- binned: the missing bin follows ``default_left``, any other bin goes
-  left when ``bin <= threshold_bin``;
+- binned: the range rule of K2 (``ops/partition.py`` ``go_left``,
+  ``RangeRules``) on each node's bin column — for a plain matrix, the
+  missing bin follows ``default_left`` and any other bin goes left when
+  ``bin <= threshold_bin``; over an EFB-bundled matrix, the rule of the
+  split feature's bundle column;
 - raw (``NumericalDecision``): missing type ``nan`` — NaN follows
   ``default_left``; ``zero`` — NaN or ``|v| <= 1e-35`` follows it;
   ``none`` — NaN is read as 0.0; then ``v <= threshold``.
@@ -18,7 +21,10 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from .partition import RangeRules, go_left
 
 __all__ = ["StackedTrees", "predict_leaf_binned", "predict_leaf_raw",
            "K_ZERO_THRESHOLD", "MISSING_NONE", "MISSING_ZERO",
@@ -58,17 +64,25 @@ def _walk(T, n, device, decide, left_child, right_child, depth):
 
 def predict_leaf_binned(split_feature, threshold_bin, default_left,
                         left_child, right_child, feat_nan_bin,
-                        bins: torch.Tensor, depth: int) -> torch.Tensor:
-    """Leaf per row of ONE tree over a row-major ``[n, F]`` bin tensor
-    (node arrays ``[N]``); ``depth`` bounds the levels walked."""
+                        bins: torch.Tensor, depth: int,
+                        rules: RangeRules = None) -> torch.Tensor:
+    """Leaf per row of ONE tree over a row-major bin tensor (node arrays
+    ``[N]`` of original features and thresholds); ``depth`` bounds the
+    levels walked. Without ``rules``, ``bins`` is the plain ``[n, F]``
+    matrix and ``feat_nan_bin`` its missing bins; with them (a bundled
+    ``[n, G]`` matrix), each node's ``(column, lo, hi, nan_pos)``."""
     n = bins.shape[0]
     dev = bins.device
-    sf = torch.as_tensor(split_feature, device=dev).to(torch.int64)[None]
-    tb = torch.as_tensor(threshold_bin, device=dev).to(torch.int64)[None]
+    if rules is None:
+        fnan = np.asarray(feat_nan_bin, np.int64)
+        rules = RangeRules(np.zeros_like(fnan), fnan)
+    col, lo, hi, nan_pos = (
+        torch.as_tensor(a, device=dev)[None]
+        for a in rules(np.asarray(split_feature, np.int64),
+                       np.asarray(threshold_bin, np.int64)))
     dl = torch.as_tensor(default_left, device=dev).to(torch.bool)[None]
     lc = torch.as_tensor(left_child, device=dev).to(torch.int64)[None]
     rc = torch.as_tensor(right_child, device=dev).to(torch.int64)[None]
-    fnan = torch.as_tensor(feat_nan_bin, device=dev).to(torch.int64)
     rows = torch.arange(n, device=dev)[None]
     # gathers of uint16 are not implemented on CUDA: read the bits as
     # int16 and mask them back to 0..65535
@@ -76,13 +90,11 @@ def predict_leaf_binned(split_feature, threshold_bin, default_left,
     src = bins.view(torch.int16) if wide else bins
 
     def decide(cur):
-        f = sf.gather(1, cur)
-        v = src[rows, f].to(torch.int64)
+        v = src[rows, col.gather(1, cur)].to(torch.int64)
         if wide:
             v = v & 0xFFFF
-        nb = fnan[f]
-        return torch.where((nb >= 0) & (v == nb), dl.gather(1, cur),
-                           v <= tb.gather(1, cur))
+        return go_left(v, lo.gather(1, cur), hi.gather(1, cur),
+                       nan_pos.gather(1, cur), dl.gather(1, cur))
 
     return _walk(1, n, dev, decide, lc, rc, depth)[0]
 

@@ -18,6 +18,10 @@ The arithmetic follows the JAX function step for step in float32:
 
 The result is one float32 record per candidate (:data:`FIELDS`), so a
 whole split's search comes back to the host in one transfer.
+
+:func:`find_best_split_bundled` is the search over EFB-bundled
+histograms (``ops/bundling.py`` layout), the JAX function of the same
+name without its categorical, monotone, CEGB and parallel branches.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["SplitParams", "FIELDS", "find_best_split", "leaf_output",
+__all__ = ["SplitParams", "FIELDS", "find_best_split",
+           "find_best_split_bundled", "BundleTables", "leaf_output",
            "leaf_gain"]
 
 K_EPS = 1e-15
@@ -201,6 +206,124 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
     ftype = hist.dtype
     return torch.stack([
         gain, f.to(ftype), t.to(ftype), (d == 1).to(ftype),
+        lg, lh, lc, rg, rh, rc,
+        leaf_output(lg, lh, p), leaf_output(rg, rh, p),
+        leaf_output(lg + rg, lh + rh, p),
+    ], dim=1)
+
+
+class BundleTables(NamedTuple):
+    """The bundling plan's search tables on the device (``BundleInfo``
+    fields): ``member_at``, ``tloc_at``, ``end_at``, ``nanpos_at`` and
+    ``nan_at`` ``[G, B]``, ``is_direct`` ``[F]``."""
+    member_at: torch.Tensor
+    tloc_at: torch.Tensor
+    end_at: torch.Tensor
+    nanpos_at: torch.Tensor
+    nan_at: torch.Tensor
+    is_direct: torch.Tensor
+
+    @classmethod
+    def of(cls, info, device) -> "BundleTables":
+        def dev(a, dtype):
+            return torch.as_tensor(a, device=device).to(dtype)
+        i64 = torch.int64
+        return cls(dev(info.member_at, i64), dev(info.tloc_at, i64),
+                   dev(info.end_at, i64), dev(info.nanpos_at, i64),
+                   dev(info.nan_at, torch.bool),
+                   dev(info.is_direct, torch.bool))
+
+
+def find_best_split_bundled(hist: torch.Tensor, parent_g: torch.Tensor,
+                            parent_h: torch.Tensor,
+                            parent_cnt: torch.Tensor, tables: BundleTables,
+                            feature_mask: torch.Tensor,
+                            p: SplitParams) -> torch.Tensor:
+    """Best split of each of ``C`` leaves over bundled histograms.
+
+    Every candidate is one (bundle, position) cell. A direct (singleton)
+    bundle is scanned as the plain search scans a feature. A member of a
+    multi-member bundle has its thresholds at its positions, with
+    ``left = total - (range_end_cum - cum)``: its bin-0 mass is the leaf
+    total less its range. Members with a NaN bin get the dual
+    missing-direction scan: the NaN position (``nan_at``) is left out of
+    the prefix sums, and its mass (``nanpos_at``) joins the side the
+    direction sends missing rows to.
+
+    Args:
+      hist: ``[C, G, B, 2]`` f32 bundle histograms.
+      parent_g, parent_h, parent_cnt: ``[C]`` f32 leaf totals.
+      tables: the plan's tables on the device.
+      feature_mask: ``[F]`` bool usable original features, or ``[C, F]``.
+    Returns:
+      ``[C, len(FIELDS)]`` f32 records, as :func:`find_best_split`'s,
+      with the original feature and its member-local threshold bin.
+    """
+    C, G, B, _ = hist.shape
+    dev = hist.device
+    dtype = hist.dtype
+    neg_inf = torch.tensor(float("-inf"), dtype=dtype, device=dev)
+    cnt_factor = parent_cnt / torch.clamp_min(parent_h, K_EPS)
+    h3 = torch.cat([hist, torch.round(hist[..., 1:2]
+                                      * cnt_factor[:, None, None, None])],
+                   dim=-1)                                  # [C, G, B, 3]
+    total = torch.stack([parent_g, parent_h, parent_cnt], dim=-1)  # [C, 3]
+    tot = total[:, None, None, :]
+
+    has_member = tables.member_at >= 0
+    member_ix = torch.clamp_min(tables.member_at, 0)
+    direct_pos = (tables.is_direct[member_ix] & has_member)[None, :, :, None]
+    has_nan = tables.nanpos_at >= 0                          # [G, B]
+    cum = _prefix_sums(h3 * (~tables.nan_at)[None, :, :, None].to(dtype),
+                       dim=2)
+    end = torch.clamp(tables.end_at, 0, G * B - 1).reshape(-1)
+    e = cum.reshape(C, G * B, 3)[:, end].reshape(C, G, B, 3)
+    npos = torch.clamp(tables.nanpos_at, 0, G * B - 1).reshape(-1)
+    nan_stats = h3.reshape(C, G * B, 3)[:, npos].reshape(C, G, B, 3) \
+        * has_nan[None, :, :, None].to(dtype)
+
+    fmask = feature_mask.to(device=dev, dtype=torch.bool)
+    fmask = fmask[member_ix][None] if fmask.dim() == 1 \
+        else fmask[:, member_ix]                             # [C', G, B]
+
+    def eval_left(left, extra_valid):
+        right = tot - left
+        lg, lh, lc = left[..., 0], left[..., 1], left[..., 2]
+        rg, rh, rc = right[..., 0], right[..., 1], right[..., 2]
+        valid = (extra_valid[None] & fmask
+                 & (lc >= p.min_data_in_leaf) & (rc >= p.min_data_in_leaf)
+                 & (lh >= p.min_sum_hessian_in_leaf)
+                 & (rh >= p.min_sum_hessian_in_leaf)
+                 & (lc > 0) & (rc > 0))
+        gain = leaf_gain(lg, lh, p) + leaf_gain(rg, rh, p)
+        return torch.where(valid, gain, neg_inf)
+
+    # direction 0: missing goes right; a member's right side is its
+    # positions after t plus its NaN mass
+    left1 = torch.where(direct_pos, cum, tot - (e - cum) - nan_stats)
+    g1 = eval_left(left1, has_member)
+    # direction 1: missing joins the left side (NaN members only)
+    left2 = torch.where(direct_pos, cum + nan_stats, tot - (e - cum))
+    g2 = eval_left(left2, has_member & has_nan)
+
+    shift = (leaf_gain(total[:, 0], total[:, 1], p)
+             + p.min_gain_to_split)[:, None, None]
+    net = torch.stack([g1 - shift, g2 - shift], dim=1)       # [C, 2, G, B]
+    net = torch.where(torch.isfinite(net), net, neg_inf)
+    flat = net.reshape(C, -1)
+    idx = torch.argmax(flat, dim=1)                          # first max
+    best = flat.gather(1, idx[:, None])[:, 0]
+    d = idx // (G * B)
+    g = (idx // B) % G
+    pos = idx % B
+    ci = torch.arange(C, device=dev)
+    sel = torch.where((d == 0)[:, None], left1[ci, g, pos], left2[ci, g, pos])
+    lg, lh, lc = sel[:, 0], sel[:, 1], sel[:, 2]
+    rg, rh, rc = total[:, 0] - lg, total[:, 1] - lh, total[:, 2] - lc
+    gain = torch.where(torch.isfinite(best), best, neg_inf)
+    return torch.stack([
+        gain, tables.member_at[g, pos].to(dtype),
+        tables.tloc_at[g, pos].to(dtype), (d == 1).to(dtype),
         lg, lh, lc, rg, rh, rc,
         leaf_output(lg, lh, p), leaf_output(rg, rh, p),
         leaf_output(lg + rg, lh + rh, p),

@@ -7,9 +7,11 @@ walks every tree (:func:`ops.predict.predict_leaf_raw`) in float32 —
 thresholds rounded down to float32 so that a float32 feature keeps its
 training-time side, as in the JAX package — tree ``i`` adds to class
 ``i % K`` (K trees per iteration), and the raw scores are converted by
-the objective named in the model: a sigmoid for binary, a softmax with
-the row max subtracted for multiclass, a sigmoid per class for
-multiclassova, none for ranking. A random forest's model
+the objective named in the model: a sigmoid for binary and
+cross_entropy, a softmax with the row max subtracted for multiclass, a
+sigmoid per class for multiclassova, ``exp`` for poisson, gamma and
+tweedie, ``log1p(exp)`` for cross_entropy_lambda, none for the other
+regressions and ranking. A random forest's model
 (``average_output``) predicts the mean of its iterations' raw scores
 over the iterations used, before the transform. Scores are ``[n]`` for
 K = 1, else ``[n, K]``; ``num_iteration`` counts iterations (K trees
@@ -151,11 +153,12 @@ def convert_raw_scores(objective_str: Optional[str],
     if name == "multiclassova":
         sig = float(kv.get("sigmoid", 1.0))
         return 1.0 / (1.0 + np.exp(-sig * out))
+    if name in ("poisson", "gamma", "tweedie"):
+        return np.exp(out)
+    if name == "cross_entropy":
+        return 1.0 / (1.0 + np.exp(-out))
+    if name == "cross_entropy_lambda":
+        return np.log1p(np.exp(out))
     if name in ("regression", "regression_l2") and "sqrt" in flags:
         return np.sign(out) * out * out
-    if name in ("regression", "regression_l2", "lambdarank", "rank_xendcg",
-                "none", "custom"):
-        return out
-    raise NotImplementedError(
-        f"output transform of objective {name!r} is not in the port yet "
-        "(ROADMAP.md Queue 1 item 11)")
+    return out

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from lightgbm_tpu.ops.grow import GrowConfig as JaxGrowConfig
@@ -41,6 +42,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _drop_jax_programs():
+    """Drop the JAX programs this module compiled when it ends, so that
+    they do not count against the process-wide jit signature budgets
+    that later tests on the same worker check."""
+    yield
+    jax.clear_caches()
 
 
 def _mk(n, F, B, seed=0, with_nan_bin=False):

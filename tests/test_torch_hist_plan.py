@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from chip_smoke import emulate_fixed as _emulate
@@ -37,6 +38,15 @@ H100_SMS = 132
 LADDER = (10_500_000, 1_000_000, 100_003, 10_007, 1_009, 33, 1)
 # float sums taken in a different order than the JAX paths
 TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _drop_jax_programs():
+    """Drop the JAX programs this module compiled when it ends, so that
+    they do not count against the process-wide jit signature budgets
+    that later tests on the same worker check."""
+    yield
+    jax.clear_caches()
 
 
 def _check_plan(plan, cnt, F, B, bin_bytes, int_path):

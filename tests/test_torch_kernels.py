@@ -25,7 +25,7 @@ from lightgbm_tpu_torch.ops import _cuda
 from lightgbm_tpu_torch.ops.histogram import (build_histogram,
                                               hist_from_rows, hist_plain,
                                               window_hist)
-from lightgbm_tpu_torch.ops.partition import (partition_window,
+from lightgbm_tpu_torch.ops.partition import (INT_MAX, partition_window,
                                               route_pair)
 
 # float sums taken in a different order than the JAX paths
@@ -40,6 +40,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _drop_jax_programs():
+    """Drop the JAX programs this module compiled when it ends, so that
+    they do not count against the process-wide jit signature budgets
+    that later tests on the same worker check."""
+    yield
+    jax.clear_caches()
 
 
 def _rows_pay(S, F, B, dtype, seed):
@@ -210,7 +219,7 @@ def test_partition_window_matches_numpy_stable_partition(dtype, nan_bin,
     src = [torch.from_numpy(a.copy()) for a in (bins, pay, ids)]
     dst = [torch.full_like(a, 7) for a in src]
     nl = partition_window(src[0], dst[0], src[1], dst[1], src[2], dst[2],
-                          begin, cnt, f, t, dl, nan_bin)
+                          begin, cnt, f, t + 1, INT_MAX, nan_bin, dl)
     col = bins[begin:begin + cnt, f].astype(np.int64)
     gl = np.where((nan_bin >= 0) & (col == nan_bin), dl, col <= t)
     order = np.concatenate([np.nonzero(gl)[0], np.nonzero(~gl)[0]])
@@ -232,15 +241,15 @@ def test_wrappers_raise_instead_of_falling_back():
         window_hist(rows, pay, 4, 0, 8)
     with pytest.raises(ValueError, match="no partition kernel"):
         partition_window(rows, torch.empty_like(rows), None, None, None,
-                         None, 0, 8, 0, 1, False, -1)
+                         None, 0, 8, 0, 2, INT_MAX, -1, False)
     # the int path (int8 payload) and the int8-payload partition too
     qpay = torch.zeros((8, 2), dtype=torch.int8, device="meta")
     with pytest.raises(ValueError, match="no histogram kernel"):
         window_hist(rows, qpay, 4, 0, 8)
     with pytest.raises(ValueError, match="no partition kernel"):
         partition_window(rows, torch.empty_like(rows), qpay,
-                         torch.empty_like(qpay), None, None, 0, 8, 0, 1,
-                         False, -1)
+                         torch.empty_like(qpay), None, None, 0, 8, 0, 2,
+                         INT_MAX, -1, False)
     import shutil
     if shutil.which("nvcc") is None and not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="nvcc"):

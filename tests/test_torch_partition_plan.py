@@ -22,8 +22,9 @@ import numpy as np
 import pytest
 import torch
 
-from lightgbm_tpu_torch.ops.partition import (MAX_ROWS, SMEM_BLOCK,
-                                              STAGES, partition_plain,
+from lightgbm_tpu_torch.ops.partition import (INT_MAX, MAX_ROWS,
+                                              SMEM_BLOCK, STAGES,
+                                              partition_plain,
                                               partition_plan,
                                               resident_capacity, smem_bytes)
 
@@ -191,7 +192,7 @@ def test_emulated_kernel_matches_plain_on_both_paths(bin_dtype, F,
         dst = [None if a is None else torch.from_numpy(a.copy())
                for a in (bins, pay, ids)]
         nl = partition_plain(src[0], dst[0], src[1], dst[1], src[2], dst[2],
-                             begin, cnt, 2, t, True, nan_bin)
+                             begin, cnt, 2, t + 1, INT_MAX, nan_bin, True)
         assert int(nl.item()) == n_left
         for got, want in zip(outs, dst):
             if want is not None:
@@ -241,7 +242,7 @@ def test_no_cooperative_launch_raises_instead_of_streaming(monkeypatch):
     plan = partition_plan(5_000, 28, 1, 8, H100_SMS)
     assert plan.path == "resident"
     with pytest.raises(RuntimeError, match="cooperative"):
-        P._launch(*_window(), 0, 5_000, 3, 100, False, -1, plan)
+        P._launch(*_window(), 0, 5_000, 3, 101, INT_MAX, -1, False, plan)
 
 
 def test_a_failed_launch_drops_the_status_words(monkeypatch):
@@ -253,10 +254,10 @@ def test_a_failed_launch_drops_the_status_words(monkeypatch):
     plan = partition_plan(1_000_000, 28, 1, 8, H100_SMS)._replace(tiles=3)
     assert plan.path == "stream"
     with pytest.raises(RuntimeError, match="CUDA error 1"):
-        P._launch(*_window(), 0, 5_000, 3, 100, False, -1, plan)
+        P._launch(*_window(), 0, 5_000, 3, 101, INT_MAX, -1, False, plan)
     assert lib.calls == 1 and not P._scratch
     lib.err = 0
-    P._launch(*_window(), 0, 5_000, 3, 100, False, -1, plan)
+    P._launch(*_window(), 0, 5_000, 3, 101, INT_MAX, -1, False, plan)
     status = P._scratch[torch.device("cpu")]["status"]
     assert status.dtype == torch.int64 and status.numel() >= 3
     assert not status.any()

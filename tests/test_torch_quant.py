@@ -32,7 +32,7 @@ from lightgbm_tpu.ops.split import SplitParams as JaxSplitParams
 from lightgbm_tpu_torch.ops.grow import GrowConfig, Grower
 from lightgbm_tpu_torch.ops.histogram import (hist_from_rows_int,
                                               hist_plain, window_hist)
-from lightgbm_tpu_torch.ops.partition import partition_window
+from lightgbm_tpu_torch.ops.partition import INT_MAX, partition_window
 from lightgbm_tpu_torch.ops.quantize import dequantize, discretize
 from lightgbm_tpu_torch.ops.split import SplitParams
 
@@ -50,6 +50,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _drop_jax_programs():
+    """Drop the JAX programs this module compiled when it ends, so that
+    they do not count against the process-wide jit signature budgets
+    that later tests on the same worker check."""
+    yield
+    jax.clear_caches()
 
 
 def _rows_q(S, F, B, dtype, seed):
@@ -145,7 +154,7 @@ def test_partition_moves_int8_payload_rows(dtype, F):
     src = [torch.from_numpy(a.copy()) for a in (bins, pay, ids)]
     dst = [torch.full_like(a, 7) for a in src]
     nl = partition_window(src[0], dst[0], src[1], dst[1], src[2], dst[2],
-                          begin, cnt, f, t, False, -1)
+                          begin, cnt, f, t + 1, INT_MAX, -1, False)
     gl = bins[begin:begin + cnt, f].astype(np.int64) <= t
     order = np.concatenate([np.nonzero(gl)[0], np.nonzero(~gl)[0]])
     assert int(nl.item()) == int(gl.sum())

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import lightgbm_tpu as jlgb
@@ -45,6 +46,15 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _drop_jax_programs():
+    """Drop the JAX programs this module compiled when it ends, so that
+    they do not count against the process-wide jit signature budgets
+    that later tests on the same worker check."""
+    yield
+    jax.clear_caches()
 
 
 def _nan_data(n=3000, F=6, seed=0):
@@ -330,8 +340,8 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
 
 @pytest.mark.parametrize("params", [
     {"path_smooth": 1.0},
-    {"objective": "huber"},
-    {"objective": "regression_l1"},
+    {"cegb_penalty_split": 1.0},
+    {"two_round": True},
     {"interaction_constraints": "[0,1]"},
     {"histogram_pool_size": 100.0},
     {"linear_tree": True},
@@ -370,15 +380,38 @@ def test_nonfinite_leaf_values_raise_like_jax(params):
         tlgb.train({**p, **CPU}, tlgb.Dataset(X, label=y), 2)
 
 
-def test_data_that_would_bundle_raises_unless_bundling_is_off():
+@jax.jit
+def _xla_totals(full):
+    return jnp.stack([jnp.sum(full[:, 0]), jnp.sum(full[:, 1])])
+
+
+def _jax_root_totals(full):
+    v = torch.from_numpy(np.array(_xla_totals(full.numpy())))
+    return v[0], v[1]
+
+
+def test_data_that_bundles_trains_bundled_like_jax(monkeypatch):
+    """Two sparse, mutually exclusive features: both packages bundle them
+    (EFB, the default) and grow the same trees; with enable_bundle=False
+    the same Dataset trains unbundled. The grower's float root totals
+    are XLA's sums here: torch's differ in the last bit, which flips a
+    near tie of this fixture (tests/test_torch_objectives.py)."""
+    from lightgbm_tpu_torch.ops import grow
+    monkeypatch.setattr(grow, "root_totals", _jax_root_totals)
     rs = np.random.RandomState(0)
     X = rs.randn(500, 4)
-    X[rs.rand(500) < 0.9, 1] = 0.0
-    X[rs.rand(500) < 0.9, 2] = 0.0
-    y = (X[:, 0] > 0).astype(float)
-    p = {"objective": "binary", "verbosity": -1, **CPU}
-    with pytest.raises(NotImplementedError, match="EFB"):
-        tlgb.train(p, tlgb.Dataset(X, label=y), 1)
-    bst = tlgb.train({**p, "enable_bundle": False},
-                     tlgb.Dataset(X, label=y), 2)
-    assert bst.num_trees() == 2
+    X[:, 1:3] = np.abs(X[:, 1:3])      # zero is each one's bin 0
+    z = rs.rand(500)
+    X[z >= 0.1, 1] = 0.0
+    X[(z < 0.1) | (z >= 0.2), 2] = 0.0
+    y = (X[:, 0] + X[:, 1] - X[:, 2] > 0).astype(float)
+    p = {"objective": "binary", "verbosity": -1, "min_data_in_leaf": 5}
+    ja = jlgb.train({**p, "hist_method": "scatter"},
+                    jlgb.Dataset(X, label=y), 2)
+    ds = tlgb.Dataset(X, label=y, params=CPU)
+    tb = tlgb.train({**p, **CPU}, ds, 2)
+    assert tb._engine.bundle is not None
+    assert tb._engine.bundle.groups == ja._engine.bundle.groups
+    _same_trees(ja, tb)
+    bst = tlgb.train({**p, **CPU, "enable_bundle": False}, ds, 2)
+    assert bst._engine.bundle is None and bst.num_trees() == 2
