@@ -37,8 +37,11 @@ Phases, in order; any failure exits non-zero:
              1000 u16 bins; the range rule of EFB bundles (K2_RANGE_CASES:
              a direct split with a NaN bin, multi-member ranges with and
              without a NaN position, both default directions, both
-             paths, f32 and int8 payloads, u16 rows); route_pair (K =
-             4096, NC = 3) equal to its plain run; each case prints its
+             paths, f32 and int8 payloads, u16 rows); the membership
+             rule of categorical splits (K2_MEMBER_CASES: u8 and u16
+             bitsets, bundled members, a set holding the NaN bin, both
+             paths, f32 and int8); route_pair (K = 4096, NC = 3) equal
+             to its plain run; each case prints its
              plan; then k2_alt, the plans partition_plan rejects timed
              beside its choice;
 5. train   — the main path through the public API at the Higgs shape
@@ -90,7 +93,7 @@ Phases, in order; any failure exits non-zero:
              rounding) whose every tree equals its plain twin's, and
              small_objectives: huber, fair, poisson, quantile (alpha
              0.9), mape, gamma, tweedie, cross_entropy and
-             cross_entropy_lambda (200k x 28, 3 iterations), every tree
+             cross_entropy_lambda (200k x 28, 2 iterations), every tree
              equal to its float64-sum plain twin's, save/load/predict
              equal to the in-memory prediction; a quantized L1 run held
              tree for tree to its twin;
@@ -119,8 +122,8 @@ Phases, in order; any failure exits non-zero:
              bundled width;
 9b. train_multiclass_dart — BASELINE.json's config 4: DART (drop_rate
              0.1, skip_drop 0) on train_multiclass's Dataset with its
-             50,000 rows as a valid set (multi_logloss), 1 warm-up + 2
-             timed iterations of 7 trees; every tree after drop and
+             50,000 rows as a valid set (multi_logloss), 1 warm-up + 1
+             timed iteration of 7 trees; every tree after drop and
              normalize identical to the float64-sum plain twin's, and the
              recorded multi_logloss equal;
 9c. train_allstate — EFB at full width: Allstate's shape (500,000 +
@@ -131,7 +134,23 @@ Phases, in order; any failure exits non-zero:
              100,000 rows; against the float64-sum plain twin the same
              root split in every tree and AUC within 0.002; K1 and K2 at
              the bundled width;
-9d. small rf and cv runs — a random forest (200k x 28, bagging 0.632, 3
+9d. train_airline — categorical splits at the airline benchmark's shape
+             (10,000,000 + 500,000 rows x 8: six categoricals of 7 to
+             ~300 categories, DepTime, Distance), binary, 255 leaves,
+             1 warm-up + 3 timed iterations: construct_s, the bins per
+             mapper, iter_s, the idle share and launches of one
+             profiled iteration, the share of categorical splits by
+             family, peak memory, AUC; against the float64-sum twin the
+             same root splits and AUC within 0.002; a quantized
+             iteration tree for tree; raw predict equal to a numpy walk
+             of the model text (100,000 held-out rows); K1 and K2 (its
+             membership rule) at the airline root;
+9e. small categorical and monotone runs — one-hot categoricals, EFB with
+             categorical members, basic monotone constraints alone,
+             with monotone_penalty and with path_smooth (quantized, 2
+             trees of 63 leaves each, every tree equal to the plain
+             twin's; monotone sweeps; save/load);
+9f. small rf and cv runs — a random forest (200k x 28, bagging 0.632, 3
              iterations): save/load, its raw scores the mean of its
              iterations', the JAX package's average_output model
              (JAX_RF_MODEL) predicting JAX's numbers; cv (3 folds, 3
@@ -183,6 +202,8 @@ FP32_OPS_PER_S = 67e12
 # two operations on 128 lanes)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
+# trees in each small run (correctness, not timed)
+SMALL_TREES = 2
 HIGGS_ROWS = 10_500_000
 VALID_ROWS = 500_000
 FEATURES = 28
@@ -250,6 +271,109 @@ def make_allstate_like(n, f, seed=0, per_group=128):
         y[start:start + c] = (signal > thresh).astype(np.float64)
         start += c
     return X, y
+
+
+# the airline cell: the ASA Data Expo 2009 airline data as the
+# szilard/benchm-ml airline benchmark uses it (label dep_delayed_15min)
+AIRLINE_ROWS = 10_000_000
+AIRLINE_VALID = 500_000
+AIRLINE_CATS = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7),
+                ("UniqueCarrier", 22), ("Origin", 300), ("Dest", 300))
+AIRLINE_NAMES = [c for c, _ in AIRLINE_CATS] + ["DepTime", "Distance"]
+
+
+def make_airline_like(n, seed=0):
+    """``n`` rows of the airline benchmark's shape: six categorical
+    columns (category codes: Month 12, DayofMonth 31, DayOfWeek 7,
+    UniqueCarrier ~22, Origin ~300, Dest ~300; carriers and airports drawn
+    with Zipf-like frequencies, weight ``1 / rank^1.1``), DepTime (hhmm,
+    0-2359) and Distance (miles, log-normal, 30-4983). The label
+    (dep_delayed_15min, ~19% positive) is a logistic draw from fixed
+    per-category effects (seed 777), the departure hour, the distance and
+    noise. The cardinalities approximate the source's (its carriers and
+    airports vary by year); the values are synthetic."""
+    rs = np.random.RandomState(seed)
+    eff = np.random.RandomState(777)
+    X = np.empty((n, 8), np.float32)
+    logit = np.full(n, -1.75)
+    for j, (_, k) in enumerate(AIRLINE_CATS):
+        p = None
+        if k > 31:
+            w = 1.0 / np.arange(1, k + 1) ** 1.1
+            p = w / w.sum()
+        codes = rs.choice(k, size=n, p=p)
+        X[:, j] = codes
+        logit += (0.5 if k > 31 else 0.25) * eff.randn(k)[codes]
+    hour = np.clip(rs.normal(13.5, 4.5, n), 0.0, 23.99)
+    X[:, 6] = np.floor(hour) * 100 + np.floor((hour % 1) * 60)
+    dist = np.clip(np.exp(rs.normal(6.6, 0.6, n)), 30, 4983)
+    X[:, 7] = np.round(dist)
+    logit += 0.09 * (hour - 13.5) + 0.15 * np.log(dist / 700.0)
+    logit += 0.5 * rs.randn(n)
+    y = (rs.rand(n) < 1.0 / (1.0 + np.exp(-logit))).astype(np.float64)
+    return X, y
+
+
+def _parse_model(text):
+    """The trees of a model text as dicts of numpy arrays."""
+    trees = []
+    for block in text.split("\nTree=")[1:]:
+        kv = dict(ln.split("=", 1) for ln in block.split("\n")[1:]
+                  if "=" in ln)
+        t = {"num_leaves": int(kv["num_leaves"])}
+        for k in ("split_feature", "decision_type", "left_child",
+                  "right_child", "cat_boundaries", "cat_threshold"):
+            if k in kv:
+                t[k] = np.asarray(kv[k].split(), np.int64)
+        for k in ("threshold", "leaf_value"):
+            t[k] = np.asarray(kv[k].split(), np.float64)
+        trees.append(t)
+    return trees
+
+
+def numpy_predict_raw(text, X):
+    """Raw scores of ``X`` by a numpy walk of a model text: LightGBM's
+    NumericalDecision (missing types none, zero and nan) and
+    CategoricalDecision (``int(v)`` goes left when its bit is set in the
+    node's u32 words; NaN, negative values and values past the words go
+    right)."""
+    X = np.asarray(X, np.float64)
+    n = X.shape[0]
+    raw = np.zeros(n)
+    rows = np.arange(n)
+    for t in _parse_model(text):
+        if t["num_leaves"] <= 1:
+            raw += t["leaf_value"][0]
+            continue
+        node = np.zeros(n, np.int64)
+        while (node >= 0).any():
+            idx = rows[node >= 0]
+            nd = node[idx]
+            v = X[idx, t["split_feature"][nd]]
+            dt = t["decision_type"][nd]
+            thr = t["threshold"][nd]
+            nan = np.isnan(v)
+            mt = (dt >> 2) & 3
+            v0 = np.where(nan, 0.0, v)
+            missing = np.where(mt == 2, nan,
+                               (mt == 1) & (nan | (np.abs(v0) <= 1e-35)))
+            left = np.where(missing, (dt & 2) != 0, v0 <= thr)
+            cat = (dt & 1) != 0
+            if cat.any():
+                cb, ct = t["cat_boundaries"], t["cat_threshold"]
+                ok = ~nan & (v0 >= 0)
+                iv = np.where(ok, v0, 0).astype(np.int64)
+                k = thr.astype(np.int64)
+                lo = cb[np.where(cat, k, 0)]
+                width = cb[np.where(cat, k + 1, 0)] - lo
+                inside = ok & ((iv >> 5) < width)
+                word = ct[np.where(inside, lo + (iv >> 5), 0)]
+                member = inside & (((word >> (iv & 31)) & 1) != 0)
+                left = np.where(cat, member, left)
+            node[idx] = np.where(left, t["left_child"][nd],
+                                 t["right_child"][nd])
+        raw += t["leaf_value"][~node]
+    return raw
 
 
 def log(msg):
@@ -955,6 +1079,56 @@ K2_RANGE_CASES = (
      (100, 280, -1, True)))
 
 
+class _Bundle:
+    """The fields of a bundling plan that ``RangeRules`` reads."""
+    def __init__(self, bundle_of, offset_of, is_direct):
+        self.bundle_of = np.asarray(bundle_of)
+        self.offset_of = np.asarray(offset_of)
+        self.is_direct = np.asarray(is_direct)
+
+
+# K2's membership rule (categorical splits), (label, rows, features, bins,
+# payload, member): a set of a direct column's bins, u8 (B = 255: 32
+# bytes of bitset) and u16 (B = 300, a categorical feature of more than
+# 256 bins: 38 bytes), a bundled categorical member (4 bins at offset 40:
+# positions 40-42 hold its bins 1-3, every other value its bin 0, which is
+# in the set), and a set that holds the NaN bin (the last) and bin 0;
+# both paths, both payloads; column 3 of random bins
+K2_MEMBER_CASES = (
+    ("member_u8", 100_003, FEATURES, BINS, "f32", "direct"),
+    ("member_u8_int8", 100_003, FEATURES, BINS, "int8", "direct"),
+    ("member_u8_stream", 1_500_001, FEATURES, BINS, "int8", "direct"),
+    ("member_u8_stream_f32", 1_500_001, FEATURES, BINS, "f32", "direct"),
+    ("member_u16", 70_001, 9, 300, "int8", "direct"),
+    ("member_u16_stream", 2_000_003, 9, 300, "f32", "direct"),
+    ("member_bundled", 100_003, FEATURES, BINS, "f32", "bundled"),
+    ("member_bundled_stream", 1_500_001, FEATURES, BINS, "int8",
+     "bundled"),
+    ("member_nan_bin", 100_003, FEATURES, BINS, "int8", "nan"),
+    ("member_nan_bin_stream", 1_500_001, FEATURES, BINS, "f32", "nan"))
+
+
+def member_rule(torch, dev, gen, B, member):
+    """K2's arguments ``(col, lo, hi, nan_pos, dl, bits)`` of a
+    categorical split on column 3 with a random set of local bins, made
+    by ``RangeRules.bitsets`` as the grower makes them."""
+    from lightgbm_tpu_torch.ops.partition import RangeRules
+    F = 4
+    nb = np.full(F, B, np.int64)
+    mask = torch.rand((1, B), generator=gen, device=dev) < 0.4
+    if member == "bundled":
+        nb[3] = 4
+        rules = RangeRules(nb, np.full(F, -1), _Bundle(
+            [0, 1, 2, 3], [0, 0, 0, 40], [True, True, True, False]))
+        mask[0, :4] = torch.tensor([True, False, True, False], device=dev)
+    else:
+        rules = RangeRules(nb, np.full(F, -1))
+        if member == "nan":
+            mask[0, 0] = mask[0, B - 1] = True
+    bits = rules.bitsets([3], mask, B)[0]
+    return (3, 0, INT_MAX, -1, False, bits)
+
+
 def _k2_ragged(torch, dev, gen):
     """1 to 33 rows at odd starts, every payload: kernel, rerun and plain
     equal."""
@@ -1071,6 +1245,22 @@ def phase_k2(torch, dev, root_rows, reps):
     if not want_paths <= range_paths:
         raise AssertionError(f"K2 range cases missed "
                              f"{want_paths - range_paths}")
+    member_paths = set()
+    for label, S, F, B, kind, member in K2_MEMBER_CASES:
+        pb = {"f32": 8, "int8": 2, "none": 0}[kind]
+        bb = 1 if B <= 256 else 2
+        rule = member_rule(torch, dev, gen, B, member)
+        rows, pay, run, nl = _k2_case(torch, dev, gen, S, F, B, kind, rule,
+                                      1000)
+        plan = partition_plan(S, F, bb, pb, sms)
+        member_paths.add((plan.path, kind))
+        log(f"[k2] {label} S={S} F={F} {rows.dtype} payload={kind} "
+            f"membership rule ({member}, {rule[5].numel()}-byte bitset) "
+            f"n_left={nl} plan: {_plan_str(plan)}; kernel = rerun = plain")
+        del rows, pay, run
+    if not want_paths <= member_paths:
+        raise AssertionError(f"K2 membership cases missed "
+                             f"{want_paths - member_paths}")
     _k2_ragged(torch, dev, gen)
     _k2_route_pair(torch, dev, gen)
     return shapes, phase_k2_alternatives(torch, dev, gen, root_rows, reps,
@@ -1136,7 +1326,8 @@ def phase_k2_alternatives(torch, dev, gen, root_rows, reps, sms):
     return out
 
 
-def phase_bundled_kernels(torch, dev, info, rules, tag, reps):
+def phase_bundled_kernels(torch, dev, info, rules, tag, reps,
+                          k2_picks=None):
     """K1 (both paths) and K2 (both payloads) at the width of a bundled
     matrix, on its root window (``info.bins_bundled``, ``G`` columns,
     ``B = num_positions``), as the bundled grower calls them: K1 float
@@ -1144,7 +1335,9 @@ def phase_bundled_kernels(torch, dev, info, rules, tag, reps):
     both timed beside their plain versions, one PyTorch call and the
     bound; K2 with the range rule of a multi-member bundle's member (and
     of a direct column, if any), on the root (and a 10k-row window),
-    kernel = rerun = plain, the root timed. Times: ``queued_ms`` (CUDA
+    kernel = rerun = plain, the root timed; ``k2_picks``, a list of
+    ``(name, K2 arguments)``, replaces those rules (the first is timed).
+    Times: ``queued_ms`` (CUDA
     events over calls enqueued behind a sleep kernel; plain events for
     ``bincount``, which reads back). Returns rung dicts for the K1, K1
     int and K2 entries of the report."""
@@ -1229,23 +1422,26 @@ def phase_bundled_kernels(torch, dev, info, rules, tag, reps):
     del k
     # K2: a multi-member bundle's member (a NaN one where there is one)
     # and a direct column, split at the middle of their bins
-    multi = [j for g in info.groups if len(g) > 1 for j in g]
-    nan_multi = [j for j in multi if rules.nan[j] >= 0]
-    picks = [("multi", (nan_multi or multi)[0])]
-    direct = [g[0] for g in info.groups if len(g) == 1]
-    if direct:
-        picks.append(("direct", direct[0]))
+    if k2_picks is None:
+        multi = [j for g in info.groups if len(g) > 1 for j in g]
+        nan_multi = [j for j in multi if rules.nan[j] >= 0]
+        direct = [g[0] for g in info.groups if len(g) == 1]
+        k2_picks = []
+        for kind_f, f in [("multi", (nan_multi or multi)[0])] \
+                + [("direct", j) for j in direct[:1]]:
+            # the middle of the member's value bins (its NaN bin is its
+            # last), missing rows to the right
+            has_nan = rules.nan[f] >= 0
+            t = max(0, (int(rules.nb[f]) - 2 - int(has_nan)) // 2)
+            k2_picks.append((f"{kind_f} member f={f} t={t}",
+                             rules(f, t) + (False,)))
     ids = torch.arange(S, device=dev, dtype=torch.int32)
     out["k2"] = []
-    for (kind_f, f), (kind, pl) in ((pk, py) for pk in picks
-                                    for py in (("f32", pay),
-                                               ("int8", qpay))):
-        # the middle of the member's value bins (its NaN bin is its last),
-        # missing rows to the right
-        has_nan = rules.nan[f] >= 0
-        t = max(0, (int(rules.nb[f]) - 2 - int(has_nan)) // 2)
-        col, lo, hi, nan_pos = rules(f, t)
-        rule = (col, lo, hi, nan_pos, False)
+    for i, ((kind_f, rule), (kind, pl)) in enumerate(
+            (pk, py) for pk in k2_picks
+            for py in (("f32", pay), ("int8", qpay))):
+        shown = rule[:4] if len(rule) < 6 else \
+            f"membership, {rule[5].numel()}-byte bitset"
         for cnt in sorted({S, min(S, 10_007)}, reverse=True):
             res = []
             for fn in (partition_window, partition_window, partition_plain):
@@ -1260,11 +1456,10 @@ def phase_bundled_kernels(torch, dev, info, rules, tag, reps):
                                          f"{cnt} rows: != plain")
             pb = 2 * pl.element_size()
             kp = partition_plan(cnt, G, bb, pb, sms)
-            msg = (f"[k2] {label} {kind_f} member f={f} t={t} rule (col, "
-                   f"lo, hi, nan_pos)={(col, lo, hi, nan_pos)} rows={cnt} "
+            msg = (f"[k2] {label} {kind_f} rule {shown} rows={cnt} "
                    f"G={G} payload={kind} n_left={int(res[2][0])} plan: "
                    f"{_plan_str(kp)}; kernel = rerun = plain")
-            if cnt == S and kind_f == "multi":
+            if cnt == S and i < 2:
                 d = res[0][1:]
 
                 def call(fn, d=d, pl=pl):
@@ -1276,7 +1471,7 @@ def phase_bundled_kernels(torch, dev, info, rules, tag, reps):
                 out["k2"].append(dict(
                     shape=f"{label}_{kind}", rows=S, features=G,
                     payload=kind, n_left=int(res[2][0]), path=kp.path,
-                    plan=kp._asdict(), rule=[col, lo, hi, nan_pos],
+                    plan=kp._asdict(), rule=str(shown),
                     max_abs_err=0.0, ms=ms, method=method,
                     plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                     bound_by="bytes"))
@@ -1529,6 +1724,7 @@ def _reset_counts():
     window_hist.int_launches = 0
     partition_window.launches = 0
     partition_window.kernels = 0
+    partition_window.member_launches = 0
 
 
 def _read_counts():
@@ -1537,7 +1733,8 @@ def _read_counts():
     return dict(hist=window_hist.launches,
                 hist_int=window_hist.int_launches,
                 partition=partition_window.launches,
-                partition_kernels=partition_window.kernels)
+                partition_kernels=partition_window.kernels,
+                partition_member=partition_window.member_launches)
 
 
 def binary_scorer(torch, dev, yv):
@@ -1769,17 +1966,20 @@ def phase_train_quant(torch, lgb, dev, tr, iters):
     return dict(r, auc_plain=auc_p, profile=prof, same_trees=same)
 
 
-def profile_iteration(torch, bst):
+def profile_iteration(torch, bst, host=True):
     """One more boosting iteration under torch.profiler: the card's busy
     time (the sum of the device-side events' times; one stream, so they
     do not overlap) against the iteration's wall time, the kernels that
     take most of it, and the host ops that take most of the host's.
     Runs after the model above was scored, so it does not change what
-    was checked."""
+    was checked. ``host=False`` records the device's events only (no
+    host ops): the trace of an iteration of ~270k launches takes minutes
+    of host time to read back with them."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t_all = time.perf_counter()
+    acts = [ProfilerActivity.CPU] if host else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         bst.update()
         torch.cuda.synchronize()
@@ -1817,8 +2017,11 @@ def profile_iteration(torch, bst):
                     for ms, c, k in rows[:10]],
                host_top=[dict(name=k[:60], calls=c, ms=ms)
                          for ms, c, k in host[:8]])
+    out["launches"] = sum(c for _, c, _ in rows)
     log("[profile] one iteration under torch.profiler: wall_ms="
-        f"{out['wall_ms']:.1f} device_busy_ms={busy_ms:.1f} idle_share="
+        f"{out['wall_ms']:.1f} device_busy_ms={busy_ms:.1f} device events="
+        f"{out['launches']} profile_s={time.perf_counter() - t_all:.1f} "
+        "idle_share="
         + ("not measured (no device time in the trace)"
            if out["idle_share"] is None else f"{out['idle_share']:.3f}")
         + "; K1/K2 kernels: " + "; ".join(
@@ -2224,7 +2427,7 @@ def phase_train_multiclass(torch, lgb, dev, iters, reps):
     r = _drive(torch, lgb, dev, params, ds, Xv, yv, iters,
                "train_multiclass", scorer)
     _check_counts("train_multiclass", r["counts"], r["leaves"], "hist")
-    prof = profile_iteration(torch, r["bst"])
+    prof = profile_iteration(torch, r["bst"], host=False)
     f32_drift = _f32_drift(torch, ds, yt)
 
     def roots(bst):
@@ -2232,8 +2435,9 @@ def phase_train_multiclass(torch, lgb, dev, iters, reps):
                 for t in bst._models[:COV_CLASSES]]
     # the plain twin as the other phases run it (float32 sums), for the
     # record; then the twin it is held to, whose float sums are exact
-    bst_f, m_f = _plain_twin(torch, lgb, dev, params, ds, Xv, yv, 1 + iters,
-                             "train_multiclass f32 sums", scorer)
+    bst_f, m_f = _plain_twin(torch, lgb, dev, params, ds, Xv, yv, 1,
+                             "train_multiclass f32 sums (one iteration)",
+                             scorer)
     with exact_float_sums(torch):
         bst_p, m_p = _plain_twin(torch, lgb, dev, params, ds, Xv, yv,
                                  1 + iters, "train_multiclass", scorer)
@@ -2286,7 +2490,9 @@ def phase_train_multiclass(torch, lgb, dev, iters, reps):
             ("ova", {"objective": "multiclassova"}, "hist"),
             ("quant", {"use_quantized_grad": True,
                        "stochastic_rounding": False}, "hist_int")):
-        p = {**params, **extra}
+        # trees of 63 leaves: a check of the objective and the int path,
+        # not a timing
+        p = {**params, **extra, "num_leaves": 63}
         _reset_counts()
         bst = lgb.train(p, ds, num_boost_round=1)
         counts = _read_counts()
@@ -2806,7 +3012,7 @@ def phase_train_allstate(torch, lgb, dev, n_train, iters, reps):
     del host, want
     r = _drive(torch, lgb, dev, params, ds, Xv, yv, iters, "train_allstate")
     _check_counts("train_allstate", r["counts"], r["leaves"], "hist")
-    prof = profile_iteration(torch, r["bst"])
+    prof = profile_iteration(torch, r["bst"], host=False)
     with exact_float_sums(torch):
         bst_p, m_p = _plain_twin(torch, lgb, dev, params, ds, Xv, yv,
                                  1 + iters, "train_allstate")
@@ -2829,6 +3035,315 @@ def phase_train_allstate(torch, lgb, dev, n_train, iters, reps):
     return dict(r, auc_plain=m_p["auc"], construct_s=construct_s,
                 bundles=bundles, profile=prof, kernels=kern,
                 roots=roots_k)
+
+
+class _SplitTally:
+    """Counts the grower's splits by the direction of their records
+    (0/1 numerical, 2 one-hot, 3 forward subset, 4 backward subset)
+    while it is entered; it wraps ``ops.grow._apply_split`` and changes
+    nothing else."""
+
+    def __init__(self):
+        self.by_dir = [0] * 5
+
+    def __enter__(self):
+        from lightgbm_tpu_torch.ops import grow
+        from lightgbm_tpu_torch.ops.split import F_
+        self._orig = orig = grow._apply_split
+
+        def tally(t, rec, *a, **kw):
+            self.by_dir[int(rec[F_["direction"]])] += 1
+            return orig(t, rec, *a, **kw)
+        grow._apply_split = tally
+        return self
+
+    def __exit__(self, *exc):
+        from lightgbm_tpu_torch.ops import grow
+        grow._apply_split = self._orig
+
+    def shares(self):
+        total = max(1, sum(self.by_dir))
+        return dict(splits=sum(self.by_dir),
+                    categorical=sum(self.by_dir[2:]) / total,
+                    one_hot=self.by_dir[2] / total,
+                    forward=self.by_dir[3] / total,
+                    backward=self.by_dir[4] / total)
+
+
+def _same_trees(a, b, exact_values):
+    return len(a) == len(b) and all(
+        _same_structure(x, y) and (
+            np.array_equal(x.leaf_value, y.leaf_value) if exact_values
+            else np.allclose(x.leaf_value, y.leaf_value, rtol=1e-4,
+                             atol=1e-5))
+        for x, y in zip(a, b))
+
+
+def phase_train_airline(torch, lgb, dev, n_train, iters, reps):
+    """Categorical splits at full width: the airline benchmark's shape
+    (``make_airline_like``: 10,000,000 training rows, seed 0, and 500,000
+    held out, seed 1; 6 categorical and 2 numerical features), binary,
+    255 leaves, 255 bins, ``categorical_feature`` the six, other
+    parameters at their defaults; reduced: none. 1 warm-up + ``iters``
+    timed iterations. Prints construct_s, the mappers' bin counts,
+    iter_s, the idle share and launches of one profiled iteration, the
+    share of categorical splits and of each family, the peak device
+    memory and AUC. Checks: against the float64-sum plain twin the same
+    root split in every tree and AUC within 0.002; one quantized
+    iteration (round to nearest) whose tree equals its plain twin's;
+    raw predictions equal to a numpy walk of the saved model text on
+    100,000 held-out rows; save/load/predict equal; K1, K2 and K2's
+    membership rule launched; then K1 and K2 at this width alone."""
+    from lightgbm_tpu_torch.ops.partition import RangeRules
+    t0 = time.perf_counter()
+    Xt, yt = make_airline_like(n_train, seed=0)
+    Xv, yv = make_airline_like(AIRLINE_VALID, seed=1)
+    log(f"[train_airline] data rows={n_train}+{AIRLINE_VALID} features="
+        f"{AIRLINE_NAMES} positive share={float(yt.mean()):.4f} reduced: "
+        f"none gen_s={time.perf_counter() - t0:.2f}")
+    cats = list(range(len(AIRLINE_CATS)))
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": BINS,
+              "verbosity": -1, "device_type": dev.type,
+              "categorical_feature": cats}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(Xt, label=yt, feature_name=AIRLINE_NAMES,
+                     categorical_feature=cats,
+                     params={"max_bin": BINS, "device_type": dev.type})
+    ds.construct()
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    nbins = [int(m.num_bins) for m in ds.mappers]
+    log(f"[train_airline] construct_s={construct_s:.3f} bins per mapper="
+        f"{dict(zip(AIRLINE_NAMES, nbins))} categorical="
+        f"{[m.bin_type == 'categorical' for m in ds.mappers]}")
+    del Xt
+    with _SplitTally() as tally:
+        r = _drive(torch, lgb, dev, params, ds, Xv, yv, iters,
+                   "train_airline")
+    _check_counts("train_airline", r["counts"], r["leaves"], "hist")
+    if r["counts"]["partition_member"] <= 0:
+        raise AssertionError("train_airline: no membership-rule launch")
+    shares = tally.shares()
+    log(f"[train_airline] splits by family: {json.dumps(shares)} "
+        f"membership launches={r['counts']['partition_member']}")
+    prof = profile_iteration(torch, r["bst"])
+    bst = r["bst"]
+    # raw predictions against a numpy walk of the saved model text
+    n_walk = 100_000
+    raw = bst.predict(Xv[:n_walk], num_iteration=1 + iters,
+                      raw_score=True)
+    text = bst.model_to_string(num_iteration=1 + iters)
+    walk = numpy_predict_raw(text, Xv[:n_walk])
+    walk_err = float(np.abs(raw - walk).max())
+    log(f"[train_airline] raw predict vs numpy walk of the model text on "
+        f"{n_walk} held-out rows: max_abs_diff={walk_err:.3g}")
+    if walk_err > 1e-4:
+        raise AssertionError(f"train_airline: raw predictions differ from "
+                             f"the model text's walk by {walk_err}")
+    with exact_float_sums(torch):
+        bst_p, m_p = _plain_twin(torch, lgb, dev, params, ds, Xv, yv,
+                                 1 + iters, "train_airline")
+    roots_k = [_root_split_of(t) for t in bst._models[:1 + iters]]
+    roots_p = [_root_split_of(t) for t in bst_p._models]
+    log(f"[train_airline] root splits kernel={roots_k} plain={roots_p}; "
+        f"auc={r['auc']:.6f} plain={m_p['auc']:.6f}; peak_mem_bytes="
+        f"{r['peak']}")
+    if roots_k != roots_p:
+        raise AssertionError("train_airline: root splits differ from the "
+                             "plain run's")
+    if abs(r["auc"] - m_p["auc"]) > 0.002:
+        raise AssertionError(f"train_airline: AUC {r['auc']} not within "
+                             f"0.002 of the plain run's {m_p['auc']}")
+    del r["bst"], bst, bst_p
+    # one quantized iteration, tree for tree against its plain twin
+    qparams = dict(params, use_quantized_grad=True,
+                   stochastic_rounding=False)
+    _reset_counts()
+    bq = lgb.train(qparams, ds, num_boost_round=1)
+    qcounts = _read_counts()
+    _check_counts("train_airline_quant", qcounts,
+                  [t.num_leaves for t in bq._models], "hist_int")
+    from lightgbm_tpu_torch.ops.histogram import plain_kernels
+    with plain_kernels():
+        bq_p = lgb.train(qparams, ds, num_boost_round=1)
+    same_q = _same_trees(bq._models, bq_p._models, True)
+    log(f"[train_airline] quantized iteration: {bq._models[0].num_leaves} "
+        f"leaves, {bq._models[0].num_cat} categorical splits, launches="
+        f"{json.dumps(qcounts)}, tree identical to the plain run's: "
+        f"{same_q}")
+    if not same_q:
+        raise AssertionError("train_airline: the quantized tree differs "
+                             "from the plain run's")
+    del bq, bq_p
+    # K1 and K2 at this width alone: K2 by the membership rule of an
+    # Origin split (a random 40% of its bins) and by a DepTime range rule
+    bins = ds.device_bins()
+    B = ds.num_total_bins()
+    rules = RangeRules(ds.feat_num_bins(), ds.feat_nan_bin())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    origin = AIRLINE_NAMES.index("Origin")
+    mask = (torch.rand((1, B), generator=gen, device=dev) < 0.4) \
+        & (torch.arange(B, device=dev) < nbins[origin])[None]
+    picks = [("member Origin", rules(origin, 0) + (
+                 False, rules.bitsets([origin], mask, B)[0])),
+             ("range DepTime", rules(6, nbins[6] // 2) + (False,))]
+    info = _Plain(bins, B)
+    kern = phase_bundled_kernels(torch, dev, info, rules, "airline", reps,
+                                 k2_picks=picks)
+    del ds, bins, info
+    return dict(r, auc_plain=m_p["auc"], construct_s=construct_s,
+                bins=nbins, families=shares, profile=prof, kernels=kern,
+                roots=roots_k, walk_err=walk_err, quant_counts=qcounts)
+
+
+class _Plain:
+    """A plain bin matrix in the place of a bundling plan (each column
+    its own group) for :func:`phase_bundled_kernels`."""
+    def __init__(self, bins, B):
+        self.bins_bundled = bins
+        self.num_positions = B
+        self.groups = [[j] for j in range(bins.shape[1])]
+
+
+def _small_run(torch, lgb, dev, tag, params, X, y, rounds=SMALL_TREES):
+    """Train ``rounds`` trees on quantized gradients (round to nearest),
+    its twin with the plain kernels, and a save/load round trip: every
+    tree equal to the twin's, leaf values included, and the reloaded
+    model's predictions equal. Quantized histograms are exact, so both
+    runs break ties alike: a one-hot candidate and its mirror (the other
+    category of a two-category leaf) tie in real arithmetic, and so do
+    thresholds whose outputs the monotone bounds clamp to one value;
+    float sums in another order pick another of them. Returns the
+    booster, the Dataset and the counts."""
+    from lightgbm_tpu_torch.ops.histogram import plain_kernels
+    params = dict(params, use_quantized_grad=True, stochastic_rounding=False)
+    ds = lgb.Dataset(X, label=y, params=params)
+    _reset_counts()
+    bst = lgb.train(params, ds, rounds)
+    counts = _read_counts()
+    _check_counts(tag, counts, [t.num_leaves for t in bst._models],
+                  "hist_int")
+    with plain_kernels():
+        ref = lgb.train(params, ds, rounds)
+    same = [int(_same_trees([a], [b], True))
+            for a, b in zip(bst._models, ref._models)]
+    p = bst.predict(X[:50_000])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.txt")
+        bst.save_model(path)
+        p2 = lgb.Booster(model_file=path,
+                         params={"device_type": dev.type}).predict(
+            X[:50_000])
+    rt = float(np.abs(p2 - p).max())
+    log(f"[{tag}] {X.shape[0]}x{X.shape[1]}, {rounds} trees of "
+        f"{[t.num_leaves for t in bst._models]} leaves, categorical splits "
+        f"{[t.num_cat for t in bst._models]}, launches={json.dumps(counts)}"
+        f", trees identical to the plain run's: {same}; save/load max diff "
+        f"{rt:.3g}")
+    if len(same) != rounds or not all(same):
+        raise AssertionError(f"{tag}: trees differ from the plain run's")
+    if not np.all(np.isfinite(p)) or rt > 1e-6:
+        raise AssertionError(f"{tag}: save/load/predict differs from the "
+                             "in-memory prediction")
+    return bst, ds, counts
+
+
+MONO = {0: 1, 1: 1, 2: -1, 3: -1}
+
+
+def phase_small_categorical(torch, lgb, dev):
+    """Correctness runs (not timed): the one-hot family (200,000 rows,
+    three categoricals of at most ``max_cat_to_onehot`` categories beside
+    two numerical features); EFB with categorical members (12 sparse
+    categoricals of 4 categories in three mutually exclusive blocks of
+    4, beside 4 dense numerical features); basic monotone constraints on
+    200,000 x 28 Higgs-shaped rows (features 0-1 increasing, 2-3
+    decreasing) alone, with ``monotone_penalty=2.0`` and with
+    ``path_smooth=1.0``; 2 trees of 63 leaves each. Each run's trees
+    equal its float64-sum plain twin's and save/load/predict equals the
+    in-memory prediction (quantized gradients, :func:`_small_run`); the
+    monotone runs' predictions are monotone
+    along each constrained feature (each swept over 40 values of its
+    range on 1,000 rows with the others fixed)."""
+    from lightgbm_tpu_torch.config import Config
+    out = {}
+    base = {"objective": "binary", "num_leaves": 63, "max_bin": BINS,
+            "verbosity": -1, "device_type": dev.type}
+    rs = np.random.RandomState(21)
+    n = 200_000
+    # one-hot family
+    C = rs.randint(0, 4, (n, 3)).astype(np.float32)
+    N = rs.randn(n, 2).astype(np.float32)
+    X = np.column_stack([C, N])
+    logit = 0.8 * (C[:, 0] == 2) - 0.6 * (C[:, 1] == 1) \
+        + 0.4 * (C[:, 2] == 3) + 0.5 * N[:, 0]
+    y = (rs.rand(n) < 1 / (1 + np.exp(-logit))).astype(np.float64)
+    p = dict(base, categorical_feature=[0, 1, 2])
+    with _SplitTally() as tally:
+        bst, _, counts = _small_run(torch, lgb, dev, "small_onehot", p, X,
+                                    y)
+    sh = tally.shares()
+    log(f"[small_onehot] splits by family: {json.dumps(sh)}")
+    if sh["one_hot"] <= 0 or sh["forward"] + sh["backward"] > 0:
+        raise AssertionError("small_onehot: no one-hot split, or a sorted "
+                             "subset on a feature of <= 4 categories")
+    out["onehot"] = dict(counts=counts, families=sh)
+    # EFB with categorical members
+    Xe = np.zeros((n, 16), np.float32)
+    Xe[:, 12:] = rs.randn(n, 4)
+    for blk in range(3):
+        col = 4 * blk + rs.randint(0, 4, n)
+        on = rs.rand(n) < 0.12
+        Xe[np.nonzero(on)[0], col[on]] = rs.randint(1, 4, int(on.sum()))
+    logit = Xe[:, 12] + 0.8 * (Xe[:, 1] == 2) - 0.8 * (Xe[:, 6] == 3) \
+        + 0.6 * (Xe[:, 9] == 1)
+    ye = (rs.rand(n) < 1 / (1 + np.exp(-logit))).astype(np.float64)
+    p = dict(base, categorical_feature=list(range(12)))
+    with _SplitTally() as tally:
+        bst, ds, counts = _small_run(torch, lgb, dev, "small_efb_cat", p,
+                                     Xe, ye)
+    info = ds.bundles(Config.from_params(p))
+    multi = [g for g in (info.groups if info is not None else [])
+             if len(g) > 1]
+    cat_members = sorted(j for g in multi for j in g
+                         if ds.mappers[j].bin_type == "categorical")
+    sh = tally.shares()
+    log(f"[small_efb_cat] bundles: {multi}, categorical members "
+        f"{cat_members}; splits by family: {json.dumps(sh)}")
+    if not cat_members or sh["categorical"] <= 0 \
+            or counts["partition_member"] <= 0:
+        raise AssertionError("small_efb_cat: no bundled categorical member "
+                             "or no categorical split")
+    out["efb_cat"] = dict(counts=counts, families=sh, bundles=multi)
+    # basic monotone constraints
+    Xm, ym = make_higgs_like(n, FEATURES, seed=4)
+    mc = [MONO.get(j, 0) for j in range(FEATURES)]
+    rows = Xm[:1000].copy()
+    for name, extra in (("small_monotone", {}),
+                        ("small_monotone_penalty", {"monotone_penalty":
+                                                    2.0}),
+                        ("small_monotone_smooth", {"path_smooth": 1.0})):
+        p = dict(base, monotone_constraints=mc, **extra)
+        bst, _, counts = _small_run(torch, lgb, dev, name, p, Xm, ym)
+        worst = 0.0
+        for f, sign in MONO.items():
+            grid = np.quantile(Xm[:, f], np.linspace(0.0, 1.0, 40))
+            preds = []
+            for g in grid:
+                rows[:, f] = g
+                preds.append(bst.predict(rows, raw_score=True))
+            rows[:, f] = Xm[:1000, f]
+            steps = sign * np.diff(np.stack(preds), axis=0)
+            worst = min(worst, float(steps.min()))
+        log(f"[{name}] monotone sweep over features {list(MONO)}: the "
+            f"largest step against the constraint {worst:.3g}")
+        if worst < -1e-6:
+            raise AssertionError(f"{name}: predictions are not monotone")
+        out[name] = dict(counts=counts, worst_step=worst)
+    return out
 
 
 def _root_split_of(tree):
@@ -2927,7 +3442,7 @@ def phase_small_objectives(torch, lgb, dev):
     """Every other new objective on 200,000 x 28 rows (the Higgs-shaped
     X, seed 3; a label in each one's domain from its continuous target
     squashed into (-3, 3) by ``3 tanh(t / 3)``), 63 leaves,
-    3 iterations (quantile at alpha 0.9): every tree equal to its plain
+    2 iterations (quantile at alpha 0.9): every tree equal to its plain
     twin's with float64 histogram sums, and save, load and predict equal
     to the in-memory prediction, output transform included; then a
     quantized L1 run (round to nearest, with renewal) held tree for tree,
@@ -2948,13 +3463,13 @@ def phase_small_objectives(torch, lgb, dev):
                           stochastic_rounding=False)
         ds = lgb.Dataset(X, label=y, params=params)
         _reset_counts()
-        bst = lgb.train(params, ds, 3)
+        bst = lgb.train(params, ds, SMALL_TREES)
         counts = _read_counts()
         _check_counts(f"small_{obj}", counts,
                       [t.num_leaves for t in bst._models],
                       "hist_int" if obj == "regression_l1" else "hist")
         with plain_kernels(), exact_float_sums(torch):
-            ref = lgb.train(params, ds, 3)
+            ref = lgb.train(params, ds, SMALL_TREES)
         exact = obj == "regression_l1"
         same = [int(_same_structure(a, b) and (
             np.array_equal(a.leaf_value, b.leaf_value) if exact
@@ -2969,13 +3484,13 @@ def phase_small_objectives(torch, lgb, dev):
                              params={"device_type": dev.type}).predict(
                 X[:50_000])
         rt = float(np.max(np.abs(p2 - p) / np.maximum(1.0, np.abs(p))))
-        log(f"[small_objectives] {obj}: 3 trees of "
+        log(f"[small_objectives] {obj}: {SMALL_TREES} trees of "
             f"{[t.num_leaves for t in bst._models]} leaves, launches="
             f"{json.dumps(counts)}, trees identical to the plain run's"
             f"{' (leaf values bit-equal)' if exact else ''}: {same}; "
             f"predictions {float(p.min()):.4g}..{float(p.max()):.4g}, "
             f"save/load relative max diff {rt:.3g}")
-        if len(same) != 3 or not all(same):
+        if len(same) != SMALL_TREES or not all(same):
             raise AssertionError(f"small {obj}: trees differ from the plain "
                                  "run's")
         if not np.all(np.isfinite(p)) or rt > 1e-6:
@@ -3049,12 +3564,15 @@ def main(argv=None):
                     help="training rows (default: the Higgs 10.5M)")
     ap.add_argument("--iters", type=int, default=3,
                     help="timed iterations after the warm-up one (at most "
-                         "3 in train_goss, train_regression and "
-                         "train_rank, 2 in train_multiclass_dart and "
-                         "train_allstate, 1 in train_multiclass; at least "
-                         "3 for train_goss to sample twice)")
+                         "3 in train_goss, train_regression, train_rank "
+                         "and train_airline, 1 in train_multiclass, "
+                         "train_multiclass_dart and train_allstate; at "
+                         "least 3 for train_goss to sample twice)")
     ap.add_argument("--allstate-rows", type=int, default=ALLSTATE_ROWS,
                     help="train_allstate's training rows (default 500,000)")
+    ap.add_argument("--airline-rows", type=int, default=AIRLINE_ROWS,
+                    help="train_airline's training rows (default "
+                         "10,000,000)")
     ap.add_argument("--reps", type=int, default=20,
                     help="launches per kernel timing")
     ap.add_argument("--parent", default=None,
@@ -3124,12 +3642,17 @@ def main(argv=None):
                                  args.reps)
     done("train_multiclass")
     trd = phase_train_multiclass_dart(torch, lgb, dev, trm,
-                                      min(args.iters, 2))
+                                      min(args.iters, 1))
     del trm["ds"]
     done("train_multiclass_dart")
     tas = phase_train_allstate(torch, lgb, dev, args.allstate_rows,
-                               min(args.iters, 2), args.reps)
+                               min(args.iters, 1), args.reps)
     done("train_allstate")
+    ta = phase_train_airline(torch, lgb, dev, args.airline_rows,
+                             min(args.iters, 3), args.reps)
+    done("train_airline")
+    sc = phase_small_categorical(torch, lgb, dev)
+    done("small categorical and monotone runs")
     phase_small_rf_cv(torch, lgb, dev)
     done("small rf and cv runs")
 
@@ -3175,12 +3698,16 @@ def main(argv=None):
                     trm["unbundled"]["counts"][key],
                 "train_regression": trg["counts"][key],
                 "train_allstate": tas["counts"][key],
+                "train_airline": ta["counts"][key],
+                "train_airline_quant": ta["quant_counts"][key],
                 "small_objectives": sum(v["counts"][key]
-                                        for v in small.values())}
+                                        for v in small.values()),
+                "small_categorical": sum(v["counts"][key]
+                                         for v in sc.values())}
 
     # the rungs at the bundled widths join each kernel's ladder
     for key, shapes in (("k1", k1), ("k1_int", k1i), ("k2", k2)):
-        for ph in (trm, tas):
+        for ph in (trm, tas, ta):
             extra = ph["kernels"][key]
             shapes.extend(extra if isinstance(extra, list) else [extra])
 
@@ -3190,6 +3717,8 @@ def main(argv=None):
     # launches: the wrapper's calls; kernel_launches: the kernels they
     # launched (one on the resident path, two on the streaming path)
     part["kernel_launches"] = launches("partition_kernels")
+    # the calls that took the membership rule (categorical splits)
+    part["member_launches"] = launches("partition_member")
     change = [t for t in tr["k2_turns"] if t["impl"] == "change"]
     part["replay"] = {kind: dict(
         splits=mine[0]["splits"], calls=mine[0]["calls"],

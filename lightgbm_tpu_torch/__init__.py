@@ -1,10 +1,11 @@
 """lightgbm_tpu_torch: the PyTorch/CUDA port of ``lightgbm_tpu``.
 
 A second package beside the JAX one, with the same public names for
-the part that is ported (binary, L2, multiclass and ranking training
-on dense numerical data with valid sets, metrics, callbacks, ``cv``,
-bagging, GOSS, column sampling, DART and random forests; prediction;
-model text), running on an NVIDIA GPU by default
+the part that is ported (every objective of the JAX package, on dense
+numerical and categorical data, with EFB, basic monotone constraints
+and path smoothing, valid sets, metrics, callbacks, ``cv``, bagging,
+GOSS, column sampling, DART and random forests; prediction; model
+text), running on an NVIDIA GPU by default
 (``device_type="cuda"``; ``"cpu"`` on request). Its two kernels —
 the gradient histogram (K1, ``csrc/hist.cu``) and the stable row
 partition (K2, ``csrc/partition.cu``) — are CUDA C++ for ``sm_90a``,

@@ -1,7 +1,11 @@
 """Public ``Dataset`` and ``Booster`` of the port.
 
 Counterpart of ``lightgbm_tpu/basic.py`` for the ported paths: a dense
-numerical matrix (NaN allowed) with labels, optional weights and, for
+matrix (NaN allowed) or a pandas frame, with categorical features named
+by ``categorical_feature`` (indices or names, in the constructor or the
+params) or given as pandas category columns (mapped to their codes; the
+categories are kept as ``pandas_categorical``), with labels, optional
+weights and, for
 learning to rank, query groups and result-list positions is binned
 once — mappers found on the host from a row sample, exactly as
 the JAX package does, or taken from a ``reference`` Dataset (a valid
@@ -47,18 +51,61 @@ def resolve_device(cfg: Config) -> torch.device:
     return torch.device("cpu")
 
 
+def _extract_pandas(data, categorical_feature, pandas_categorical=None):
+    """A pandas frame's matrix: category columns become their codes
+    (NaN for a missing value), over ``pandas_categorical``'s categories
+    when given (a valid set takes its reference's). Returns ``(X, names,
+    categorical column indices, the frame's categories per category
+    column)``."""
+    import pandas as pd
+    names = [str(c) for c in data.columns]
+    cat_cols, cats, arrs = [], [], []
+    for i, col in enumerate(data.columns):
+        s = data[col]
+        if isinstance(s.dtype, pd.CategoricalDtype):
+            if pandas_categorical is not None \
+                    and len(cat_cols) < len(pandas_categorical):
+                s = s.cat.set_categories(pandas_categorical[len(cat_cols)])
+            cat_cols.append(i)
+            cats.append(list(s.cat.categories))
+            codes = s.cat.codes.to_numpy().astype(np.float64)
+            codes[codes < 0] = np.nan
+            arrs.append(codes)
+        else:
+            arrs.append(s.to_numpy(dtype=np.float64, na_value=np.nan))
+    X = np.column_stack(arrs) if arrs else np.zeros((len(data), 0))
+    if categorical_feature not in ("auto", None, ""):
+        cat_cols = _resolve_cat_indices(categorical_feature, names)
+    return X, names, cat_cols, cats
+
+
+def _resolve_cat_indices(categorical_feature, feature_name) -> List[int]:
+    """Sorted column indices of a categorical spec: a list of indices
+    or names, or a comma-separated string of them."""
+    spec = categorical_feature
+    if isinstance(spec, str):
+        spec = [c for c in spec.split(",") if c]
+    out = []
+    for c in spec or []:
+        if isinstance(c, str) and not c.strip().lstrip("-").isdigit():
+            if c not in feature_name:
+                raise LightGBMError(f"Unknown categorical feature {c}")
+            out.append(feature_name.index(c))
+        else:
+            out.append(int(c))
+    return sorted(set(out))
+
+
 class Dataset:
-    """Binned training data (dense numerical features)."""
+    """Binned training data."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
                  weight=None, group=None, init_score=None,
                  feature_name="auto", categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True, position=None):
-        if categorical_feature not in ("auto", None, "", []):
-            raise NotImplementedError(
-                "categorical features are not in the port yet (ROADMAP.md "
-                "Queue 1 item 13)")
+        self.categorical_feature = categorical_feature
+        self.pandas_categorical = None
         self.data = data
         self.label = label
         self.reference = reference
@@ -82,17 +129,18 @@ class Dataset:
         self.device = self.reference.construct().device \
             if self.reference is not None else resolve_device(cfg)
         X = self.data
+        cat_idx: List[int] = []
         try:
             import pandas as pd
             if isinstance(X, pd.DataFrame):
-                if any(isinstance(X[c].dtype, pd.CategoricalDtype)
-                       for c in X.columns):
-                    raise NotImplementedError(
-                        "categorical features are not in the port yet "
-                        "(ROADMAP.md Queue 1 item 13)")
+                ref_pc = None if self.reference is None \
+                    else self.reference.pandas_categorical
+                X, names, cat_idx, pc = _extract_pandas(
+                    X, self.categorical_feature, ref_pc)
+                if pc:
+                    self.pandas_categorical = pc
                 if self.feature_name == "auto":
-                    self.feature_name = [str(c) for c in X.columns]
-                X = X.to_numpy(dtype=np.float64, na_value=np.nan)
+                    self.feature_name = names
         except ImportError:
             pass
         if hasattr(X, "toarray"):
@@ -125,7 +173,14 @@ class Dataset:
             if not isinstance(names, list):
                 names = [f"Column_{i}" for i in range(F)]
             self._feature_names = list(names)
-            self._find_mappers(cfg, X)
+            # the constructor's spec first, then the params'
+            for spec in (self.categorical_feature, cfg.categorical_feature):
+                if cat_idx:
+                    break
+                if spec not in ("auto", None, "", []):
+                    cat_idx = _resolve_cat_indices(spec,
+                                                   self._feature_names)
+            self._find_mappers(cfg, X, set(cat_idx))
         self._bins = bin_matrix(X, self._used_features, self.mappers,
                                 device=self.device)
         self._F = len(self.mappers)
@@ -141,7 +196,8 @@ class Dataset:
             self.data = None
         return self
 
-    def _find_mappers(self, cfg: Config, X: np.ndarray) -> None:
+    def _find_mappers(self, cfg: Config, X: np.ndarray,
+                      cat_idx: set) -> None:
         n, F = X.shape
         sample_cnt = min(cfg.bin_construct_sample_cnt, n)
         if sample_cnt < n:
@@ -156,7 +212,8 @@ class Dataset:
                 mb = cfg.max_bin_by_feature[j]
             full.append(find_bin(X[rows, j], mb,
                                  min_data_in_bin=cfg.min_data_in_bin,
-                                 bin_type=BinType.NUMERICAL,
+                                 bin_type=BinType.CATEGORICAL
+                                 if j in cat_idx else BinType.NUMERICAL,
                                  use_missing=cfg.use_missing,
                                  zero_as_missing=cfg.zero_as_missing))
         used = [j for j, m in enumerate(full) if not m.is_trivial]
@@ -296,7 +353,9 @@ class Dataset:
         self.construct()
         nb = []
         for m in self.mappers:
-            if m.missing_type == MissingType.NAN:
+            if m.bin_type != BinType.NUMERICAL:
+                nb.append(-1)
+            elif m.missing_type == MissingType.NAN:
                 nb.append(m.num_bins - 1)
             elif m.missing_type == MissingType.ZERO:
                 nb.append(m.default_bin)
@@ -304,14 +363,44 @@ class Dataset:
                 nb.append(-1)
         return np.asarray(nb, np.int32)
 
+    def feat_is_cat(self) -> Optional[np.ndarray]:
+        """``[F]`` bool categorical features, or None when there are
+        none."""
+        self.construct()
+        arr = np.asarray([m.bin_type == BinType.CATEGORICAL
+                          for m in self.mappers], bool)
+        return arr if arr.any() else None
+
+    def monotone_array(self, cfg: Config) -> Optional[np.ndarray]:
+        """``[F]`` int8 monotone signs of the used features (None
+        without constraints)."""
+        mc = cfg.monotone_constraints
+        if not mc:
+            return None
+        self.construct()
+        full = np.zeros((self._F_total,), np.int8)
+        full[:len(mc)] = mc
+        return full[self._used_features]
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        if self._bins is not None:
+            raise LightGBMError("Cannot set categorical feature after the "
+                                "Dataset is constructed")
+        self.categorical_feature = categorical_feature
+        return self
+
     def feature_infos(self) -> List[str]:
         self.construct()
         out = []
         lut = {int(j): m for j, m in zip(self._used_features, self.mappers)}
         for j in range(self._F_total):
             m = lut.get(j)
-            out.append("none" if m is None
-                       else f"[{m.min_value:g}:{m.max_value:g}]")
+            if m is None:
+                out.append("none")
+            elif m.bin_type == BinType.CATEGORICAL:
+                out.append(":".join(str(int(c)) for c in m.bin_to_cat))
+            else:
+                out.append(f"[{m.min_value:g}:{m.max_value:g}]")
         return out
 
 
@@ -344,6 +433,7 @@ class Booster:
             self._num_class = cfg.num_class
             self._feature_names = train_set.get_feature_name()
             self._feature_infos = train_set.feature_infos()
+            self.pandas_categorical = train_set.pandas_categorical
             self._objective_str = self._objective_repr(cfg)
             self._avg_output = cfg.boosting == "rf"
             self.train_set = train_set

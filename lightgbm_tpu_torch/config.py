@@ -106,6 +106,14 @@ ALIASES: Dict[str, str] = {
     "mc": "monotone_constraints",
     "monotone_constraint": "monotone_constraints",
     "monotonic_cst": "monotone_constraints",
+    "monotone_constraining_method": "monotone_constraints_method",
+    "mc_method": "monotone_constraints_method",
+    "monotone_splits_penalty": "monotone_penalty",
+    "ms_penalty": "monotone_penalty",
+    "mc_penalty": "monotone_penalty",
+    "cat_feature": "categorical_feature",
+    "categorical_column": "categorical_feature",
+    "cat_column": "categorical_feature",
     "feature_contrib": "feature_contri",
     "fc": "feature_contri",
     "fp": "feature_contri",
@@ -176,15 +184,12 @@ _TPU_KNOB = "a TPU layout knob of the JAX package with no counterpart " \
 
 # parameter -> (its JAX default, what brings it)
 NOT_IMPLEMENTED: Dict[str, tuple] = {
-    "monotone_constraints": ([], _Q1.format(13)),
     "feature_contri": ([], _Q1.format(13)),
     "forcedsplits_filename": ("", _Q1.format(13)),
     "cegb_penalty_split": (0.0, _Q1.format(13)),
     "cegb_penalty_feature_lazy": ([], _Q1.format(13)),
     "cegb_penalty_feature_coupled": ([], _Q1.format(13)),
-    "path_smooth": (0.0, _Q1.format(13)),
     "interaction_constraints": ("", _Q1.format(13)),
-    "categorical_feature": ("", _Q1.format(13)),
     "linear_tree": (False, _Q1.format(16)),
     "histogram_pool_size": (-1.0, _Q1.format(16)),
     "grower": ("compact", _Q1.format(16)),
@@ -350,9 +355,20 @@ class Config:
     use_missing: bool = True
     zero_as_missing: bool = False
     enable_bundle: bool = True
-    # read by bundling's eligibility test (categorical features are
-    # ROADMAP.md Queue 1 item 13)
+    # categorical features: indices or names, or "" (pandas category
+    # columns only); the search's knobs
+    categorical_feature: Any = ""
+    min_data_per_group: int = 100
+    max_cat_threshold: int = 32
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
     max_cat_to_onehot: int = 4
+    # monotone constraints ("basic" only; intermediate and advanced are
+    # ROADMAP.md Queue 1 item 13) and leaf-output smoothing
+    monotone_constraints: List[int] = field(default_factory=list)
+    monotone_constraints_method: str = "basic"
+    monotone_penalty: float = 0.0
+    path_smooth: float = 0.0
     num_class: int = 1
     is_unbalance: bool = False
     scale_pos_weight: float = 1.0
@@ -408,6 +424,11 @@ class Config:
         "metric_freq": (1, None),
         "max_bin": (2, None),
         "max_cat_to_onehot": (1, None),
+        "max_cat_threshold": (1, None),
+        "cat_l2": (0.0, None),
+        "cat_smooth": (0.0, None),
+        "monotone_penalty": (0.0, None),
+        "path_smooth": (0.0, None),
         "min_data_in_bin": (1, None),
         "bin_construct_sample_cnt": (1, None),
         "sigmoid": (0.0, None, "gt"),
@@ -469,8 +490,18 @@ class Config:
             raise ValueError(
                 "Cannot set is_unbalance and scale_pos_weight at the same "
                 "time")
+        if self.monotone_constraints_method in ("intermediate",
+                                                "advanced"):
+            raise NotImplementedError(
+                f"monotone_constraints_method="
+                f"{self.monotone_constraints_method!r} is not in the port "
+                f"yet ({_Q1.format(13)}); 'basic' is")
+        if self.monotone_constraints_method != "basic":
+            raise ValueError(
+                f"Unknown monotone_constraints_method: "
+                f"{self.monotone_constraints_method}")
 
-    _LIST_INT = {"eval_at", "max_bin_by_feature"}
+    _LIST_INT = {"eval_at", "max_bin_by_feature", "monotone_constraints"}
     _LIST_FLOAT = {"label_gain", "auc_mu_weights"}
     _LIST_STR = {"valid", "metric"}
 
@@ -507,6 +538,8 @@ class Config:
                     kwargs[k] = float(v)
                 elif f.type in ("Optional[int]",):
                     kwargs[k] = None if v is None else int(v)
+                elif k == "categorical_feature":
+                    kwargs[k] = v
                 else:
                     kwargs[k] = str(v)
             except (TypeError, ValueError) as exc:

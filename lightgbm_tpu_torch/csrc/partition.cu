@@ -18,8 +18,13 @@
 // at threshold t is lo = t + 1, hi = INT_MAX, the missing position its NaN
 // bin (or -1); a bundle member at offset off with nb bins is lo = off + t,
 // hi = off + nb - 2, the missing position off + nb - 2 when it has a NaN
-// bin (ops/partition.py RangeRules makes both). The result is a
-// permutation, so it is bit-exact against the plain version.
+// bin (ops/partition.py RangeRules makes both). A categorical split takes
+// the membership rule instead: a row goes left iff bit v of the split's
+// bitset (one bit per value the column holds, in bundle-position space, the
+// EFB layout folded in by RangeRules.bitsets) is set. The kernels are
+// templated on the rule, so the range rule's code is the same as without
+// the membership rule. The result is a permutation, so it is bit-exact
+// against the plain version.
 //
 // What bounds it on the H100: bytes. The least a call can move is the
 // window read once and written once, 2 * cnt * (F * bin bytes + payload
@@ -127,12 +132,20 @@ struct Streams {
 
 // The split decision on one bin: see the top of the file. v is a u8/u16
 // bin (0 to 65535), so hi = INT_MAX never overflows and a missing position
-// of -1 never matches.
+// of -1 never matches. kSet: the membership rule, bit v & 7 of byte v >> 3
+// of `bits` (nbits bits; a value past them goes right), read through the
+// read-only cache: a split's bitset is a few dozen bytes that every thread
+// reads.
 struct Rule {
   int lo, hi, nan_pos, dl;
+  const unsigned char* bits;
+  int nbits;
 };
 
+template <bool kSet>
 __device__ __forceinline__ bool go_left(int v, const Rule& r) {
+  if (kSet)
+    return v < r.nbits && ((__ldg(r.bits + (v >> 3)) >> (v & 7)) & 1);
   return v == r.nan_pos ? (r.dl != 0) : !(v >= r.lo && v <= r.hi);
 }
 
@@ -223,7 +236,7 @@ __device__ __forceinline__ void stage_rows(const Streams& s, const Layout& L,
 // Ranks the nr staged rows stably: perm[0, nl) takes the left rows' slice
 // indices in row order, perm[nl, nr) the right rows'. Returns nl to every
 // thread. `scan` holds 32 ints.
-template <typename BinT>
+template <typename BinT, bool kSet>
 __device__ int rank_rows(const BinT* bins, int F, int f, const Rule& rule,
                          int nr, uint16_t* perm, int* scan) {
   const int T = blockDim.x;
@@ -235,7 +248,7 @@ __device__ int rank_rows(const BinT* bins, int F, int f, const Rule& rule,
   const int r1 = min(nr, r0 + ch);
   int c = 0;
   for (int r = r0; r < r1; ++r)
-    c += go_left((int)bins[(size_t)r * F + f], rule);
+    c += go_left<kSet>((int)bins[(size_t)r * F + f], rule);
   int x = c;  // inclusive scan within the warp
   for (int o = 1; o < 32; o <<= 1) {
     const int y = __shfl_up_sync(0xffffffffu, x, o);
@@ -255,7 +268,7 @@ __device__ int rank_rows(const BinT* bins, int F, int f, const Rule& rule,
   const int nl = scan[T / 32 - 1];
   int lo = x - c + (warp > 0 ? scan[warp - 1] : 0);
   for (int r = r0; r < r1; ++r) {
-    if (go_left((int)bins[(size_t)r * F + f], rule))
+    if (go_left<kSet>((int)bins[(size_t)r * F + f], rule))
       perm[lo++] = (uint16_t)r;
     else
       perm[nl + r - lo] = (uint16_t)r;
@@ -345,7 +358,7 @@ __device__ __forceinline__ void move_rows(const Streams& s, int k,
 }
 
 // Path 1: the whole window in the blocks' shared memory, one launch.
-template <typename BinT>
+template <typename BinT, bool kSet>
 __global__ void __launch_bounds__(512, 2)
     part_resident(Streams s, long long cnt, int F, int f, Rule rule,
                   int rows, int* __restrict__ counts,
@@ -371,8 +384,9 @@ __global__ void __launch_bounds__(512, 2)
     if (warp == 0) stage_rows(s, L, smem, row0, nr, bar, lane);
     __syncthreads();  // the ragged bytes are visible
     mbar_wait(bar, 0);
-    nl = rank_rows(reinterpret_cast<const BinT*>(staged(s, L, smem, 0, row0)),
-                   F, f, rule, nr, perm, scan);
+    nl = rank_rows<BinT, kSet>(
+        reinterpret_cast<const BinT*>(staged(s, L, smem, 0, row0)), F, f,
+        rule, nr, perm, scan);
   }
   if (tid == 0) counts[blockIdx.x] = nl;
   cg::this_grid().sync();
@@ -405,7 +419,7 @@ __global__ void __launch_bounds__(512, 2)
 
 // Path 2, pass 1: column f of one tile per block; lefts before each tile
 // by decoupled look-back; n_left from the last tile.
-template <typename BinT>
+template <typename BinT, bool kSet>
 __global__ void __launch_bounds__(kColumnThreads)
     part_column(const BinT* __restrict__ bins, long long cnt, int F, int f,
                 Rule rule, int rows,
@@ -421,7 +435,7 @@ __global__ void __launch_bounds__(kColumnThreads)
   const BinT* col = bins + row0 * F + f;
   int c = 0;
   for (int r = tid; r < tr; r += kColumnThreads)
-    c += go_left((int)__ldg(col + (size_t)r * F), rule);
+    c += go_left<kSet>((int)__ldg(col + (size_t)r * F), rule);
   c = __reduce_add_sync(0xffffffffu, c);
   if (lane == 0) warp_sums[warp] = c;
   __syncthreads();
@@ -454,7 +468,7 @@ __global__ void __launch_bounds__(kColumnThreads)
 // Path 2, pass 2: a block's contiguous run of tiles through a ring of
 // `stages` buffers; each tile's spans at the offsets from its status word,
 // which is cleared.
-template <typename BinT>
+template <typename BinT, bool kSet>
 __global__ void __launch_bounds__(512, 2)
     part_move(Streams s, long long cnt, int F, int f, Rule rule, int rows,
               int stages, long long ntiles,
@@ -505,7 +519,7 @@ __global__ void __launch_bounds__(512, 2)
       if (tl + 1 < t_end) next = status[tl + 1];
     }
     mbar_wait(&bars[k], parity);
-    const int nl = rank_rows(
+    const int nl = rank_rows<BinT, kSet>(
         reinterpret_cast<const BinT*>(staged(s, L, buf, 0, row0)), F, f, rule,
         tr, perm, scan);
     const long long before = scan[32] - nl;
@@ -528,14 +542,14 @@ int unit_of(int row_bytes, const void* a, const void* b) {
   return 1;
 }
 
-template <typename BinT>
+template <typename BinT, bool kSet>
 cudaError_t launch(Streams s, long long cnt, int F, int f, Rule rule,
                    int path, int nblocks, int rows, int stages,
                    long long tiles, int threads, int smem, int* counts,
                    unsigned long long* status, int* n_left,
                    cudaStream_t stream) {
   if (path == 0) {
-    auto* kern = part_resident<BinT>;
+    auto* kern = part_resident<BinT, kSet>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
@@ -544,12 +558,12 @@ cudaError_t launch(Streams s, long long cnt, int F, int f, Rule rule,
                                        dim3(nblocks), dim3(threads), args,
                                        (size_t)smem, stream);
   }
-  part_column<BinT><<<(unsigned)tiles, kColumnThreads, 0, stream>>>(
+  part_column<BinT, kSet><<<(unsigned)tiles, kColumnThreads, 0, stream>>>(
       reinterpret_cast<const BinT*>(s.src[0]), cnt, F, f, rule, rows, status,
       n_left);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  auto* kern = part_move<BinT>;
+  auto* kern = part_move<BinT, kSet>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem);
   if (e != cudaSuccess) return e;
@@ -567,23 +581,34 @@ extern "C" int partition_smem_bytes(int rows, int F, int bin_bytes,
   return (int)layout(rows, F, bin_bytes, pay_bytes, stages).total;
 }
 
+template <typename BinT, bool kSet>
+const void* kernel_of(int path) {
+  return path == 0 ? reinterpret_cast<const void*>(part_resident<BinT, kSet>)
+                   : reinterpret_cast<const void*>(part_move<BinT, kSet>);
+}
+
 // Blocks of `threads` threads and `smem` dynamic shared memory that one SM
 // holds at once, by cudaOccupancyMaxActiveBlocksPerMultiprocessor: path 0
-// part_resident, 1 part_move. Negative: a CUDA error.
+// part_resident, 1 part_move; the fewer of the range and membership
+// rules' kernels. Negative: a CUDA error.
 extern "C" int partition_occupancy(int bin_bytes, int path, int threads,
                                    int smem) {
-  const void* k =
-      bin_bytes == 1
-          ? (path == 0 ? reinterpret_cast<const void*>(part_resident<uint8_t>)
-                       : reinterpret_cast<const void*>(part_move<uint8_t>))
-          : (path == 0 ? reinterpret_cast<const void*>(part_resident<uint16_t>)
-                       : reinterpret_cast<const void*>(part_move<uint16_t>));
-  cudaError_t e = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int n = 0;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, threads, smem);
-  return e == cudaSuccess ? n : -(int)e;
+  const void* ks[2] = {
+      bin_bytes == 1 ? kernel_of<uint8_t, false>(path)
+                     : kernel_of<uint16_t, false>(path),
+      bin_bytes == 1 ? kernel_of<uint8_t, true>(path)
+                     : kernel_of<uint16_t, true>(path)};
+  int best = 1 << 30;
+  for (const void* k : ks) {
+    cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int n = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, threads, smem);
+    if (e != cudaSuccess) return -(int)e;
+    best = n < best ? n : best;
+  }
+  return best;
 }
 
 // 1 if the device supports cooperative launches (the resident path).
@@ -604,11 +629,13 @@ extern "C" int partition_cooperative(int device) {
 // payload row's width: 8 (f32 pair), 2 (int8 pair) or 0 (no payload;
 // pay_* are then ignored). ids_* may be null. `n_left` receives the left
 // count. Rows split on bin column f by the range rule (lo, hi, nan_pos,
-// dl) above. Returns the first CUDA error (0 = success).
+// dl) above, or, when `bits` is not null, by the membership rule of its
+// nbits bits. Returns the first CUDA error (0 = success).
 extern "C" int partition_window(
     const void* bins_src, void* bins_dst, int bin_bytes, const void* pay_src,
     void* pay_dst, int pay_bytes, const void* ids_src, void* ids_dst,
-    long long cnt, int F, int f, int lo, int hi, int nan_pos, int dl, int path,
+    long long cnt, int F, int f, int lo, int hi, int nan_pos, int dl,
+    const void* bits, int nbits, int path,
     int nblocks, int rows, int stages, long long tiles, int threads,
     int smem, void* counts, void* status, void* n_left, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -625,7 +652,7 @@ extern "C" int partition_window(
       cover < cnt || (resident && stages != 1) ||
       (!resident && (stages < 2 || stages > kMaxStages || tiles < 1 ||
                      tiles > 0x7fffffffLL || status == nullptr)) ||
-      (resident && counts == nullptr) ||
+      (resident && counts == nullptr) || (bits != nullptr && nbits < 1) ||
       smem != partition_smem_bytes(rows, F, bin_bytes, pay_bytes, stages))
     return (int)cudaErrorInvalidValue;
   Streams s;
@@ -639,12 +666,21 @@ extern "C" int partition_window(
     s.row_bytes[k] = rbs[k];
     s.unit[k] = on ? unit_of(rbs[k], srcs[k], dsts[k]) : 1;
   }
-  const Rule rule{lo, hi, nan_pos, dl};
+  const Rule rule{lo, hi, nan_pos, dl,
+                  static_cast<const unsigned char*>(bits), nbits};
   int* c = static_cast<int*>(counts);
   unsigned long long* sw = static_cast<unsigned long long*>(status);
   if (bin_bytes == 1)
-    return (int)launch<uint8_t>(s, cnt, F, f, rule, path, nblocks, rows, stages,
-                                tiles, threads, smem, c, sw, nl, st);
-  return (int)launch<uint16_t>(s, cnt, F, f, rule, path, nblocks, rows,
-                               stages, tiles, threads, smem, c, sw, nl, st);
+    return (int)(bits ? launch<uint8_t, true>(s, cnt, F, f, rule, path,
+                                              nblocks, rows, stages, tiles,
+                                              threads, smem, c, sw, nl, st)
+                      : launch<uint8_t, false>(s, cnt, F, f, rule, path,
+                                               nblocks, rows, stages, tiles,
+                                               threads, smem, c, sw, nl, st));
+  return (int)(bits ? launch<uint16_t, true>(s, cnt, F, f, rule, path,
+                                             nblocks, rows, stages, tiles,
+                                             threads, smem, c, sw, nl, st)
+                    : launch<uint16_t, false>(s, cnt, F, f, rule, path,
+                                              nblocks, rows, stages, tiles,
+                                              threads, smem, c, sw, nl, st));
 }

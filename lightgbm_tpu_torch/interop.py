@@ -8,13 +8,14 @@ neither ``jax`` nor ``lightgbm_tpu``:
   form, or the attributes as a dict) to the port's mappers, so the port
   bins with the reference's mappers;
 - :func:`tree_arrays_from_fields` — a grown tree's ``TreeArrays`` fields
+  (categorical splits' ``split_is_cat`` and ``split_cat_mask`` included)
   to the port's host ``TreeArrays``;
 - :func:`tree_from_fields` — a host ``Tree``'s fields to the port's
   ``Tree``;
 - :func:`booster_from_fields` / :func:`booster_fields` — a whole model
   (its trees, K trees per iteration with tree ``i`` in class ``i % K``,
-  the objective string, the feature header and ``average_output``, the
-  random-forest flag) into a port ``Booster``
+  the objective string, the feature header, ``average_output``, the
+  random-forest flag, and ``pandas_categorical``) into a port ``Booster``
   and back out as plain fields, from which the JAX package's ``Tree``
   objects are built as ``Tree(**fields)``.
 """
@@ -59,12 +60,7 @@ def mappers_from_fields(fields: Sequence[Mapping[str, Any]]
 
 
 def tree_arrays_from_fields(fields: Mapping[str, Any]) -> TreeArrays:
-    """The port's ``TreeArrays`` from the JAX ``TreeArrays`` fields
-    (numerical splits: the categorical fields must be all False)."""
-    if np.any(np.asarray(fields.get("split_is_cat", False))):
-        raise NotImplementedError(
-            "categorical splits are not in the port yet (ROADMAP.md "
-            "Queue 1 item 13)")
+    """The port's ``TreeArrays`` from the JAX ``TreeArrays`` fields."""
     kw: Dict[str, Any] = {}
     for name in TREE_ARRAY_FIELDS:
         v = fields[name]
@@ -113,6 +109,7 @@ def booster_from_fields(model: Mapping[str, Any], params=None):
     bst._feature_names = list(model["feature_names"])
     bst._feature_infos = list(model["feature_infos"])
     bst._avg_output = bool(model.get("average_output", False))
+    bst.pandas_categorical = model.get("pandas_categorical")
     return bst
 
 
@@ -128,4 +125,5 @@ def booster_fields(booster) -> Dict[str, Any]:
         objective=booster._objective_str,
         feature_names=list(booster._feature_names),
         feature_infos=list(booster._feature_infos),
-        average_output=bool(booster._avg_output))
+        average_output=bool(booster._avg_output),
+        pandas_categorical=booster.pandas_categorical)

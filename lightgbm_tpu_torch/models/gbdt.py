@@ -114,17 +114,32 @@ def bynode_uniform(gen: torch.Generator, it: int, k: int, node: int,
     return torch.rand(F, generator=gen, device=gen.device)
 
 
+def _cat_masks(tree: Tree, dataset) -> np.ndarray:
+    """``[N, B]`` bool: the bins of ``dataset``'s mappers that each
+    categorical node sends left, from its bitset over category values
+    (bin ``b`` stands for category ``bin_to_cat[b]``; the inverse of
+    ``tree_from_arrays``)."""
+    inner = dataset.inner_feature_index(tree.split_feature)
+    masks = np.zeros((tree.num_nodes, dataset.num_total_bins()), bool)
+    for i in np.nonzero((tree.decision_type & 1) != 0)[0]:
+        cats = dataset.mappers[inner[i]].bin_to_cat
+        masks[i, :len(cats)] = tree.cat_decision(i, cats)
+    return masks
+
+
 def _tree_leaves(tree: Tree, dataset, bundle=None) -> torch.Tensor:
     """``[n]`` leaf of every row of ``dataset`` in a host tree, routed
     over its bins: the tree's bin thresholds when it was grown on these
     mappers, else its real thresholds mapped onto them (a loaded
-    model). With ``bundle`` (the dataset's EFB plan) the walk runs on the
-    bundled matrix, by each split's range rule."""
+    model); categorical nodes by the bins their category bitsets hold.
+    With ``bundle`` (the dataset's EFB plan) the walk runs on the
+    bundled matrix, by each split's rule."""
     bins = dataset.device_bins() if bundle is None else bundle.bins_bundled
     nn = tree.num_nodes
     inner = dataset.inner_feature_index(tree.split_feature)
+    is_cat = (tree.decision_type & 1) != 0
     tb = np.asarray(tree.threshold_bin, np.int64).copy()
-    for i in np.nonzero(tb < 0)[0]:
+    for i in np.nonzero((tb < 0) & ~is_cat)[0]:
         tb[i] = int(np.searchsorted(dataset.mappers[inner[i]].upper_bounds,
                                     tree.threshold[i], side="left"))
     depth = np.zeros(max(nn, 1), np.int64)
@@ -135,11 +150,16 @@ def _tree_leaves(tree: Tree, dataset, bundle=None) -> torch.Tensor:
                 depth[c] = depth[i] + 1
             else:
                 deepest = max(deepest, int(depth[i]) + 1)
-    rules = None if bundle is None else RangeRules(
-        dataset.feat_num_bins(), dataset.feat_nan_bin(), bundle)
+    rules = RangeRules(dataset.feat_num_bins(), dataset.feat_nan_bin(),
+                       bundle)
+    cat = is_cat.any()
     return predict_leaf_binned(
-        inner, tb, (tree.decision_type & 2) != 0, tree.left_child,
-        tree.right_child, dataset.feat_nan_bin(), bins, deepest, rules)
+        inner, np.maximum(tb, 0), (tree.decision_type & 2) != 0,
+        tree.left_child, tree.right_child, dataset.feat_nan_bin(), bins,
+        deepest, rules, is_cat if cat else None,
+        _cat_masks(tree, dataset) if cat else None,
+        dataset.num_total_bins() if bundle is None
+        else bundle.num_positions)
 
 
 def tree_values(tree: Tree, dataset, bundle=None) -> torch.Tensor:
@@ -205,6 +225,7 @@ class GBDTBooster:
         self.score = self._base_score(self.n, user_init, True)
         # EFB: train on the bundled matrix when the Dataset bundles
         self.bundle = train_set.bundles(cfg)
+        self.monotone = train_set.monotone_array(cfg)
         self.grower = Grower(
             GrowConfig(
                 num_leaves=cfg.num_leaves,
@@ -216,14 +237,22 @@ class GBDTBooster:
                     max_delta_step=cfg.max_delta_step,
                     min_data_in_leaf=float(cfg.min_data_in_leaf),
                     min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
-                    min_gain_to_split=cfg.min_gain_to_split),
+                    min_gain_to_split=cfg.min_gain_to_split,
+                    cat_smooth=cfg.cat_smooth, cat_l2=cfg.cat_l2,
+                    max_cat_threshold=cfg.max_cat_threshold,
+                    max_cat_to_onehot=cfg.max_cat_to_onehot,
+                    min_data_per_group=float(cfg.min_data_per_group),
+                    path_smooth=cfg.path_smooth,
+                    monotone_penalty=cfg.monotone_penalty
+                    if self.monotone is not None else 0.0),
                 quantized=cfg.use_quantized_grad,
                 quant_bins=cfg.num_grad_quant_bins,
                 renew_leaf=cfg.quant_train_renew_leaf,
                 bynode=cfg.feature_fraction_bynode),
             None if self.bundle is not None else train_set.device_bins(),
             train_set.feat_num_bins(), train_set.feat_nan_bin(),
-            bundle=self.bundle)
+            bundle=self.bundle, feat_is_cat=train_set.feat_is_cat(),
+            monotone=self.monotone)
         self._rounding_gen = None
         if cfg.use_quantized_grad and cfg.stochastic_rounding:
             self._rounding_gen = self._generator(

@@ -3,9 +3,11 @@
 A copy of ``lightgbm_tpu/models/tree.py`` without its JAX pieces: trees
 are plain numpy arrays on the host, written and read in the same text
 layout, so a model saved by either package loads in the other.
-Categorical and linear-leaf fields are parsed and written back as they
-are (so any model text round-trips), but the port grows and predicts
-numerical splits with constant leaves only.
+Linear-leaf fields are parsed and written back as they are (so any
+model text round-trips), but the port grows and predicts constant leaves
+only. Categorical splits are written as LightGBM writes them: a bitset of
+raw category values per split (``cat_boundaries`` / ``cat_threshold``,
+``threshold`` the split's index among them, ``decision_type`` bit 0).
 
 decision_type byte layout (LightGBM tree.h kCategoricalMask /
 kDefaultLeftMask): bit0 = categorical split, bit1 = default_left,
@@ -15,7 +17,7 @@ bits2-3 = missing_type (0 = none, 1 = zero, 2 = nan).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -24,6 +26,7 @@ from ..ops.binning import BinMapper, BinType, MissingType
 __all__ = ["Tree", "tree_from_arrays"]
 
 _MISSING_CODE = {MissingType.NONE: 0, MissingType.ZERO: 1, MissingType.NAN: 2}
+CAT_MASK = 1
 DEFAULT_LEFT_MASK = 2
 
 
@@ -58,6 +61,23 @@ class Tree:
     @property
     def num_nodes(self) -> int:
         return max(self.num_leaves - 1, 0)
+
+    def cat_decision(self, node: int, values: np.ndarray) -> np.ndarray:
+        """CategoricalDecision of categorical node ``node`` over raw
+        values: ``int(v)`` goes left when its bit is set; NaN, negative
+        values and values past the bitset go right."""
+        v = np.asarray(values, np.float64)
+        ok = np.isfinite(v) & (v >= 0)
+        iv = np.where(ok, v, 0).astype(np.int64)
+        k = int(self.threshold[node])
+        words = np.asarray(self.cat_threshold[self.cat_boundaries[k]:
+                                              self.cat_boundaries[k + 1]],
+                           np.int64)
+        w = iv >> 5
+        inside = ok & (w < len(words))
+        bit = (words[np.minimum(w, max(len(words) - 1, 0))] >> (iv & 31)) & 1 \
+            if len(words) else np.zeros_like(iv)
+        return inside & (bit != 0)
 
     def apply_shrinkage(self, rate: float) -> None:
         """Tree::Shrinkage (tree.h:188), for the constant-leaf trees the
@@ -183,8 +203,10 @@ class Tree:
 def tree_from_arrays(arrays, mappers: Sequence[BinMapper],
                      used_features: Optional[np.ndarray] = None) -> Tree:
     """Host ``TreeArrays`` (ops/grow.py) to a :class:`Tree`, realising
-    bin-space thresholds as real values through the BinMappers (the JAX
-    ``tree_from_arrays`` for numerical splits)."""
+    bin-space thresholds as real values through the BinMappers, and a
+    categorical split's mask of bins as a u32 bitset over the raw
+    category values of its bins (``bin_to_cat``), as the JAX
+    ``tree_from_arrays`` does."""
     L = int(arrays.num_leaves)
     nn = max(L - 1, 0)
     inner_sf = np.asarray(arrays.split_feature)[:nn].astype(np.int32)
@@ -192,21 +214,43 @@ def tree_from_arrays(arrays, mappers: Sequence[BinMapper],
         if used_features is not None else inner_sf
     tb = np.asarray(arrays.threshold_bin)[:nn].astype(np.int32)
     dl = np.asarray(arrays.default_left)[:nn]
+    is_cat_node = np.asarray(arrays.split_is_cat)[:nn]
+    cat_masks = np.asarray(arrays.split_cat_mask)[:nn]
     thr = np.zeros(nn, np.float64)
     dtypes = np.zeros(nn, np.uint8)
+    cat_boundaries = [0]
+    cat_threshold: List[int] = []
+    num_cat = 0
     for i in range(nn):
         # mappers are one-per-used-feature: index by the inner id
         m = mappers[inner_sf[i]]
-        if m.bin_type == BinType.CATEGORICAL:
-            raise NotImplementedError(
-                "categorical splits are not in the port yet (ROADMAP.md "
-                "Queue 1 item 13)")
         code = _MISSING_CODE[m.missing_type] << 2
-        thr[i] = m.bin_upper_bound(int(tb[i]))
-        if dl[i]:
-            code |= DEFAULT_LEFT_MASK
+        if m.bin_type == BinType.CATEGORICAL:
+            if is_cat_node[i]:
+                member = np.nonzero(cat_masks[i][:len(m.bin_to_cat)])[0]
+            else:  # a prefix split "bin <= t"
+                member = np.arange(min(int(tb[i]) + 1, len(m.bin_to_cat)))
+            cats = np.asarray(m.bin_to_cat, np.int64)[member]
+            nwords = (int(cats.max()) // 32 + 1) if len(cats) else 1
+            words = np.zeros(nwords, np.uint32)
+            for c in cats:
+                words[c // 32] |= np.uint32(1) << np.uint32(c % 32)
+            thr[i] = float(num_cat)
+            code |= CAT_MASK
+            cat_threshold.extend(int(x) for x in words)
+            cat_boundaries.append(len(cat_threshold))
+            num_cat += 1
+        else:
+            thr[i] = m.bin_upper_bound(int(tb[i]))
+            if dl[i]:
+                code |= DEFAULT_LEFT_MASK
         dtypes[i] = code
     return Tree(
+        num_cat=num_cat,
+        cat_boundaries=np.asarray(cat_boundaries, np.int64)
+        if num_cat else None,
+        cat_threshold=np.asarray(cat_threshold, np.uint32)
+        if num_cat else None,
         num_leaves=L,
         split_feature=sf,
         split_gain=np.asarray(arrays.split_gain)[:nn].astype(np.float64),

@@ -41,8 +41,8 @@ KERNELS: Dict[str, Dict[str, tuple]] = {
     },
     "partition": {
         "partition_window": (_I, [_P, _P, _I, _P, _P, _I, _P, _P, _L, _I,
-                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _L,
-                                  _I, _I, _P, _P, _P, _P]),
+                                  _I, _I, _I, _I, _I, _P, _I, _I, _I, _I,
+                                  _I, _L, _I, _I, _P, _P, _P, _P]),
         "partition_smem_bytes": (_I, [_I, _I, _I, _I, _I]),
         "partition_occupancy": (_I, [_I, _I, _I, _I]),
         "partition_cooperative": (_I, [_I]),

@@ -5,11 +5,15 @@ A copy of ``lightgbm_tpu/ops/binning.py`` (``BinMapper``, ``find_bin``,
 packages produce identical bin boundaries from identical samples. The
 port does not import the JAX package, so it carries its own copy.
 
-What differs: ``bin_matrix`` maps the numerical columns with
-``torch.searchsorted`` on the target device (float64, the same
-``side="left"`` rule and NaN handling as ``BinMapper.value_to_bin``)
-instead of the JAX package's native C++ helper; the bins are identical
-(tests/test_torch_train.py holds them against the JAX package).
+What differs: ``bin_matrix`` maps every column with
+``torch.searchsorted`` on the target device instead of the JAX package's
+native C++ helper and its per-category loop: numerical columns over
+their upper bounds (float64, the same ``side="left"`` rule and NaN
+handling as ``BinMapper.value_to_bin``), categorical columns over their
+sorted category values (the values cast to int64 after NaN and
+infinities become -1; NaN, negative, cut and unseen values all land in
+bin 0). The bins are identical (tests/test_torch_train.py and
+tests/test_torch_categorical.py hold them against the JAX package).
 """
 
 from __future__ import annotations
@@ -373,9 +377,9 @@ def bin_matrix(X: np.ndarray, col_indices, mappers: Sequence[BinMapper],
     with ``torch.searchsorted`` in float64 — the rule of
     ``BinMapper.value_to_bin``: ``side="left"``, clamped to the last
     bound, NaN to the last bin for ``MissingType.NAN`` and to the bin of
-    0.0 otherwise. Categorical columns go through ``value_to_bin`` on
-    the host. The result is u8 when every mapper has at most 256 bins,
-    else u16 (``torch.uint16``)."""
+    0.0 otherwise. Categorical columns by :func:`_categorical_bins`. The
+    result is u8 when every mapper has at most 256 bins, else u16
+    (``torch.uint16``)."""
     import torch
     col_indices = np.asarray(col_indices, np.int64)
     max_bins = max((m.num_bins for m in mappers), default=2)
@@ -385,12 +389,11 @@ def bin_matrix(X: np.ndarray, col_indices, mappers: Sequence[BinMapper],
     out = torch.empty((n, len(mappers)), dtype=dtype, device=device)
     for i, m in enumerate(mappers):
         col = X[:, col_indices[i]]
-        if m.bin_type != BinType.NUMERICAL:
-            b = torch.from_numpy(m.value_to_bin(col).astype(np.int32))
-            out[:, i] = b.to(device=device, dtype=dtype)
-            continue
         v = torch.from_numpy(np.ascontiguousarray(col)).to(
             device=device, dtype=torch.float64)
+        if m.bin_type != BinType.NUMERICAL:
+            out[:, i] = _categorical_bins(v, m).to(dtype)
+            continue
         nan = torch.isnan(v)
         ub = torch.from_numpy(m.upper_bounds).to(device=device,
                                                  dtype=torch.float64)
@@ -402,3 +405,21 @@ def bin_matrix(X: np.ndarray, col_indices, mappers: Sequence[BinMapper],
             b = torch.where(nan, torch.full_like(b, m.num_bins - 1), b)
         out[:, i] = b.to(dtype)
     return out
+
+
+def _categorical_bins(v, m: BinMapper):
+    """int64 bins of float64 values ``v`` (a tensor) under categorical
+    mapper ``m``: ``value_to_bin``'s rule by one ``searchsorted`` over the
+    sorted category values, on ``v``'s device."""
+    import torch
+    cats = np.asarray(list((m.cat_to_bin or {}).keys()), np.int64)
+    bins = np.asarray(list((m.cat_to_bin or {}).values()), np.int64)
+    order = np.argsort(cats)
+    iv = torch.where(torch.isfinite(v), v, -1.0).to(torch.int64)
+    if len(cats) == 0:
+        return torch.zeros_like(iv)
+    c = torch.as_tensor(cats[order], device=v.device)
+    at = torch.clamp_max(torch.searchsorted(c, iv), len(cats) - 1)
+    hit = c[at] == iv
+    return torch.where(hit, torch.as_tensor(bins[order],
+                                            device=v.device)[at], 0)

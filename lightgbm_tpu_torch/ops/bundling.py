@@ -73,9 +73,7 @@ def _eligible(mappers, F: int, max_cat_onehot: int = 4) -> np.ndarray:
     """Features that may enter a multi-member bundle: numerical ones
     whose zero maps to bin 0 (MissingType.ZERO ones stay direct: their
     missing bin is the shared position 0), and categorical ones in the
-    one-hot regime. The port has no categorical mappers yet (ROADMAP.md
-    Queue 1 item 13), so the categorical branch is kept as the JAX
-    package has it and stays dead until then."""
+    one-hot regime (their bin 0 is their most frequent category)."""
     ok = np.zeros(F, bool)
     for j, m in enumerate(mappers):
         if m.num_bins < 2:

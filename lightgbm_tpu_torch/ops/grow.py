@@ -1,8 +1,9 @@
 """Leaf-wise tree growth with rows kept physically grouped by leaf.
 
 Counterpart of the JAX compact grower (``lightgbm_tpu/ops/grow.py``
-``_grow_compact_impl``) for the main path: ``num_leaves``, ``num_bins``,
-``max_depth`` and the numerical split search. Its semantics are the JAX
+``_grow_compact_impl``): ``num_leaves``, ``num_bins``, ``max_depth``,
+the numerical and categorical split search and basic monotone bounds.
+Its semantics are the JAX
 grower's; its mechanics are a GPU's:
 
 - Every leaf owns a contiguous window ``[leaf_begin, leaf_begin +
@@ -63,6 +64,25 @@ on the range rule of each split's bundle column
 ``row_leaf`` keep original feature ids and member-local thresholds, so
 the model does not depend on the bundling.
 
+Categorical splits (``feat_is_cat``, the JAX grower's ``has_cat``
+branches): the search returns each candidate's ``[B]`` mask of the local
+bins sent left beside its record; the grower keeps the leaves' masks and
+the splits' (``[L - 1, B]``) on the device, K2 routes a categorical
+split by a bitset made from its mask on the device
+(:meth:`ops.partition.RangeRules.bitsets`), and the splits' masks come
+to the host once per tree, when the tree is written. The record's
+``direction`` (>= 2 for a categorical winner) tells the host which rule
+to use, so a split still takes one read-back.
+
+Monotone constraints (``monotone``, the ``basic`` method) and
+``path_smooth``: each leaf keeps its output bounds ``(min, max)`` as
+host float32 (``BasicLeafConstraints``: after a numerical split on a
+constrained feature, the children's bounds meet at ``(wl + wr) / 2``;
+categorical splits pass the parent's bounds down), and each child's
+search gets the two children's ``[2, 2]`` bounds, their own outputs as
+the parents of smoothing (from the device record, no read-back) and
+their depth (the monotone penalty).
+
 Column sampling: ``grow`` takes the tree's ``feature_mask``
 (``feature_fraction``) and, with ``GrowConfig.bynode < 1``, a function
 giving the uniform ``[F]`` draw of node ``i`` (0 for the root, ``2 *
@@ -113,8 +133,8 @@ class GrowConfig(NamedTuple):
 
 
 class TreeArrays(NamedTuple):
-    """Flat host tree, the fields of the JAX ``TreeArrays`` (numerical
-    splits only). Sizes: L leaves, L-1 internal nodes."""
+    """Flat host tree, the fields of the JAX ``TreeArrays``. Sizes: L
+    leaves, L-1 internal nodes, B bins."""
     split_feature: np.ndarray    # [L-1] i32
     threshold_bin: np.ndarray    # [L-1] i32
     default_left: np.ndarray     # [L-1] bool
@@ -130,6 +150,8 @@ class TreeArrays(NamedTuple):
     leaf_parent: np.ndarray      # [L] i32
     leaf_depth: np.ndarray       # [L] i32
     num_leaves: int
+    split_is_cat: np.ndarray     # [L-1] bool categorical membership split
+    split_cat_mask: np.ndarray   # [L-1, B] bool local bins sent left
 
 
 def _init_tree(L: int) -> dict:
@@ -150,6 +172,7 @@ def _init_tree(L: int) -> dict:
         leaf_parent=np.full(L, -1, np.int32),
         leaf_depth=np.zeros(L, np.int32),
         num_leaves=1,
+        split_is_cat=np.zeros(L - 1, bool),
     )
 
 
@@ -184,6 +207,7 @@ def _apply_split(t: dict, rec: np.ndarray, leaf: int, R: int, ns: int,
     t["split_feature"][ns] = int(rec[F_["feature"]])
     t["threshold_bin"][ns] = int(rec[F_["threshold_bin"]])
     t["default_left"][ns] = bool(rec[F_["default_left"]])
+    t["split_is_cat"][ns] = rec[F_["direction"]] >= 2
     t["split_gain"][ns] = rec[F_["gain"]]
     t["internal_value"][ns] = rec[F_["parent_output"]]
     t["internal_weight"][ns] = rec[F_["left_sum_h"]] + rec[F_["right_sum_h"]]
@@ -224,7 +248,7 @@ class Grower:
 
     def __init__(self, cfg: GrowConfig, bins: torch.Tensor,
                  feat_num_bins, feat_nan_bin, feature_mask=None,
-                 bundle=None):
+                 bundle=None, feat_is_cat=None, monotone=None):
         if bundle is not None:
             bins = bundle.bins_bundled
         n, C = bins.shape
@@ -253,13 +277,41 @@ class Grower:
                                  dtype=torch.int32 if q else torch.float32)
         self.best = torch.empty((L, NF), dtype=torch.float32, device=dev)
         self.row_ids = torch.arange(n, dtype=torch.int32, device=dev)
+        # categorical features: the leaves' and the splits' masks
+        self.fcat = None
+        if feat_is_cat is not None and np.any(feat_is_cat):
+            self.fcat = torch.as_tensor(np.asarray(feat_is_cat, bool),
+                                        device=dev)
+            self.best_mask = torch.zeros((L, B), dtype=torch.bool,
+                                         device=dev)
+            self.split_mask = torch.zeros((max(L - 1, 1), B),
+                                          dtype=torch.bool, device=dev)
+        # monotone signs (None: unconstrained; all zeros still takes the
+        # exact-output search, as in the JAX grower)
+        self.mono_host = self.mono = None
+        if monotone is not None:
+            self.mono_host = np.asarray(monotone, np.int8)
+            self.mono = torch.as_tensor(self.mono_host, device=dev)
 
-    def _search(self, hist2, g, h, c, fmask):
+    def _search(self, slot, hist2, g, h, c, fmask, p_out, depth, bounds):
+        """Search the ``C`` leaves of ``hist2`` and store their records
+        (and masks) at leaf slots ``slot``; returns the records."""
+        p = self.cfg.split
         if self.bundled:
-            return find_best_split_bundled(hist2, g, h, c, self.tables,
-                                           fmask, self.cfg.split)
-        return find_best_split(hist2, g, h, c, self.fnb, self.fnan,
-                               fmask, self.cfg.split)
+            out = find_best_split_bundled(
+                hist2, g, h, c, self.tables, fmask, p, self.fcat, self.fnb,
+                self.mono, p_out, depth, bounds)
+        else:
+            out = find_best_split(hist2, g, h, c, self.fnb, self.fnan,
+                                  fmask, p, self.fcat, self.mono, p_out,
+                                  depth, bounds)
+        if self.fcat is not None:
+            out, masks = out
+            for i, leaf in enumerate(slot):
+                self.best_mask[leaf] = masks[i]
+        for i, leaf in enumerate(slot):
+            self.best[leaf] = out[i]
+        return out
 
     def _node_mask(self, u: torch.Tensor, fmask: torch.Tensor,
                    usable: int) -> torch.Tensor:
@@ -334,10 +386,16 @@ class Grower:
         tc = torch.full((), float(m), dtype=torch.float32, device=self.dev)
         root_mask = self._node_mask(node_uniform(0), fmask, usable) \
             if bynode else fmask
-        rec = self._search(hist_f(root_hist)[None], tg[None], th[None],
-                           tc[None], root_mask)
-        self.best[0] = rec[0]
-        host = torch.cat([rec[0], torch.stack([leaf_output(tg, th, p), th])
+        root_out = leaf_output(tg, th, p)
+        # monotone output bounds per leaf, on the host (basic method)
+        has_mono = self.mono is not None
+        lmin = np.full(L, -np.inf, np.float32)
+        lmax = np.full(L, np.inf, np.float32)
+        rec = self._search([0], hist_f(root_hist)[None], tg[None], th[None],
+                           tc[None], root_mask, root_out[None], 0,
+                           self._bounds([0], lmin, lmax) if has_mono
+                           else None)
+        host = torch.cat([rec[0], torch.stack([root_out, th])
                           ]).cpu().numpy()
         t = _init_tree(L)
         t["leaf_value"][0] = host[NF]
@@ -360,12 +418,19 @@ class Grower:
             src = int(leaf_buf[leaf])
             dst = 1 - src
             begin, cnt = int(leaf_begin[leaf]), int(leaf_count[leaf])
-            col, lo, hi, nan_pos = self.rules(int(r[F_["feature"]]),
+            f_split = int(r[F_["feature"]])
+            is_cat = r[F_["direction"]] >= 2
+            col, lo, hi, nan_pos = self.rules(f_split,
                                               int(r[F_["threshold_bin"]]))
+            bits = None
+            if is_cat:
+                self.split_mask[ns] = self.best_mask[leaf]
+                bits = self.rules.bitsets([f_split],
+                                          self.best_mask[leaf][None], B)[0]
             nl = partition_window(
                 self.bins2[src], self.bins2[dst], self.pay2[src],
                 self.pay2[dst], self.ids2[src], self.ids2[dst], begin, cnt,
-                col, lo, hi, nan_pos, bool(r[F_["default_left"]]))
+                col, lo, hi, nan_pos, bool(r[F_["default_left"]]), bits)
             est_left_small = r[F_["left_count"]] <= r[F_["right_count"]]
             small = window_hist(self.bins2[dst], self.pay2[dst], B, begin,
                                 cnt, nl, 1 if est_left_small else 2,
@@ -383,13 +448,17 @@ class Grower:
                     self._node_mask(node_uniform(2 * ns + 1), fmask, usable),
                     self._node_mask(node_uniform(2 * ns + 2), fmask,
                                     usable)])
+            bounds2 = None
+            if has_mono:
+                self._update_bounds(lmin, lmax, leaf, R, r, f_split, is_cat)
+                bounds2 = self._bounds([leaf, R], lmin, lmax)
             rec2 = self._search(
-                hist_f(torch.stack([lh, rh])),
+                [leaf, R], hist_f(torch.stack([lh, rh])),
                 torch.stack([pb[F_["left_sum_g"]], pb[F_["right_sum_g"]]]),
                 torch.stack([pb[F_["left_sum_h"]], pb[F_["right_sum_h"]]]),
-                cnt2, mask2)
-            self.best[leaf] = rec2[0]
-            self.best[R] = rec2[1]
+                cnt2, mask2,
+                torch.stack([pb[F_["left_output"]], pb[F_["right_output"]]]),
+                int(t["leaf_depth"][leaf]) + 1, bounds2)
             host = torch.cat([rec2.reshape(-1).double(),
                               nl.double()]).cpu().numpy()
             n_left = int(host[2 * NF])
@@ -407,20 +476,49 @@ class Grower:
             ns += 1
 
         nleaves = t["num_leaves"]
+        nn = nleaves - 1
+        cat_masks = None
+        if self.fcat is not None and t["split_is_cat"][:nn].any():
+            # the tree's one read-back of its masks
+            cat_masks = self.split_mask[:nn]
+            t["split_cat_mask"] = np.zeros((L - 1, B), bool)
+            t["split_cat_mask"][:nn] = cat_masks.cpu().numpy()
+        else:
+            t["split_cat_mask"] = np.zeros((L - 1, B), bool)
         row_leaf = self._row_leaf(nleaves, leaf_buf, leaf_begin,
                                   leaf_count, m)
         if oob is not None and nleaves > 1:
-            nn = nleaves - 1
             row_leaf[oob] = predict_leaf_binned(
                 t["split_feature"][:nn], t["threshold_bin"][:nn],
                 t["default_left"][:nn], t["left_child"][:nn],
                 t["right_child"][:nn], self.fnan_host,
                 _take_rows(self.bins, oob),
-                int(t["leaf_depth"][:nleaves].max()), rules=self.rules)
+                int(t["leaf_depth"][:nleaves].max()), rules=self.rules,
+                is_cat=t["split_is_cat"][:nn], cat_masks=cat_masks)
         if cfg.quantized and cfg.renew_leaf:
             t["leaf_value"][:nleaves] = self._renewed_leaf_values(
                 grad, hess, row_leaf, nleaves)
         return TreeArrays(**t), row_leaf
+
+    def _bounds(self, leaves, lmin, lmax) -> torch.Tensor:
+        """``[C, 2]`` f32 ``(min, max)`` output bounds of ``leaves``."""
+        return torch.as_tensor(np.stack([lmin[leaves], lmax[leaves]], 1),
+                               device=self.dev)
+
+    def _update_bounds(self, lmin, lmax, leaf, R, r, f, is_cat) -> None:
+        """BasicLeafConstraints::Update for split record ``r`` of ``leaf``
+        (children ``leaf`` and ``R``): a numerical split on an increasing
+        feature caps the left child and floors the right one at ``(wl +
+        wr) / 2``, a decreasing one the other way round; otherwise both
+        children keep the parent's bounds."""
+        pmin, pmax = lmin[leaf], lmax[leaf]
+        mc = 0 if is_cat else int(self.mono_host[f])
+        mid = (r[F_["left_output"]] + r[F_["right_output"]]) \
+            * np.float32(0.5)
+        lmin[leaf] = max(pmin, mid) if mc < 0 else pmin
+        lmax[leaf] = min(pmax, mid) if mc > 0 else pmax
+        lmin[R] = max(pmin, mid) if mc > 0 else pmin
+        lmax[R] = min(pmax, mid) if mc < 0 else pmax
 
     def _row_leaf(self, nleaves, leaf_buf, leaf_begin, leaf_count, m):
         """Leaf of every row of the final windows (which partition ``[0,

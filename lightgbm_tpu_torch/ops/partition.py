@@ -9,10 +9,11 @@ grower (``ops/grow.py`` ``part_apply``).
   ``[begin, begin + cnt)`` from the source buffers of a ping-pong pair
   into the same window of the destination buffers: rows that go left to
   the front, the others to the back, each side in its original order.
-  The decision is a range rule on one bin column (:func:`go_left`, the
-  JAX grower's ``chunk_goleft``), which covers plain splits and the
-  members of EFB bundles; :class:`RangeRules` turns a split's (feature,
-  threshold) into it. A row is its
+  The decision is on one bin column (:func:`go_left`, the JAX grower's
+  ``chunk_goleft``): a range rule, which covers numerical splits of
+  plain columns and of the members of EFB bundles, or a membership rule,
+  a bitset over the column's values, for categorical splits;
+  :class:`RangeRules` turns a split record into either. A row is its
   bins, its (grad, hess) payload — an f32 pair (8 bytes) or, in
   quantized training, an int8 pair (2 bytes) — and its row id. Returns
   the window's left count as a one-element int32 tensor on the device
@@ -27,7 +28,8 @@ grower (``ops/grow.py`` ``part_apply``).
 
 ``partition_window.launches`` counts the calls that launched the kernel,
 ``partition_window.kernels`` the kernels they launched (one on the
-resident path, two on the streaming path).
+resident path, two on the streaming path),
+``partition_window.member_launches`` the calls with a membership rule.
 """
 
 from __future__ import annotations
@@ -77,29 +79,58 @@ class PartitionPlan(NamedTuple):
 INT_MAX = 2 ** 31 - 1
 
 
-def go_left(col: torch.Tensor, lo, hi, nan_pos, dl):
-    """The range rule on one bin column: a bin equal to ``nan_pos``
-    follows the default direction ``dl``; any other goes right iff
-    ``lo <= bin <= hi``. The arguments are ints, or tensors that
-    broadcast against ``col`` (one rule per row)."""
+def go_left(col: torch.Tensor, lo, hi, nan_pos, dl, bits=None):
+    """The split decision on one bin column.
+
+    Range rule (``bits`` None): a bin equal to ``nan_pos`` follows the
+    default direction ``dl``; any other goes right iff ``lo <= bin <=
+    hi``. The arguments are ints, or tensors that broadcast against
+    ``col`` (one rule per row).
+
+    Membership rule (a categorical split): ``bits`` is a uint8 bitset
+    over the column's values (bit ``v & 7`` of byte ``v >> 3``); a bin
+    goes left iff its bit is set, and a bin past the bitset goes
+    right."""
     c = col.to(torch.int64)
+    if bits is not None:
+        nbits = bits.numel() * 8
+        byte = bits[torch.clamp(c >> 3, 0, bits.numel() - 1)].to(torch.int64)
+        return (c < nbits) & (((byte >> (c & 7)) & 1) != 0)
     right = (c >= lo) & (c <= hi)
     dl = torch.as_tensor(dl, dtype=torch.bool, device=c.device)
     return torch.where(c == nan_pos, dl, ~right)
 
 
+def _pack_bits(member: torch.Tensor) -> torch.Tensor:
+    """``[..., n]`` bool (``n`` a multiple of 8) to ``[..., n // 8]``
+    uint8 bitsets: bit ``v & 7`` of byte ``v >> 3`` is ``member[v]``."""
+    m = member.reshape(member.shape[:-1] + (-1, 8)).to(torch.int32)
+    shift = torch.arange(8, dtype=torch.int32, device=member.device)
+    return (m << shift).sum(dim=-1).to(torch.uint8)
+
+
 class RangeRules:
-    """Turns a split's (original feature ``f``, threshold bin ``t``) into
-    the range rule of the bin column it routes on, ``(col, lo, hi,
-    nan_pos)`` (``dl`` passes through): for a plain matrix, or a direct
-    (singleton) bundle, ``(f's column, t + 1, INT_MAX, f's missing bin or
-    -1)``, so the rule is the plain one (the missing bin follows ``dl``,
-    any other goes left when ``bin <= t``); for a member of a
-    multi-member bundle at offset ``off`` with ``nb`` bins, ``(its
-    bundle, off + t, off + nb - 2, off + nb - 2 or -1)``: its bins above
-    ``t`` sit at positions ``[off + t, off + nb - 2]``, its NaN bin (its
-    last) at ``off + nb - 2``. The JAX grower's ``chunk_goleft``
-    decision. Scalars give ints, arrays give int64 arrays."""
+    """Turns a split record into the decision of the bin column it
+    routes on, for K2, the out-of-bag walk and binned scoring.
+
+    A numerical split of (original feature ``f``, threshold bin ``t``)
+    gives the range rule ``(col, lo, hi, nan_pos)`` (``dl`` passes
+    through): for a plain matrix, or a direct (singleton) bundle, ``(f's
+    column, t + 1, INT_MAX, f's missing bin or -1)``, so the rule is the
+    plain one (the missing bin follows ``dl``, any other goes left when
+    ``bin <= t``); for a member of a multi-member bundle at offset
+    ``off`` with ``nb`` bins, ``(its bundle, off + t, off + nb - 2, off +
+    nb - 2 or -1)``: its bins above ``t`` sit at positions ``[off + t,
+    off + nb - 2]``, its NaN bin (its last) at ``off + nb - 2``. The JAX
+    grower's ``chunk_goleft`` decision. Scalars give ints, arrays give
+    int64 arrays.
+
+    A categorical split's ``[B]`` mask of the member's local bins sent
+    left gives a bitset over the column's values (:meth:`bitsets`), with
+    the bundle layout folded in: a direct column stores the local bin as
+    is; a multi-member column holds local bins ``1 .. nb - 1`` at
+    ``[off, off + nb - 2]``, and every other value is the member's bin
+    0. So the kernels test one bit and never learn the layout."""
 
     def __init__(self, feat_num_bins, feat_nan_bin, bundle=None):
         self.nb = np.asarray(feat_num_bins, np.int64)
@@ -128,14 +159,37 @@ class RangeRules:
             return tuple(int(x) for x in out)
         return tuple(np.asarray(x, np.int64) for x in out)
 
+    def bitsets(self, f, masks: torch.Tensor, nvalues: int) -> torch.Tensor:
+        """``[N, ceil(nvalues / 8)]`` uint8 bitsets over the column values
+        ``0 .. nvalues - 1`` (the bins, or bundle positions, of the matrix
+        routed) of the splits on original features ``f`` ``[N]`` whose
+        local bins ``b`` go left where ``masks[:, b]`` (``[N, W]`` bool;
+        a bin past ``W`` goes right), built on the masks' device."""
+        dev = masks.device
+        N, W = masks.shape
+        f = np.asarray(f, np.int64).reshape(N)
+        nbits = -(-nvalues // 8) * 8
+
+        def col(a):
+            return torch.as_tensor(a[f], device=dev)[:, None]
+        off, nb, direct = col(self.off), col(self.nb), col(self.direct)
+        pos = torch.arange(nbits, device=dev)[None, :]
+        local = torch.where(direct, pos,
+                            torch.where((pos >= off) & (pos <= off + nb - 2),
+                                        pos - off + 1, 0))
+        member = masks.gather(1, torch.clamp_max(local, W - 1)) \
+            & (local < W) & (pos < nvalues)
+        return _pack_bits(member)
+
 
 def partition_plain(bins_src, bins_dst, pay_src, pay_dst, ids_src,
                     ids_dst, begin: int, cnt: int, col: int, lo: int,
-                    hi: int, nan_pos: int, dl: bool) -> torch.Tensor:
+                    hi: int, nan_pos: int, dl: bool,
+                    bits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A stable argsort of ``~go_left`` followed by gathers."""
     sl = slice(begin, begin + cnt)
     rows = bins_src[sl]
-    gl = go_left(rows[:, col], lo, hi, nan_pos, dl)
+    gl = go_left(rows[:, col], lo, hi, nan_pos, dl, bits)
     order = torch.argsort((~gl).to(torch.int8), stable=True)
     # gathers of uint16 are not implemented on CUDA: move the same bits
     # as int16
@@ -264,13 +318,24 @@ def partition_window(bins_src: torch.Tensor, bins_dst: torch.Tensor,
                      ids_src: Optional[torch.Tensor],
                      ids_dst: Optional[torch.Tensor],
                      begin: int, cnt: int, col: int, lo: int, hi: int,
-                     nan_pos: int, dl: bool) -> torch.Tensor:
+                     nan_pos: int, dl: bool,
+                     bits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stably partition window ``[begin, begin + cnt)`` of the source
-    buffers into the destination buffers by the range rule ``(lo, hi,
-    nan_pos, dl)`` on bin column ``col`` (:func:`go_left`); returns
-    ``n_left`` (int32 ``[1]`` on the device). ``pay_*`` (``[n, 2]`` f32
-    or int8) and ``ids_*`` may be None."""
+    buffers into the destination buffers by the decision on bin column
+    ``col`` (:func:`go_left`): the range rule ``(lo, hi, nan_pos, dl)``,
+    or with ``bits`` (a contiguous uint8 bitset on the buffers' device,
+    :meth:`RangeRules.bitsets`) the membership rule, which ignores the
+    range rule's arguments. Returns ``n_left`` (int32 ``[1]`` on the
+    device). ``pay_*`` (``[n, 2]`` f32 or int8) and ``ids_*`` may be
+    None."""
     _check(bins_src, bins_dst, pay_src, pay_dst, ids_src, ids_dst)
+    if bits is not None and (bits.dtype != torch.uint8 or bits.dim() != 1
+                             or not bits.is_contiguous()
+                             or bits.device != bins_src.device
+                             or bits.numel() * 8 > INT_MAX):
+        raise ValueError("the membership rule's bitset must be a "
+                         "contiguous 1-D uint8 tensor on the buffers' "
+                         "device")
     n, F = bins_src.shape
     if not 0 <= begin <= begin + cnt <= n or not 0 <= col < F:
         raise ValueError("window or column out of range")
@@ -280,7 +345,7 @@ def partition_window(bins_src: torch.Tensor, bins_dst: torch.Tensor,
     if dev.type == "cpu" or (_Force.plain and dev.type == "cuda"):
         return partition_plain(bins_src, bins_dst, pay_src, pay_dst,
                                ids_src, ids_dst, begin, cnt, col, lo, hi,
-                               nan_pos, dl)
+                               nan_pos, dl, bits)
     if dev.type != "cuda":
         raise ValueError(f"no partition kernel for device {dev}")
     if cnt == 0:
@@ -289,7 +354,7 @@ def partition_window(bins_src: torch.Tensor, bins_dst: torch.Tensor,
     plan = partition_plan(cnt, F, bins_src.element_size(), pay_bytes,
                           _num_sms(dev))
     return _launch(bins_src, bins_dst, pay_src, pay_dst, ids_src, ids_dst,
-                   begin, cnt, col, lo, hi, nan_pos, dl, plan)
+                   begin, cnt, col, lo, hi, nan_pos, dl, plan, bits)
 
 
 # per CUDA device: the resident path's block counts and the streaming
@@ -307,8 +372,8 @@ def _scratch_for(dev: torch.device, name: str, n: int, dtype):
 
 
 def _launch(bins_src, bins_dst, pay_src, pay_dst, ids_src, ids_dst, begin,
-            cnt, col, lo, hi, nan_pos, dl,
-            plan: PartitionPlan) -> torch.Tensor:
+            cnt, col, lo, hi, nan_pos, dl, plan: PartitionPlan,
+            bits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch ``csrc/partition.cu`` on a checked window of CUDA tensors
     by ``plan``."""
     dev = bins_src.device
@@ -338,7 +403,10 @@ def _launch(bins_src, bins_dst, pay_src, pay_dst, ids_src, ids_dst, begin,
         at(bins_src, F), at(bins_dst, F), bins_src.element_size(),
         at(pay_src, 2), at(pay_dst, 2), pay_bytes, at(ids_src, 1),
         at(ids_dst, 1), int(cnt), F, int(col), int(lo), int(hi),
-        int(nan_pos), int(bool(dl)), 0 if plan.path == "resident" else 1,
+        int(nan_pos), int(bool(dl)),
+        None if bits is None else bits.data_ptr(),
+        0 if bits is None else bits.numel() * 8,
+        0 if plan.path == "resident" else 1,
         plan.nblocks,
         plan.rows, plan.stages, plan.tiles, plan.threads, plan.smem,
         None if counts is None else counts.data_ptr(),
@@ -350,11 +418,14 @@ def _launch(bins_src, bins_dst, pay_src, pay_dst, ids_src, ids_dst, begin,
     _cuda.check(err, "partition_window")
     partition_window.launches += 1
     partition_window.kernels += 1 if plan.path == "resident" else 2
+    if bits is not None:
+        partition_window.member_launches += 1
     return n_left
 
 
 partition_window.launches = 0
 partition_window.kernels = 0
+partition_window.member_launches = 0
 
 
 def _compact(A: torch.Tensor, key: torch.Tensor) -> Tuple[torch.Tensor,

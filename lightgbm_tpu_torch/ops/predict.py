@@ -7,14 +7,20 @@ GPU a gather is cheap, so rows walk down the tree one level per step,
 all trees of a forest at once, for as many steps as the deepest tree
 has levels. The decisions are the JAX package's:
 
-- binned: the range rule of K2 (``ops/partition.py`` ``go_left``,
+- binned: K2's decision (``ops/partition.py`` ``go_left``,
   ``RangeRules``) on each node's bin column — for a plain matrix, the
   missing bin follows ``default_left`` and any other bin goes left when
   ``bin <= threshold_bin``; over an EFB-bundled matrix, the rule of the
-  split feature's bundle column;
+  split feature's bundle column; a categorical node sends a bin left
+  when its bit is set in the node's bitset over column values, made
+  from its mask of local bins (NaN, negative, rare and unseen
+  categories all sit in bin 0 and follow bin 0's membership);
 - raw (``NumericalDecision``): missing type ``nan`` — NaN follows
   ``default_left``; ``zero`` — NaN or ``|v| <= 1e-35`` follows it;
-  ``none`` — NaN is read as 0.0; then ``v <= threshold``.
+  ``none`` — NaN is read as 0.0; then ``v <= threshold``; a categorical
+  node (``CategoricalDecision``) sends ``int(v)`` left when its bit is
+  set in the node's u32 bitset over category values, and NaN, negative
+  values and values past the bitset go right.
 """
 
 from __future__ import annotations
@@ -47,6 +53,8 @@ class StackedTrees(NamedTuple):
     right_child: torch.Tensor     # [T, N] int64
     leaf_value: torch.Tensor      # [T, L] f32
     depth: int                    # levels of the deepest tree
+    is_categorical: torch.Tensor = None   # [T, N] bool (None: no cat)
+    cat_bitset: torch.Tensor = None       # [T, N, W] int64 u32 words
 
 
 def _walk(T, n, device, decide, left_child, right_child, depth):
@@ -65,12 +73,17 @@ def _walk(T, n, device, decide, left_child, right_child, depth):
 def predict_leaf_binned(split_feature, threshold_bin, default_left,
                         left_child, right_child, feat_nan_bin,
                         bins: torch.Tensor, depth: int,
-                        rules: RangeRules = None) -> torch.Tensor:
+                        rules: RangeRules = None, is_cat=None,
+                        cat_masks=None, nvalues: int = None) -> torch.Tensor:
     """Leaf per row of ONE tree over a row-major bin tensor (node arrays
     ``[N]`` of original features and thresholds); ``depth`` bounds the
     levels walked. Without ``rules``, ``bins`` is the plain ``[n, F]``
     matrix and ``feat_nan_bin`` its missing bins; with them (a bundled
-    ``[n, G]`` matrix), each node's ``(column, lo, hi, nan_pos)``."""
+    ``[n, G]`` matrix), each node's ``(column, lo, hi, nan_pos)``.
+    ``is_cat`` ``[N]`` bool marks categorical nodes, whose rows go left
+    where ``cat_masks`` ``[N, W]`` (bool, a tensor or array) holds their
+    local bin; ``nvalues`` is the count of values a column holds
+    (default ``W``)."""
     n = bins.shape[0]
     dev = bins.device
     if rules is None:
@@ -81,6 +94,14 @@ def predict_leaf_binned(split_feature, threshold_bin, default_left,
         for a in rules(np.asarray(split_feature, np.int64),
                        np.asarray(threshold_bin, np.int64)))
     dl = torch.as_tensor(default_left, device=dev).to(torch.bool)[None]
+    flat = None
+    if is_cat is not None and np.any(is_cat):
+        masks = torch.as_tensor(cat_masks, device=dev).to(torch.bool)
+        bits = rules.bitsets(np.asarray(split_feature, np.int64), masks,
+                             nvalues or masks.shape[1])
+        nbytes = bits.shape[1]
+        flat = bits.reshape(-1).to(torch.int64)
+        isc = torch.as_tensor(np.asarray(is_cat, bool), device=dev)[None]
     lc = torch.as_tensor(left_child, device=dev).to(torch.int64)[None]
     rc = torch.as_tensor(right_child, device=dev).to(torch.int64)[None]
     rows = torch.arange(n, device=dev)[None]
@@ -93,8 +114,13 @@ def predict_leaf_binned(split_feature, threshold_bin, default_left,
         v = src[rows, col.gather(1, cur)].to(torch.int64)
         if wide:
             v = v & 0xFFFF
-        return go_left(v, lo.gather(1, cur), hi.gather(1, cur),
-                       nan_pos.gather(1, cur), dl.gather(1, cur))
+        gl = go_left(v, lo.gather(1, cur), hi.gather(1, cur),
+                     nan_pos.gather(1, cur), dl.gather(1, cur))
+        if flat is None:
+            return gl
+        byte = flat[cur * nbytes + torch.clamp(v >> 3, max=nbytes - 1)]
+        member = (v < nbytes * 8) & (((byte >> (v & 7)) & 1) != 0)
+        return torch.where(isc.gather(1, cur), member, gl)
 
     return _walk(1, n, dev, decide, lc, rc, depth)[0]
 
@@ -116,8 +142,18 @@ def predict_leaf_raw(trees: StackedTrees, X: torch.Tensor) -> torch.Tensor:
                               torch.where(mt == MISSING_ZERO,
                                           is_zero | is_nan,
                                           torch.zeros_like(is_nan)))
-        return torch.where(missing, trees.default_left.gather(1, cur),
-                           v0 <= trees.threshold.gather(1, cur))
+        gl = torch.where(missing, trees.default_left.gather(1, cur),
+                         v0 <= trees.threshold.gather(1, cur))
+        if trees.is_categorical is None:
+            return gl
+        # membership of int(v) in the node's bitset
+        W = trees.cat_bitset.shape[2]
+        iv = torch.where(is_nan | (v < 0), -1.0, v).to(torch.int64)
+        word = torch.clamp(iv >> 5, 0, W - 1)
+        words = trees.cat_bitset.reshape(T, -1).gather(1, cur * W + word)
+        member = (iv >= 0) & ((iv >> 5) < W) & (((words >> (iv & 31)) & 1)
+                                                != 0)
+        return torch.where(trees.is_categorical.gather(1, cur), member, gl)
 
     return _walk(T, n, X.device, decide, trees.left_child,
                  trees.right_child, trees.depth)

@@ -1,8 +1,10 @@
 """Batch prediction from raw features.
 
 Counterpart of ``predict_any`` and ``convert_raw_scores`` in
-``lightgbm_tpu/prediction.py``, for forests of numerical splits with
-constant leaves: the forest is stacked into device tensors, every row
+``lightgbm_tpu/prediction.py``, for forests of numerical and categorical
+splits with constant leaves: the forest is stacked into device tensors
+(a categorical split's u32 bitset over category values padded to the
+forest's widest, ``[T, N, W]``), every row
 walks every tree (:func:`ops.predict.predict_leaf_raw`) in float32 —
 thresholds rounded down to float32 so that a float32 feature keeps its
 training-time side, as in the JAX package — tree ``i`` adds to class
@@ -48,10 +50,10 @@ def _tree_depth(t: Tree) -> int:
 def stack_trees(trees: List[Tree], device) -> StackedTrees:
     """Stack a forest into ``[T, ...]`` device tensors."""
     for t in trees:
-        if t.num_cat > 0 or t.is_linear:
+        if t.is_linear:
             raise NotImplementedError(
-                "categorical splits and linear leaves are not in the "
-                "port's predictor yet (ROADMAP.md Queue 1 items 13, 16)")
+                "linear leaves are not in the port's predictor yet "
+                "(ROADMAP.md Queue 1 item 16)")
     T = len(trees)
     N = max(1, max((t.num_nodes for t in trees), default=1))
     Lm = max((t.num_leaves for t in trees), default=1)
@@ -62,11 +64,21 @@ def stack_trees(trees: List[Tree], device) -> StackedTrees:
     lc = np.full((T, N), -1, np.int64)
     rc = np.full((T, N), -1, np.int64)
     lv = np.zeros((T, Lm), np.float64)
+    any_cat = any(t.num_cat > 0 for t in trees)
+    W = max((int(np.diff(t.cat_boundaries).max()) for t in trees
+             if t.num_cat > 0), default=1)
+    ic = np.zeros((T, N), bool)
+    bits = np.zeros((T, N, W), np.int64)
     for i, t in enumerate(trees):
         nn = t.num_nodes
         if nn > 0:
             sf[i, :nn] = t.split_feature
-            thr[i, :nn] = t.threshold
+            ic[i, :nn] = (t.decision_type & 1) != 0
+            thr[i, :nn] = np.where(ic[i, :nn], 0.0, t.threshold)
+            for node in np.nonzero(ic[i, :nn])[0]:
+                k = int(t.threshold[node])
+                a, b = t.cat_boundaries[k], t.cat_boundaries[k + 1]
+                bits[i, node, :b - a] = t.cat_threshold[a:b]
             dl[i, :nn] = (t.decision_type & 2) != 0
             mt[i, :nn] = (t.decision_type >> 2) & 3
             lc[i, :nn] = t.left_child
@@ -84,7 +96,39 @@ def stack_trees(trees: List[Tree], device) -> StackedTrees:
         split_feature=dev(sf), threshold=dev(thr32), default_left=dev(dl),
         missing_type=dev(mt), left_child=dev(lc), right_child=dev(rc),
         leaf_value=dev(lv.astype(np.float32)),
-        depth=max((_tree_depth(t) for t in trees), default=1))
+        depth=max((_tree_depth(t) for t in trees), default=1),
+        is_categorical=dev(ic) if any_cat else None,
+        cat_bitset=dev(bits) if any_cat else None)
+
+
+def _matrix(data, pandas_categorical) -> np.ndarray:
+    """A float64 matrix of the rows to predict: a pandas frame's
+    category columns become their codes (over the training frame's
+    categories when the model has them; NaN for a missing or unknown
+    value), as the JAX package's ``_extract_matrix`` does."""
+    try:
+        import pandas as pd
+    except ImportError:
+        pd = None
+    if pd is not None and isinstance(data, pd.DataFrame):
+        arrs, ci = [], 0
+        for col in data.columns:
+            s = data[col]
+            if isinstance(s.dtype, pd.CategoricalDtype):
+                if pandas_categorical is not None \
+                        and ci < len(pandas_categorical):
+                    s = s.cat.set_categories(pandas_categorical[ci])
+                ci += 1
+                codes = s.cat.codes.to_numpy().astype(np.float64)
+                codes[codes < 0] = np.nan
+                arrs.append(codes)
+            else:
+                arrs.append(s.to_numpy(dtype=np.float64, na_value=np.nan))
+        return np.column_stack(arrs) if arrs \
+            else np.zeros((len(data), 0))
+    if hasattr(data, "toarray"):
+        return np.asarray(data.todense(), np.float64)
+    return np.asarray(data, dtype=np.float64)
 
 
 def predict_any(booster, data, start_iteration: int = 0,
@@ -95,7 +139,7 @@ def predict_any(booster, data, start_iteration: int = 0,
         raise LightGBMError(
             "Cannot use Dataset instance for prediction, please use raw "
             "data instead")
-    X = np.asarray(data, dtype=np.float64)
+    X = _matrix(data, booster.pandas_categorical)
     if X.ndim == 1:
         X = X[None, :]
     n_feat = booster.num_feature()

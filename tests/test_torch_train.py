@@ -339,13 +339,14 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
 
 
 @pytest.mark.parametrize("params", [
-    {"path_smooth": 1.0},
+    {"monotone_constraints": [1, 0, 0],
+     "monotone_constraints_method": "intermediate"},
     {"cegb_penalty_split": 1.0},
     {"two_round": True},
     {"interaction_constraints": "[0,1]"},
     {"histogram_pool_size": 100.0},
     {"linear_tree": True},
-    {"monotone_constraints": [1, 0, 0]},
+    {"feature_contri": [1.0, 0.5, 1.0]},
     {"hist_method": "pallas"},
     {"reg_sqrt": True},
     {"nonfinite_policy": "clamp"},
