@@ -36,8 +36,9 @@ Phases, in order; any failure exits non-zero:
              rows at odd starts, u16 rows, u8 rows of 13 bytes, rows of
              1000 u16 bins; the range rule of EFB bundles (K2_RANGE_CASES:
              a direct split with a NaN bin, multi-member ranges with and
-             without a NaN position, both default directions, both
-             paths, f32 and int8 payloads, u16 rows); the membership
+             without a NaN position, both default directions, a forced
+             split on a bundled member, both paths, f32 and int8
+             payloads, u16 rows); the membership
              rule of categorical splits (K2_MEMBER_CASES: u8 and u16
              bitsets, bundled members, a set holding the NaN bin, both
              paths, f32 and int8); route_pair (K = 4096, NC = 3) equal
@@ -88,6 +89,20 @@ Phases, in order; any failure exits non-zero:
              noise), 1 warm-up + 3 timed iterations: renew_ms by CUDA
              events, held-out L1; against the plain twin the same root
              splits and L1 within 0.002 relative;
+6e. train_constrained — this slice's path on the same Dataset:
+             intermediate monotone constraints on features 0-3, float,
+             1 warm-up + 2 timed iterations (iter_s, idle share and
+             launches per split of one profiled iteration, leaves
+             re-searched per tree; the float64-sum twin's root splits and
+             AUC within 0.002; one quantized tree equal to its twin's);
+             advanced, quantized, one tree of 255 leaves equal to its
+             twin's (the bounds' chunk of leaves, peak memory, tree
+             seconds); interaction constraints (four groups of seven)
+             with three forced splits on group 0, one quantized tree
+             equal to its twin's, its first splits the forced ones, every
+             path inside one group; CEGB (split, coupled and lazy
+             penalties), two quantized trees and the lazy matrix equal to
+             the twin's; monotone sweeps of the monotone models;
 7. small runs — uint16 bins (max_bin=400) held to the float standard,
              a deterministic quantized run (200k x 28, no stochastic
              rounding) whose every tree equals its plain twin's, and
@@ -97,6 +112,12 @@ Phases, in order; any failure exits non-zero:
              equal to its float64-sum plain twin's, save/load/predict
              equal to the in-memory prediction; a quantized L1 run held
              tree for tree to its twin;
+7b. small constraint runs — intermediate and advanced monotone with
+             categorical features, intermediate bundled, a forced split
+             on a member of a multi-member bundle, interaction
+             constraints bundled, CEGB with bagging 0.8 (quantized, 2
+             trees of 63 leaves, each equal to its plain twin's,
+             save/load/predict; monotone sweeps);
 8. train_rank — lambdarank at the MS LTR shape (2.27M training rows x
              137 features in queries of ~120 documents, at most 1,251;
              10% more queries held out; 255 leaves, 255 bins): 1 warm-up
@@ -126,7 +147,13 @@ Phases, in order; any failure exits non-zero:
              timed iteration of 7 trees; every tree after drop and
              normalize identical to the float64-sum plain twin's, and the
              recorded multi_logloss equal;
-9c. train_allstate — EFB at full width: Allstate's shape (500,000 +
+9c. predict_breadth — pred_contrib on 10,000 held-out rows of train's
+             model and train_multiclass's (each row's contributions sum
+             to its raw score; 200 rows of the first iteration equal a
+             single-row TreeSHAP of the model text) and pred_early_stop
+             (a margin no row passes equals the full walk; the share of
+             rows stopped early and the time at the default margin);
+9d. train_allstate — EFB at full width: Allstate's shape (500,000 +
              50,000 rows x 4,228 features, 33 one-hot blocks of 128, NaN
              in column 0), binary, 255 leaves: construct and bundling
              seconds, G, B, peak device memory, iter_s, idle share, AUC;
@@ -134,7 +161,7 @@ Phases, in order; any failure exits non-zero:
              100,000 rows; against the float64-sum plain twin the same
              root split in every tree and AUC within 0.002; K1 and K2 at
              the bundled width;
-9d. train_airline — categorical splits at the airline benchmark's shape
+9e. train_airline — categorical splits at the airline benchmark's shape
              (10,000,000 + 500,000 rows x 8: six categoricals of 7 to
              ~300 categories, DepTime, Distance), binary, 255 leaves,
              1 warm-up + 3 timed iterations: construct_s, the bins per
@@ -145,12 +172,12 @@ Phases, in order; any failure exits non-zero:
              iteration tree for tree; raw predict equal to a numpy walk
              of the model text (100,000 held-out rows); K1 and K2 (its
              membership rule) at the airline root;
-9e. small categorical and monotone runs — one-hot categoricals, EFB with
+9f. small categorical and monotone runs — one-hot categoricals, EFB with
              categorical members, basic monotone constraints alone,
              with monotone_penalty and with path_smooth (quantized, 2
              trees of 63 leaves each, every tree equal to the plain
              twin's; monotone sweeps; save/load);
-9f. small rf and cv runs — a random forest (200k x 28, bagging 0.632, 3
+9g. small rf and cv runs — a random forest (200k x 28, bagging 0.632, 3
              iterations): save/load, its raw scores the mean of its
              iterations', the JAX package's average_output model
              (JAX_RF_MODEL) predicting JAX's numbers; cv (3 folds, 3
@@ -322,7 +349,8 @@ def _parse_model(text):
                   if "=" in ln)
         t = {"num_leaves": int(kv["num_leaves"])}
         for k in ("split_feature", "decision_type", "left_child",
-                  "right_child", "cat_boundaries", "cat_threshold"):
+                  "right_child", "cat_boundaries", "cat_threshold",
+                  "leaf_count", "internal_count"):
             if k in kv:
                 t[k] = np.asarray(kv[k].split(), np.int64)
         for k in ("threshold", "leaf_value"):
@@ -1074,6 +1102,13 @@ K2_RANGE_CASES = (
      (200, 254, 254, False)),
     ("range_direct_nan_stream", 1_500_001, FEATURES, BINS, "int8",
      (201, INT_MAX, 200, True)),
+    # a forced split on a member of a multi-member bundle (RangeRules of
+    # a member at offset 40 with 82 bins, its last the NaN bin, forced at
+    # t = 30: missing rows go right)
+    ("range_forced_member", 100_003, FEATURES, BINS, "int8",
+     (70, 120, 120, False)),
+    ("range_forced_member_stream", 1_500_001, FEATURES, BINS, "f32",
+     (70, 120, 120, False)),
     ("range_multi_u16", 70_001, 9, 300, "int8", (100, 280, 280, False)),
     ("range_multi_u16_stream", 2_000_003, 9, 300, "f32",
      (100, 280, -1, True)))
@@ -1918,8 +1953,10 @@ def phase_train(torch, lgb, dev, n_train, iters, reps, parent):
     if r_k != r_p:
         raise AssertionError("the first tree's root split differs from "
                              "the plain run's")
+    model_str = r["bst"].model_to_string()
     del r["bst"], bst_p
     return dict(r, auc_plain=auc_p, construct_s=construct_s, profile=prof,
+                model_str=model_str,
                 ds=ds, Xv=Xv, yv=yv, turns=turns, k2_turns=k2_turns,
                 Xt=Xt, target=target[:n_train],
                 target_valid=target[n_train:])
@@ -1936,7 +1973,7 @@ def phase_train_quant(torch, lgb, dev, tr, iters):
               "seed": 0, "device_type": dev.type}
     r = _drive(torch, lgb, dev, params, ds, Xv, yv, iters, "train_quant")
     _check_counts("train_quant", r["counts"], r["leaves"], "hist_int")
-    prof = profile_iteration(torch, r["bst"])
+    prof = profile_iteration(torch, r["bst"], host=False)
 
     # the twin: the same seed, so the same rounding draws, and int32
     # histograms that are exact in any order
@@ -2356,7 +2393,7 @@ def phase_train_rank(torch, lgb, dev, iters):
     r = _drive(torch, lgb, dev, params, ds, Xv, yv, iters, "train_rank",
                scorer, after_warmup)
     _check_counts("train_rank", r["counts"], r["leaves"], "hist")
-    prof = profile_iteration(torch, r["bst"])
+    prof = profile_iteration(torch, r["bst"], host=False)
     bst_p, m_p = _plain_twin(torch, lgb, dev, params, ds, Xv, yv, 1 + iters,
                              "train_rank", scorer)
     r_k, r_p = _root_split(r["bst"]), _root_split(bst_p)
@@ -2459,6 +2496,7 @@ def phase_train_multiclass(torch, lgb, dev, iters, reps):
             f"within 0.002 of the plain run's {m_p['multi_logloss']}")
     # one iteration unbundled, against the bundled run's first
     ll_b1 = scorer(r["bst"].predict(Xv, num_iteration=1))["multi_logloss"]
+    model_str = r["bst"].model_to_string()
     del r["bst"], bst_p, bst_f
     _reset_counts()
     torch.cuda.synchronize()
@@ -2525,7 +2563,7 @@ def phase_train_multiclass(torch, lgb, dev, iters, reps):
                 multi_logloss_plain_f32=m_f["multi_logloss"],
                 f32_drift=f32_drift, construct_s=construct_s, profile=prof,
                 variants=variants, ds=ds, Xv=Xv, yv=yv, scorer=scorer,
-                params=params, bundles=bundles,
+                params=params, bundles=bundles, model_str=model_str,
                 unbundled=dict(counts=counts_u, roots=roots_u,
                                train_s=train_s_u,
                                multi_logloss=ll_u,
@@ -2657,7 +2695,7 @@ def phase_train_valid(torch, lgb, dev, tr, iters):
                    torch.as_tensor(yv, device=dev))
     auc_rec = ev["valid"]["auc"][-1]
     score_ms, metric_ms = _eval_ms(torch, bst)
-    prof = profile_iteration(torch, bst)
+    prof = profile_iteration(torch, bst, host=False)
     log(f"[train_valid] valid set {len(yv)} rows binned with the train "
         f"set's mappers in {valid_construct_s:.3f} s; iter_s="
         f"{[round(x, 4) for x in iter_s]} (the warm-up first; each with "
@@ -2738,7 +2776,7 @@ def phase_train_goss(torch, lgb, dev, tr, iters):
                 or not 0.19 * n <= s_["weight_one"] <= 0.25 * n:
             raise AssertionError(f"train_goss: iteration {s_} does not "
                                  "keep its top rows and sampled rest")
-    prof = profile_iteration(torch, r["bst"])
+    prof = profile_iteration(torch, r["bst"], host=False)
     # the twin's float histograms sum in float64: GOSS weights its
     # sampled rows by 8, and float32 atomics over such windows drift
     # (see exact_float_sums), while the rows GOSS keeps depend on every
@@ -3128,7 +3166,7 @@ def phase_train_airline(torch, lgb, dev, n_train, iters, reps):
     shares = tally.shares()
     log(f"[train_airline] splits by family: {json.dumps(shares)} "
         f"membership launches={r['counts']['partition_member']}")
-    prof = profile_iteration(torch, r["bst"])
+    prof = profile_iteration(torch, r["bst"], host=False)
     bst = r["bst"]
     # raw predictions against a numpy walk of the saved model text
     n_walk = 100_000
@@ -3348,6 +3386,492 @@ def phase_small_categorical(torch, lgb, dev):
 
 def _root_split_of(tree):
     return int(tree.split_feature[0]), int(tree.threshold_bin[0])
+
+
+def _monotone_sweep(bst, X, mono, rows=1000, points=40):
+    """The largest step against a constraint when each constrained
+    feature of ``mono`` ({feature: sign}) sweeps ``points`` quantiles of
+    its range on ``rows`` rows with the others fixed (0 or positive:
+    monotone)."""
+    base = X[:rows].copy()
+    worst = 0.0
+    for f, sign in mono.items():
+        grid = np.quantile(X[:, f], np.linspace(0.0, 1.0, points))
+        preds = []
+        for g in grid:
+            base[:, f] = g
+            preds.append(bst.predict(base, raw_score=True))
+        base[:, f] = X[:rows, f]
+        steps = sign * np.diff(np.stack(preds), axis=0)
+        worst = min(worst, float(steps.min()))
+    return worst
+
+
+def _twin_trees(torch, lgb, dev, tag, params, ds, rounds, hist_key):
+    """``rounds`` trees with the kernels, launch counts from 0, and the
+    same training with the plain kernels: every tree equal to the
+    twin's, leaf values included. Returns the booster, the twin and the
+    counts."""
+    from lightgbm_tpu_torch.ops.histogram import plain_kernels
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    bst = lgb.train(params, ds, rounds)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = _read_counts()
+    leaves = [t.num_leaves for t in bst._models]
+    _check_counts(tag, counts, leaves, hist_key)
+    with plain_kernels():
+        ref = lgb.train(params, ds, rounds)
+    same = [int(_same_trees([a], [b], True))
+            for a, b in zip(bst._models, ref._models)]
+    log(f"[{tag}] {rounds} trees of {leaves} leaves in {train_s:.2f} s, "
+        f"launches={json.dumps(counts)}, trees identical to the plain "
+        f"run's: {same}")
+    if len(same) != rounds or not all(same):
+        raise AssertionError(f"{tag}: trees differ from the plain run's")
+    return bst, ref, dict(counts=counts, leaves=leaves, train_s=train_s)
+
+
+def _paths_in_groups(tree, groups):
+    """Whether every root-to-leaf path of ``tree`` uses features of one
+    group only."""
+    sets = [set(g) for g in groups]
+    stack = [(0, frozenset())]
+    while stack:
+        node, used = stack.pop()
+        if node < 0:
+            if not any(used <= g for g in sets):
+                return False
+            continue
+        u = used | {int(tree.split_feature[node])}
+        stack += [(int(tree.left_child[node]), u),
+                  (int(tree.right_child[node]), u)]
+    return True
+
+
+ADVANCED_LEAVES = 255
+ADVANCED_MAX_S = 60.0
+
+
+def phase_train_constrained(torch, lgb, dev, tr, iters):
+    """This slice's path at full width, on ``train``'s Dataset (10.5M +
+    500k held-out rows x 28, binary, 255 leaves, 255 bins):
+
+    - ``intermediate`` monotone constraints on features 0-3 (``MONO``),
+      float gradients, 1 warm-up + ``iters`` timed iterations: iter_s,
+      one profiled iteration (idle share, launches per split), leaves
+      re-searched per tree; against the float64-sum plain twin the same
+      root split in every tree and AUC within 0.002; one quantized tree
+      equal to its twin's;
+    - ``advanced``, quantized, one tree of ``ADVANCED_LEAVES`` leaves
+      equal to its twin's: the chunk of queried leaves, peak device
+      memory and the tree's seconds;
+    - ``interaction_forced``: quantized, one tree, four interaction
+      groups of seven features and a forced-split JSON of three nodes on
+      group 0 (the root and both children at the features' medians):
+      the tree equal to its twin's, its first three splits the forced
+      ones, every root-to-leaf path inside one group;
+    - ``cegb``: quantized, two trees (the state carries across them),
+      ``cegb_penalty_split`` 1e-6, coupled penalties on features 4-7
+      and lazy ones on 8-11: both trees and the lazy matrix equal to the
+      twin's; the lazy matrix's bytes.
+
+    The intermediate and advanced models sweep each constrained feature
+    over 40 values on 1,000 held-out rows: no step against a
+    constraint."""
+    ds, Xv, yv = tr["ds"], tr["Xv"], tr["yv"]
+    mc = [MONO.get(j, 0) for j in range(FEATURES)]
+    base = {"objective": "binary", "num_leaves": 255, "max_bin": BINS,
+            "learning_rate": 0.1, "verbosity": -1, "device_type": dev.type}
+    quant = {"use_quantized_grad": True, "stochastic_rounding": False}
+    out = {}
+    # -- intermediate, float gradients --
+    params = dict(base, monotone_constraints=mc,
+                  monotone_constraints_method="intermediate")
+    r = _drive(torch, lgb, dev, params, ds, Xv, yv, iters,
+               "train_intermediate")
+    _check_counts("train_intermediate", r["counts"], r["leaves"], "hist")
+    grower = r["bst"]._engine.grower
+    researched = grower.researched / max(1, len(r["leaves"]))
+    grower.researched = 0
+    prof = profile_iteration(torch, r["bst"], host=False)
+    splits = r["bst"]._models[-1].num_leaves - 1
+    per_split = prof["launches"] / max(1, splits)
+    worst = _monotone_sweep(r["bst"], Xv, MONO)
+    with exact_float_sums(torch):
+        bst_p, m_p = _plain_twin(torch, lgb, dev, params, ds, Xv, yv,
+                                 1 + iters, "train_intermediate")
+    roots_k = [_root_split_of(t) for t in r["bst"]._models[:1 + iters]]
+    roots_p = [_root_split_of(t) for t in bst_p._models]
+    log(f"[train_intermediate] leaves re-searched per tree {researched:.1f}"
+        f"; profiled iteration: {prof['launches']} device events over "
+        f"{splits} splits ({per_split:.1f} per split), idle share "
+        f"{prof['idle_share']}; root splits kernel={roots_k} plain="
+        f"{roots_p}; auc={r['auc']:.6f} plain={m_p['auc']:.6f}; monotone "
+        f"sweep: largest step against a constraint {worst:.3g}")
+    if roots_k != roots_p:
+        raise AssertionError("train_intermediate: root splits differ from "
+                             "the plain run's")
+    if abs(r["auc"] - m_p["auc"]) > 0.002:
+        raise AssertionError(f"train_intermediate: AUC {r['auc']} not "
+                             f"within 0.002 of the plain run's {m_p['auc']}")
+    if worst < -1e-6:
+        raise AssertionError("train_intermediate: predictions are not "
+                             "monotone")
+    del r["bst"], bst_p
+    out["intermediate"] = dict(r, auc_plain=m_p["auc"], profile=prof,
+                               researched_per_tree=researched,
+                               launches_per_split=per_split,
+                               worst_step=worst)
+    _, _, q = _twin_trees(torch, lgb, dev, "train_intermediate_quant",
+                          dict(params, **quant), ds, 1, "hist_int")
+    out["intermediate_quant"] = q
+    # -- advanced, quantized, one tree --
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = dict(base, **quant, monotone_constraints=mc,
+                  num_leaves=ADVANCED_LEAVES,
+                  monotone_constraints_method="advanced")
+    bst, _, a = _twin_trees(torch, lgb, dev, "train_advanced", params, ds, 1,
+                            "hist_int")
+    peak = torch.cuda.max_memory_allocated()
+    worst = _monotone_sweep(bst, Xv, MONO)
+    chunk = bst._engine.grower.adv_chunk
+    log(f"[train_advanced] one tree of {ADVANCED_LEAVES} leaves: "
+        f"tree_s={a['train_s']:.2f} bounds chunk={chunk} leaves "
+        f"peak_mem_bytes={peak}; monotone sweep: largest step against a "
+        f"constraint {worst:.3g}")
+    if worst < -1e-6:
+        raise AssertionError("train_advanced: predictions are not monotone")
+    if a["train_s"] > ADVANCED_MAX_S:
+        log(f"[train_advanced] the tree took more than {ADVANCED_MAX_S} s")
+    out["advanced"] = dict(a, chunk=chunk, peak=peak, worst_step=worst)
+    del bst
+    # -- interaction constraints and forced splits, quantized, one tree --
+    groups = [list(range(7 * g, 7 * g + 7)) for g in range(4)]
+    Xt = tr["Xt"]
+    med = [float(np.median(Xt[:200_000, j])) for j in range(3)]
+    forced = {"feature": 0, "threshold": med[0],
+              "left": {"feature": 1, "threshold": med[1]},
+              "right": {"feature": 2, "threshold": med[2]}}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "forced.json")
+        with open(path, "w") as fh:
+            json.dump(forced, fh)
+        params = dict(base, **quant, interaction_constraints=groups,
+                      forcedsplits_filename=path)
+        bst, _, c = _twin_trees(torch, lgb, dev, "train_interaction_forced",
+                                params, ds, 1, "hist_int")
+    t = bst._models[0]
+    want_bins = [int(ds.mappers[j].value_to_bin(np.asarray([med[j]]))[0])
+                 for j in range(3)]
+    got = [(int(t.split_feature[i]), int(t.threshold_bin[i]))
+           for i in range(3)]
+    in_groups = _paths_in_groups(t, groups)
+    log(f"[train_interaction_forced] first splits {got} (forced "
+        f"{list(zip(range(3), want_bins))}), every path inside one group: "
+        f"{in_groups}")
+    if got != list(zip(range(3), want_bins)) or not in_groups:
+        raise AssertionError("train_interaction_forced: forced splits or "
+                             "interaction groups not kept")
+    out["interaction_forced"] = c
+    del bst
+    # -- CEGB, quantized, two trees --
+    coupled = [0.0] * FEATURES
+    lazy = [0.0] * FEATURES
+    for j in range(4, 8):
+        coupled[j] = 50.0
+    for j in range(8, 12):
+        lazy[j] = 1e-6
+    params = dict(base, **quant, cegb_penalty_split=1e-6,
+                  cegb_penalty_feature_coupled=coupled,
+                  cegb_penalty_feature_lazy=lazy)
+    bst, ref, c = _twin_trees(torch, lgb, dev, "train_cegb", params, ds, 2,
+                              "hist_int")
+    st, st_p = bst._engine.cegb_state, ref._engine.cegb_state
+    same_lazy = bool(torch.equal(st.lazy_used, st_p.lazy_used))
+    lazy_bytes = st.lazy_used.numel() * st.lazy_used.element_size()
+    used = np.nonzero(st.coupled_host)[0].tolist()
+    log(f"[train_cegb] coupled features used {used}, lazy bits set "
+        f"{int(st.lazy_used.sum())} (equal to the "
+        f"plain run's: {same_lazy}), lazy matrix {lazy_bytes} bytes")
+    if not same_lazy or not np.array_equal(st.coupled_host,
+                                           st_p.coupled_host):
+        raise AssertionError("train_cegb: CEGB state differs from the plain "
+                             "run's")
+    out["cegb"] = dict(c, lazy_bytes=lazy_bytes)
+    del bst, ref
+    return out
+
+
+def phase_small_constraints(torch, lgb, dev):
+    """Correctness runs (not timed, quantized, 2 trees of 63 leaves, each
+    equal to its plain twin's, save/load/predict equal, :func:`_small_run`)
+    on ``small_categorical``'s data: 200,000 rows of 12 sparse
+    categoricals in three exclusive blocks beside 4 dense features, and
+    200,000 x 28 Higgs-shaped rows. Intermediate and advanced monotone
+    with the categoricals (unbundled), intermediate bundled, a forced
+    split on a member of a multi-member bundle (the sparse columns as
+    numbers), interaction constraints bundled, CEGB with bagging 0.8.
+    Monotone runs sweep their constrained features."""
+    out = {}
+    base = {"objective": "binary", "num_leaves": 63, "max_bin": BINS,
+            "verbosity": -1, "device_type": dev.type}
+    rs = np.random.RandomState(21)
+    n = 200_000
+    rs.randint(0, 4, (n, 3))
+    rs.randn(n, 2)
+    rs.rand(n)
+    Xe = np.zeros((n, 16), np.float32)
+    Xe[:, 12:] = rs.randn(n, 4)
+    for blk in range(3):
+        col = 4 * blk + rs.randint(0, 4, n)
+        on = rs.rand(n) < 0.12
+        Xe[np.nonzero(on)[0], col[on]] = rs.randint(1, 4, int(on.sum()))
+    logit = Xe[:, 12] - 0.5 * Xe[:, 13] + 0.8 * (Xe[:, 1] == 2) \
+        - 0.8 * (Xe[:, 6] == 3) + 0.6 * (Xe[:, 9] == 1)
+    ye = (rs.rand(n) < 1 / (1 + np.exp(-logit))).astype(np.float64)
+    mono_e = {12: 1, 13: -1}
+    mc_e = [mono_e.get(j, 0) for j in range(16)]
+    cats = list(range(12))
+    runs = (
+        ("small_intermediate_cat", Xe, ye, mono_e,
+         dict(categorical_feature=cats, enable_bundle=False,
+              monotone_constraints=mc_e,
+              monotone_constraints_method="intermediate")),
+        ("small_advanced_cat", Xe, ye, mono_e,
+         dict(categorical_feature=cats, enable_bundle=False,
+              monotone_constraints=mc_e,
+              monotone_constraints_method="advanced")),
+        ("small_intermediate_bundled", Xe, ye, mono_e,
+         dict(categorical_feature=cats, monotone_constraints=mc_e,
+              monotone_constraints_method="intermediate")),
+        ("small_interaction_bundled", Xe, ye, {},
+         dict(interaction_constraints=[[0, 1, 2, 3, 12, 13],
+                                       list(range(4, 12)) + [14, 15]])),
+    )
+    for name, X, y, mono, extra in runs:
+        bst, ds, counts = _small_run(torch, lgb, dev, name,
+                                     dict(base, **extra), X, y)
+        res = dict(counts=counts)
+        if mono:
+            res["worst_step"] = worst = _monotone_sweep(bst, X, mono)
+            log(f"[{name}] monotone sweep: largest step against a "
+                f"constraint {worst:.3g}")
+            if worst < -1e-6:
+                raise AssertionError(f"{name}: predictions are not monotone")
+        if name == "small_intermediate_bundled" and ds.bundles(
+                _config(base, extra)) is None:
+            raise AssertionError(f"{name}: nothing bundled")
+        out[name] = res
+    # a forced split on a member of a multi-member bundle
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "forced.json")
+        with open(path, "w") as fh:
+            json.dump({"feature": 1, "threshold": 1.5,
+                       "left": {"feature": 12, "threshold": 0.0},
+                       "right": {"feature": 6, "threshold": 2.5}}, fh)
+        extra = dict(forcedsplits_filename=path)
+        bst, ds, counts = _small_run(torch, lgb, dev, "small_forced_member",
+                                     dict(base, **extra), Xe, ye)
+    info = ds.bundles(_config(base, extra))
+    first = [[int(t.split_feature[i]) for i in range(3)]
+             for t in bst._models]
+    log(f"[small_forced_member] feature 1 bundled with "
+        f"{info.groups[int(info.bundle_of[1])]}; first splits {first}")
+    if info.is_direct[1] or info.is_direct[6] \
+            or any(f != [1, 12, 6] for f in first):
+        raise AssertionError("small_forced_member: the forced splits are "
+                             "not on bundled members")
+    out["small_forced_member"] = dict(counts=counts)
+    # CEGB with bagging
+    Xm, ym = make_higgs_like(n, FEATURES, seed=4)
+    lazy = [0.0] * FEATURES
+    lazy[5] = lazy[9] = 2e-5
+    coupled = [0.0] * FEATURES
+    coupled[2] = coupled[7] = 5.0
+    extra = dict(bagging_fraction=0.8, bagging_freq=1,
+                 cegb_penalty_split=2e-5, cegb_penalty_feature_lazy=lazy,
+                 cegb_penalty_feature_coupled=coupled)
+    bst, ds, counts = _small_run(torch, lgb, dev, "small_cegb_bagged",
+                                 dict(base, **extra), Xm, ym)
+    out["small_cegb_bagged"] = dict(counts=counts)
+    return out
+
+
+def _config(base, extra):
+    from lightgbm_tpu_torch.config import Config
+    return Config.from_params(dict(base, **extra))
+
+
+def _shap_oracle(tree, x):
+    """TreeSHAP of one row through one parsed tree (``_parse_model``'s
+    dict), the textbook single-row recursion (Lundberg et al. 2018,
+    Algorithm 2) with LightGBM's decisions, in Python floats:
+    ``[F + 1]`` with the expected value last."""
+    F = len(x)
+    phi = np.zeros(F + 1)
+    sf, thr, dt = tree["split_feature"], tree["threshold"], \
+        tree["decision_type"]
+    lc, rc = tree["left_child"], tree["right_child"]
+    lv, lcnt, icnt = tree["leaf_value"], tree["leaf_count"], \
+        tree["internal_count"]
+
+    def count(node):
+        return float(lcnt[~node]) if node < 0 else float(icnt[node])
+
+    def goes_left(node):
+        v = x[sf[node]]
+        d = int(dt[node])
+        mt = (d >> 2) & 3
+        if np.isnan(v) and mt != 2:
+            v = 0.0
+        if (mt == 2 and np.isnan(v)) or (mt == 1 and abs(v) <= 1e-35):
+            return bool(d & 2)
+        return v <= thr[node]
+
+    def extend(path, zero, one, feat):
+        path = [list(e) for e in path] + [[feat, zero, one,
+                                           1.0 if not path else 0.0]]
+        d = len(path) - 1
+        for i in range(d - 1, -1, -1):
+            path[i + 1][3] += one * path[i][3] * (i + 1) / (d + 1)
+            path[i][3] = zero * path[i][3] * (d - i) / (d + 1)
+        return path
+
+    def unwind(path, idx):
+        d = len(path) - 1
+        one, zero = path[idx][2], path[idx][1]
+        nxt = path[d][3]
+        path = [list(e) for e in path]
+        for i in range(d - 1, -1, -1):
+            if one != 0:
+                tmp = path[i][3]
+                path[i][3] = nxt * (d + 1) / ((i + 1) * one)
+                nxt = tmp - path[i][3] * zero * (d - i) / (d + 1)
+            else:
+                path[i][3] = path[i][3] * (d + 1) / (zero * (d - i))
+        for i in range(idx, d):
+            path[i][0:3] = path[i + 1][0:3]
+        return path[:-1]
+
+    def unwound_sum(path, idx):
+        d = len(path) - 1
+        one, zero = path[idx][2], path[idx][1]
+        nxt, total = path[d][3], 0.0
+        for i in range(d - 1, -1, -1):
+            if one != 0:
+                tmp = nxt * (d + 1) / ((i + 1) * one)
+                total += tmp
+                nxt = path[i][3] - tmp * zero * (d - i) / (d + 1)
+            else:
+                total += path[i][3] / (zero * (d - i) / (d + 1))
+        return total
+
+    def recurse(node, path, zero, one, feat):
+        path = extend(path, zero, one, feat)
+        if node < 0:
+            for i in range(1, len(path)):
+                w = unwound_sum(path, i)
+                phi[path[i][0]] += w * (path[i][2] - path[i][1]) \
+                    * lv[~node]
+            return
+        f = int(sf[node])
+        hot, cold = (lc[node], rc[node]) if goes_left(node) \
+            else (rc[node], lc[node])
+        w = count(node)
+        iz, io = 1.0, 1.0
+        for k in range(1, len(path)):
+            if path[k][0] == f:
+                iz, io = path[k][1], path[k][2]
+                path = unwind(path, k)
+                break
+        recurse(int(hot), path, count(int(hot)) / w * iz, io, f)
+        recurse(int(cold), path, count(int(cold)) / w * iz, 0.0, f)
+
+    if len(lv) == 1:
+        phi[F] = lv[0]
+        return phi
+    if np.any(np.asarray(dt) & 1):
+        raise ValueError("the oracle walks numerical splits only")
+    recurse(0, [], 1.0, 1.0, -1)
+    phi[F] = float(np.sum(np.asarray(lv) * np.asarray(lcnt))) / icnt[0]
+    return phi
+
+
+CONTRIB_ROWS = 10_000
+ORACLE_ROWS = 200
+
+
+def phase_predict_breadth(torch, lgb, dev, models):
+    """``pred_contrib`` and ``pred_early_stop`` on the boosters of
+    ``train`` (4 trees of 255 leaves) and ``train_multiclass`` (2
+    iterations of 7 trees), loaded from their model texts; ``models``:
+    ``{tag: (model text, held-out rows)}``. Contributions on
+    ``CONTRIB_ROWS`` held-out rows sum per row to the raw prediction
+    (1e-4 relative), and the first iteration's contributions of
+    ``ORACLE_ROWS`` rows equal :func:`_shap_oracle` over the parsed text
+    (1e-9); early stopping at a margin no row passes equals the full
+    walk, and at the default margin (and 0.5), freq 1, the share of rows
+    stopped early and the time against the full walk."""
+    out = {}
+    for tag, (text, Xv) in models.items():
+        bst = lgb.Booster(model_str=text, params={"device_type": dev.type})
+        K = bst.num_model_per_iteration()
+        F = bst.num_feature()
+        X = Xv[:CONTRIB_ROWS].astype(np.float64)
+        t0 = time.perf_counter()
+        contrib = bst.predict(X, pred_contrib=True)
+        contrib_s = time.perf_counter() - t0
+        raw = bst.predict(X, raw_score=True).reshape(len(X), K)
+        sums = contrib.reshape(len(X), K, F + 1).sum(axis=2)
+        rel = float(np.max(np.abs(sums - raw) / np.maximum(np.abs(raw),
+                                                             1.0)))
+        trees = _parse_model(text)
+        one = bst.predict(X[:ORACLE_ROWS], pred_contrib=True,
+                          num_iteration=1)
+        want = np.zeros_like(one)
+        for i in range(ORACLE_ROWS):
+            for k in range(K):
+                want[i, k * (F + 1):(k + 1) * (F + 1)] = _shap_oracle(
+                    trees[k], X[i])
+        oracle_err = float(np.max(np.abs(one - want)))
+        full_t0 = time.perf_counter()
+        full = bst.predict(X, raw_score=True)
+        full_s = time.perf_counter() - full_t0
+        never = bst.predict(X, raw_score=True, pred_early_stop=True,
+                            pred_early_stop_margin=1e30)
+        equal = bool(np.array_equal(never, full))
+        stopped = {}
+        for margin in (10.0, 0.5):
+            t0 = time.perf_counter()
+            es = bst.predict(X, raw_score=True, pred_early_stop=True,
+                             pred_early_stop_freq=1,
+                             pred_early_stop_margin=margin)
+            es_s = time.perf_counter() - t0
+            stopped[margin] = dict(
+                share=float(np.mean(np.any(
+                    np.reshape(es != full, (len(X), -1)), axis=1))),
+                seconds=es_s)
+        log(f"[predict_breadth] {tag}: K={K} pred_contrib on {len(X)} rows "
+            f"{contrib_s:.2f} s, sum against raw max rel err {rel:.3g}; "
+            f"{ORACLE_ROWS} rows of the first iteration against the "
+            f"oracle max abs err {oracle_err:.3g}; early stop at margin "
+            f"1e30 equal to the full walk: {equal}; freq 1: "
+            + "; ".join(f"margin {m}: {v['share']:.4f} of rows stopped "
+                        f"early, {v['seconds']:.4f} s" for m, v in
+                        stopped.items())
+            + f" (full walk {full_s:.4f} s)")
+        if rel > 1e-4 or oracle_err > 1e-9 or not equal \
+                or contrib.shape != (len(X), K * (F + 1)):
+            raise AssertionError(f"predict_breadth {tag}: contributions or "
+                                 "early-stopped scores are wrong")
+        out[tag] = dict(contrib_s=contrib_s, sum_rel_err=rel,
+                        oracle_err=oracle_err, early_stop=stopped,
+                        full_s=full_s)
+    return out
 
 
 def phase_train_regression(torch, lgb, dev, tr, iters):
@@ -3629,13 +4153,17 @@ def main(argv=None):
     tg = phase_train_goss(torch, lgb, dev, tr, min(args.iters, 3))
     done("train_goss")
     trg = phase_train_regression(torch, lgb, dev, tr, min(args.iters, 3))
+    done("train_regression")
+    tc = phase_train_constrained(torch, lgb, dev, tr, min(args.iters, 2))
     for key in ("ds", "Xt", "target", "target_valid"):
         del tr[key]
-    done("train_regression")
+    done("train_constrained")
     phase_train_u16(torch, lgb, dev)
     phase_train_quant_small(torch, lgb, dev)
     small = phase_small_objectives(torch, lgb, dev)
     done("small runs")
+    scons = phase_small_constraints(torch, lgb, dev)
+    done("small constraint runs")
     trr = phase_train_rank(torch, lgb, dev, min(args.iters, 3))
     done("train_rank")
     trm = phase_train_multiclass(torch, lgb, dev, min(args.iters, 1),
@@ -3645,6 +4173,10 @@ def main(argv=None):
                                       min(args.iters, 1))
     del trm["ds"]
     done("train_multiclass_dart")
+    phase_predict_breadth(torch, lgb, dev, {
+        "train": (tr["model_str"], tr["Xv"]),
+        "train_multiclass": (trm["model_str"], trm["Xv"])})
+    done("predict_breadth")
     tas = phase_train_allstate(torch, lgb, dev, args.allstate_rows,
                                min(args.iters, 1), args.reps)
     done("train_allstate")
@@ -3703,7 +4235,16 @@ def main(argv=None):
                 "small_objectives": sum(v["counts"][key]
                                         for v in small.values()),
                 "small_categorical": sum(v["counts"][key]
-                                         for v in sc.values())}
+                                         for v in sc.values()),
+                "train_intermediate": tc["intermediate"]["counts"][key],
+                "train_intermediate_quant":
+                    tc["intermediate_quant"]["counts"][key],
+                "train_advanced": tc["advanced"]["counts"][key],
+                "train_interaction_forced":
+                    tc["interaction_forced"]["counts"][key],
+                "train_cegb": tc["cegb"]["counts"][key],
+                "small_constraints": sum(v["counts"][key]
+                                         for v in scons.values())}
 
     # the rungs at the bundled widths join each kernel's ladder
     for key, shapes in (("k1", k1), ("k1_int", k1i), ("k2", k2)):

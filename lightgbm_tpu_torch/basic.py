@@ -575,16 +575,17 @@ class Booster:
                 num_iteration: Optional[int] = None,
                 raw_score: bool = False, pred_leaf: bool = False,
                 pred_contrib: bool = False, **kwargs) -> np.ndarray:
-        if pred_contrib or kwargs.get("pred_early_stop"):
-            raise NotImplementedError(
-                "pred_contrib and pred_early_stop are not in the port yet "
-                "(ROADMAP.md Queue 1 item 17)")
         from .prediction import predict_any
         if num_iteration is None:
             num_iteration = self.best_iteration \
                 if self.best_iteration > 0 else -1
-        return predict_any(self, data, start_iteration, num_iteration,
-                           raw_score, pred_leaf)
+        return predict_any(
+            self, data, start_iteration, num_iteration, raw_score,
+            pred_leaf, pred_contrib,
+            pred_early_stop=bool(kwargs.get("pred_early_stop", False)),
+            pred_early_stop_freq=int(kwargs.get("pred_early_stop_freq", 10)),
+            pred_early_stop_margin=float(kwargs.get(
+                "pred_early_stop_margin", 10.0)))
 
     # -- model io -------------------------------------------------------
     def model_to_string(self, num_iteration: Optional[int] = None,

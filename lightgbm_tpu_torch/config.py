@@ -184,12 +184,6 @@ _TPU_KNOB = "a TPU layout knob of the JAX package with no counterpart " \
 
 # parameter -> (its JAX default, what brings it)
 NOT_IMPLEMENTED: Dict[str, tuple] = {
-    "feature_contri": ([], _Q1.format(13)),
-    "forcedsplits_filename": ("", _Q1.format(13)),
-    "cegb_penalty_split": (0.0, _Q1.format(13)),
-    "cegb_penalty_feature_lazy": ([], _Q1.format(13)),
-    "cegb_penalty_feature_coupled": ([], _Q1.format(13)),
-    "interaction_constraints": ("", _Q1.format(13)),
     "linear_tree": (False, _Q1.format(16)),
     "histogram_pool_size": (-1.0, _Q1.format(16)),
     "grower": ("compact", _Q1.format(16)),
@@ -363,12 +357,25 @@ class Config:
     cat_l2: float = 10.0
     cat_smooth: float = 10.0
     max_cat_to_onehot: int = 4
-    # monotone constraints ("basic" only; intermediate and advanced are
-    # ROADMAP.md Queue 1 item 13) and leaf-output smoothing
+    # monotone constraints (basic, intermediate, advanced) and
+    # leaf-output smoothing
     monotone_constraints: List[int] = field(default_factory=list)
     monotone_constraints_method: str = "basic"
     monotone_penalty: float = 0.0
     path_smooth: float = 0.0
+    # interaction constraints: a list of lists of feature indices or
+    # names, or its string form ("[0,1],[2,3]" or "[[0,1],[2,3]]")
+    interaction_constraints: Any = ""
+    # LightGBM's forced-split JSON
+    forcedsplits_filename: str = ""
+    # cost-effective gradient boosting (any penalty, or a tradeoff below
+    # 1, turns it on)
+    cegb_tradeoff: float = 1.0
+    cegb_penalty_split: float = 0.0
+    cegb_penalty_feature_lazy: List[float] = field(default_factory=list)
+    cegb_penalty_feature_coupled: List[float] = field(default_factory=list)
+    # accepted and read by nothing, as in the JAX package
+    feature_contri: List[float] = field(default_factory=list)
     num_class: int = 1
     is_unbalance: bool = False
     scale_pos_weight: float = 1.0
@@ -490,19 +497,16 @@ class Config:
             raise ValueError(
                 "Cannot set is_unbalance and scale_pos_weight at the same "
                 "time")
-        if self.monotone_constraints_method in ("intermediate",
-                                                "advanced"):
-            raise NotImplementedError(
-                f"monotone_constraints_method="
-                f"{self.monotone_constraints_method!r} is not in the port "
-                f"yet ({_Q1.format(13)}); 'basic' is")
-        if self.monotone_constraints_method != "basic":
+        if self.monotone_constraints_method not in (
+                "basic", "intermediate", "advanced"):
             raise ValueError(
                 f"Unknown monotone_constraints_method: "
                 f"{self.monotone_constraints_method}")
 
     _LIST_INT = {"eval_at", "max_bin_by_feature", "monotone_constraints"}
-    _LIST_FLOAT = {"label_gain", "auc_mu_weights"}
+    _LIST_FLOAT = {"feature_contri", "label_gain", "auc_mu_weights",
+                   "cegb_penalty_feature_lazy",
+                   "cegb_penalty_feature_coupled"}
     _LIST_STR = {"valid", "metric"}
 
     @classmethod
@@ -538,7 +542,8 @@ class Config:
                     kwargs[k] = float(v)
                 elif f.type in ("Optional[int]",):
                     kwargs[k] = None if v is None else int(v)
-                elif k == "categorical_feature":
+                elif k in ("categorical_feature",
+                           "interaction_constraints"):
                     kwargs[k] = v
                 else:
                     kwargs[k] = str(v)

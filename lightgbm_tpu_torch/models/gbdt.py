@@ -69,6 +69,16 @@ Validation and sampling (the eager path of the JAX ``train_one_iter``):
 - ``preload_models`` continues training from a model's trees (the train
   score rebuilt from the set's bins).
 
+Split constraints (the JAX booster's ``_parse_interaction_constraints``,
+``_load_forced_splits`` and ``_init_cegb``): ``interaction_constraints``
+become ``[G, F]`` group masks over the used features (features outside
+every group are unusable); the forced-split JSON becomes BFS-ordered
+``(leaf slot, feature, bin)`` triples, a split on a categorical or
+unused feature dropped with its subtree and a warning; CEGB's penalties
+become per-feature arrays, and its state (:class:`ops.grow.CegbState`:
+the coupled features used, the rows that acquired each lazy feature)
+lives on the booster and carries across trees and iterations.
+
 There is no fused/scan program, OOM ladder or resilience machinery: the
 loop is plain PyTorch on the device, driven from the host.
 """
@@ -81,7 +91,8 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..ops.grow import GrowConfig, Grower
+from ..ops.binning import BinType
+from ..ops.grow import CegbConfig, CegbState, GrowConfig, Grower
 from ..ops.partition import RangeRules
 from ..ops.predict import predict_leaf_binned
 from ..ops.renew import renew_leaf_values
@@ -248,11 +259,18 @@ class GBDTBooster:
                 quantized=cfg.use_quantized_grad,
                 quant_bins=cfg.num_grad_quant_bins,
                 renew_leaf=cfg.quant_train_renew_leaf,
-                bynode=cfg.feature_fraction_bynode),
+                bynode=cfg.feature_fraction_bynode,
+                monotone_method=cfg.monotone_constraints_method),
             None if self.bundle is not None else train_set.device_bins(),
             train_set.feat_num_bins(), train_set.feat_nan_bin(),
             bundle=self.bundle, feat_is_cat=train_set.feat_is_cat(),
-            monotone=self.monotone)
+            monotone=self.monotone,
+            interaction_groups=self._interaction_groups(cfg),
+            forced=self._forced_splits(cfg), cegb=self._cegb_config(cfg))
+        self.cegb_state = None
+        if self.grower.cegb is not None:
+            self.cegb_state = CegbState(
+                self.n, self.grower.F, self.grower.cegb.lazy, dev)
         self._rounding_gen = None
         if cfg.use_quantized_grad and cfg.stochastic_rounding:
             self._rounding_gen = self._generator(
@@ -262,6 +280,96 @@ class GBDTBooster:
         self._cached_bag: Optional[torch.Tensor] = None
         self._feature_rng = np.random.RandomState(cfg.feature_fraction_seed)
         self._dart_rng = np.random.RandomState(cfg.drop_seed)
+
+    # -- split constraints ----------------------------------------------
+    def _interaction_groups(self, cfg: Config) -> Optional[np.ndarray]:
+        """``interaction_constraints`` -> ``[G, F]`` bool group masks over
+        the used features, by index or by name (None: none)."""
+        ic = cfg.interaction_constraints
+        if ic is None or ic == "" or ic == []:
+            return None
+        if isinstance(ic, str):
+            import ast
+            ic = list(ast.literal_eval(ic if ic.startswith("[[")
+                                       else "[" + ic + "]"))
+        ds = self.train_set
+        names = ds.get_feature_name()
+        inner_of = {int(r): i for i, r in
+                    enumerate(ds.used_feature_indices())}
+        groups = np.zeros((len(ic), len(inner_of)), bool)
+        for gi, grp in enumerate(ic):
+            for item in grp:
+                real = names.index(item) if isinstance(item, str) \
+                    else int(item)
+                if real in inner_of:
+                    groups[gi, inner_of[real]] = True
+        return groups
+
+    def _forced_splits(self, cfg: Config) -> Optional[tuple]:
+        """``forcedsplits_filename`` -> BFS-ordered ``(leaf slots,
+        features, bins)``: forced splits run first and in order, so the
+        split at index ``i`` sends its right child to slot ``i + 1``. A
+        split on a categorical or unused feature is dropped with its
+        subtree, with a warning (None: no forced splits)."""
+        fn = cfg.forcedsplits_filename
+        if not fn:
+            return None
+        import json
+        import warnings
+        from collections import deque
+        with open(fn) as fh:
+            root = json.load(fh)
+        if not root:
+            return None
+        ds = self.train_set
+        inner_of = {int(r): i for i, r in
+                    enumerate(ds.used_feature_indices())}
+        leaves, feats, bins = [], [], []
+        q = deque([(root, 0)])
+        while q:
+            node, slot = q.popleft()
+            real = int(node["feature"])
+            inner = inner_of.get(real)
+            if inner is None or \
+                    ds.mappers[inner].bin_type != BinType.NUMERICAL:
+                warnings.warn(
+                    f"forced split on unusable/categorical feature {real} "
+                    "ignored (with its subtree)")
+                continue
+            leaves.append(slot)
+            feats.append(inner)
+            bins.append(int(ds.mappers[inner].value_to_bin(
+                np.asarray([float(node["threshold"])]))[0]))
+            right_slot = len(leaves)
+            if node.get("left"):
+                q.append((node["left"], slot))
+            if node.get("right"):
+                q.append((node["right"], right_slot))
+        if not leaves:
+            return None
+        return leaves, feats, bins
+
+    def _cegb_config(self, cfg: Config) -> Optional[CegbConfig]:
+        """CEGB's penalties over the used features (None when no penalty
+        is set and the tradeoff is 1)."""
+        if not (cfg.cegb_tradeoff < 1.0 or cfg.cegb_penalty_split > 0.0
+                or cfg.cegb_penalty_feature_coupled
+                or cfg.cegb_penalty_feature_lazy):
+            return None
+        used = self.train_set.used_feature_indices()
+
+        def per_feature(lst):
+            out = np.zeros(len(used), np.float32)
+            for i, r in enumerate(used):
+                if int(r) < len(lst):
+                    out[i] = lst[int(r)]
+            return out
+        return CegbConfig(
+            tradeoff=cfg.cegb_tradeoff, split=cfg.cegb_penalty_split,
+            pen_coupled=per_feature(cfg.cegb_penalty_feature_coupled),
+            pen_lazy=per_feature(cfg.cegb_penalty_feature_lazy),
+            lazy=len(cfg.cegb_penalty_feature_lazy) > 0,
+            coupled=len(cfg.cegb_penalty_feature_coupled) > 0)
 
     def _base_score(self, nrows: int, user_init,
                     with_init: bool) -> torch.Tensor:
@@ -391,7 +499,7 @@ class GBDTBooster:
                 def node_u(node, k=k):
                     return bynode_uniform(self._bynode_gen, it, k, node, F)
             grown.append(self.grower.grow(g[k], h[k], noise, row_w, fmask,
-                                          node_u))
+                                          node_u, self.cegb_state))
         # the iteration's one read-back of the guard
         flag = int(gh_flag.item())
         if not all(np.isfinite(a.leaf_value).all() for a, _ in grown):

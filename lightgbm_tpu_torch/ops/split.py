@@ -25,8 +25,15 @@ the JAX functions step for step in float32:
   candidates whose outputs break their direction, and
   ``monotone_penalty`` scales the net gains of constrained features by
   the depth multiplier;
+- advanced monotone bounds (:class:`AdvancedBounds`): each candidate's
+  children clamp into their own bounds at its ``(feature, threshold)``,
+  categorical candidates into scalar fallbacks;
+- a per-feature ``gain_penalty`` (CEGB) subtracted from the net gains;
 - the winner is the first maximum of the flattened ``[direction,
   feature, bin]`` gains — the JAX flat-argmax tie-break.
+
+:func:`forced_result` builds the record of a given ``(feature, bin)``
+(forced splits).
 
 The result is one float32 record per candidate (:data:`FIELDS`), so a
 whole split's search comes back to the host in one transfer; with
@@ -41,9 +48,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["SplitParams", "FIELDS", "find_best_split",
-           "find_best_split_bundled", "BundleTables", "leaf_output",
-           "leaf_gain", "gain_at_output", "smooth_output",
+__all__ = ["SplitParams", "FIELDS", "AdvancedBounds", "find_best_split",
+           "find_best_split_bundled", "forced_result", "BundleTables",
+           "leaf_output", "leaf_gain", "gain_at_output", "smooth_output",
            "constrained_output", "monotone_penalty_mult"]
 
 K_EPS = 1e-15
@@ -164,32 +171,70 @@ def _parent_gain_shifted(total, p: SplitParams, p_out):
 
 
 def _winner_outputs(sel, total, is_sorted_cat, exact, p: SplitParams,
-                    p_out, bounds):
+                    p_out, b_lw, b_rw):
     """The winners' child outputs (``sel`` ``[C, 3]`` left sums):
     sorted-subset winners take ``l2 + cat_l2``; the exact path smooths
-    and clamps."""
+    and clamps, the left child into ``b_lw`` and the right one into
+    ``b_rw`` (``[C]`` ``(min, max)`` pairs, or None)."""
     p_cat = p._replace(lambda_l2=p.lambda_l2 + p.cat_l2)
-    if bounds is not None:
-        bounds = (bounds[:, 0], bounds[:, 1])
     out = []
-    for s in (sel, total - sel):
+    for s, bw in ((sel, b_lw), (total - sel, b_rw)):
         g, h, c = s[:, 0], s[:, 1], s[:, 2]
         if exact:
-            a = constrained_output(g, h, c, p_out, bounds, p)
-            b = constrained_output(g, h, c, p_out, bounds, p_cat)
+            a = constrained_output(g, h, c, p_out, bw, p)
+            b = constrained_output(g, h, c, p_out, bw, p_cat)
         else:
             a, b = leaf_output(g, h, p), leaf_output(g, h, p_cat)
         out.append(torch.where(is_sorted_cat, b, a))
     return out
 
 
-def _cands(p_out, bounds):
-    """Per-candidate ``[C]`` parent outputs and ``(min, max)`` bounds
-    shaped to broadcast over ``[C, F, B]``."""
-    po = p_out[:, None, None]
-    bd = None if bounds is None else (bounds[:, 0, None, None],
-                                      bounds[:, 1, None, None])
-    return po, bd
+class AdvancedBounds(NamedTuple):
+    """Advanced monotone bounds of ``C`` leaves (the JAX 6-tuple of
+    ``split_bounds_lrc``): each numerical candidate ``(f, t)`` clamps its
+    left child into ``(lmin_l, lmax_l)[c, f, t]`` and its right child
+    into ``(lmin_r, lmax_r)[c, f, t]`` (``[C, F, B]`` over original
+    features and their local bins); categorical candidates clamp both
+    children into ``(smin, smax)[c]``."""
+    lmin_l: torch.Tensor
+    lmax_l: torch.Tensor
+    lmin_r: torch.Tensor
+    lmax_r: torch.Tensor
+    smin: torch.Tensor
+    smax: torch.Tensor
+
+
+def _bound_sets(bounds):
+    """``(left, right, cat)`` ``(min, max)`` pairs that broadcast over
+    ``[C, F, B]``: one pair for all three from a ``[C, 2]`` tensor
+    (basic and intermediate), per-threshold pairs from
+    :class:`AdvancedBounds`; None without bounds."""
+    if bounds is None:
+        return None, None, None
+    if isinstance(bounds, AdvancedBounds):
+        return ((bounds.lmin_l, bounds.lmax_l),
+                (bounds.lmin_r, bounds.lmax_r),
+                (bounds.smin[:, None, None], bounds.smax[:, None, None]))
+    b = (bounds[:, 0, None, None], bounds[:, 1, None, None])
+    return b, b, b
+
+
+def _winner_bounds(bounds, is_cat, at):
+    """The winners' ``[C]`` (left, right) bound pairs: ``at(arr)`` reads
+    a ``[C, F, B]`` advanced bound at each winner's cell; categorical
+    winners take the scalar fallbacks."""
+    if bounds is None:
+        return None, None
+    if not isinstance(bounds, AdvancedBounds):
+        b = (bounds[:, 0], bounds[:, 1])
+        return b, b
+
+    def pick(arr, fallback):
+        return torch.where(is_cat, fallback, at(arr))
+    return ((pick(bounds.lmin_l, bounds.smin),
+             pick(bounds.lmax_l, bounds.smax)),
+            (pick(bounds.lmin_r, bounds.smin),
+             pick(bounds.lmax_r, bounds.smax)))
 
 
 _SCAN_BLOCK = 16
@@ -253,7 +298,7 @@ class _CatEval(NamedTuple):
 
 def _cat_split_eval(h3, parent_g, parent_h, parent_cnt, feat_num_bins,
                     p: SplitParams, parent_output=None,
-                    bounds=None) -> _CatEval:
+                    bd=None) -> _CatEval:
     """Categorical candidates of ``C`` leaves over ``[C, F, B, 3]``
     (g, h, estimated count) histograms, every feature at once: features
     of at most ``max_cat_to_onehot`` bins take the one-hot scan (each bin
@@ -264,7 +309,8 @@ def _cat_split_eval(h3, parent_g, parent_h, parent_cnt, feat_num_bins,
     cat_l2``. As in the JAX function, LightGBM's sequential
     ``min_data_per_group`` regrouping is relaxed to ``left_count >=
     min_data_per_group`` (and the right side at least ``max(
-    min_data_in_leaf, min_data_per_group)``)."""
+    min_data_in_leaf, min_data_per_group)``). ``bd``: the ``(min, max)``
+    bounds of the categorical candidates' outputs."""
     C, F, B, _ = h3.shape
     dev = h3.device
     neg_inf = torch.tensor(float("-inf"), dtype=h3.dtype, device=dev)
@@ -276,9 +322,8 @@ def _cat_split_eval(h3, parent_g, parent_h, parent_cnt, feat_num_bins,
     pg, ph, pc = (x[:, None, None] for x in (parent_g, parent_h,
                                               parent_cnt))
     p_cat = p._replace(lambda_l2=p.lambda_l2 + p.cat_l2)
-    exact = p.path_smooth > 0.0 or bounds is not None
-    if exact:
-        po, bd = _cands(parent_output, bounds)
+    exact = p.path_smooth > 0.0 or bd is not None
+    po = parent_output[:, None, None]
 
     def pair_gain(lg, lh, lc, rg, rh, rc, pp):
         if not exact:
@@ -360,9 +405,15 @@ def _with_counts(hist, parent_cnt, parent_h):
 
 def _mono_pen(nets, is_mono, leaf_depth, p):
     """The depth penalty on the net gains of constrained features (all
-    stacks, as in the JAX functions)."""
-    mult = torch.tensor(monotone_penalty_mult(leaf_depth, p),
-                        dtype=nets.dtype, device=nets.device)
+    stacks, as in the JAX functions); ``leaf_depth`` is the candidates'
+    common depth or one depth per candidate."""
+    if np.ndim(leaf_depth) == 0:
+        mult = torch.tensor(monotone_penalty_mult(int(leaf_depth), p),
+                            dtype=nets.dtype, device=nets.device)
+    else:
+        mult = torch.tensor([monotone_penalty_mult(int(d), p)
+                             for d in leaf_depth], dtype=nets.dtype,
+                            device=nets.device)[:, None, None, None]
     return torch.where(is_mono, nets * mult, nets)
 
 
@@ -372,8 +423,8 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
                     feature_mask: torch.Tensor, p: SplitParams,
                     feat_is_cat: torch.Tensor = None,
                     monotone: torch.Tensor = None,
-                    parent_output: torch.Tensor = None, leaf_depth: int = 0,
-                    bounds: torch.Tensor = None):
+                    parent_output: torch.Tensor = None, leaf_depth=0,
+                    bounds=None, gain_penalty: torch.Tensor = None):
     """Best split of each of ``C`` leaves.
 
     Args:
@@ -387,9 +438,12 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
       monotone: ``[F]`` int8 signs in {-1, 0, +1} (None: unconstrained).
       parent_output: ``[C]`` f32 each leaf's current output (path
         smoothing's parent; None: 0).
-      leaf_depth: the leaves' depth (the monotone penalty).
-      bounds: ``[C, 2]`` f32 each leaf's monotone output ``(min, max)``
-        (None: no bounds).
+      leaf_depth: the leaves' depth (the monotone penalty), or a
+        sequence of ``C`` depths.
+      bounds: ``[C, 2]`` f32 each leaf's monotone output ``(min, max)``,
+        or :class:`AdvancedBounds` (None: no bounds).
+      gain_penalty: ``[C, F]`` f32 subtracted from every candidate's net
+        gain of each feature (CEGB; None: none).
     Returns:
       ``[C, len(FIELDS)]`` f32 records. ``gain`` is net of the parent
       gain and ``min_gain_to_split`` (> 0 means worth splitting) and
@@ -419,7 +473,8 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
     exact = p.path_smooth > 0.0 or bounds is not None
     p_out = torch.zeros_like(parent_g) if parent_output is None \
         else parent_output
-    po, bd = _cands(p_out, bounds)
+    po = p_out[:, None, None]
+    bl, br, bc = _bound_sets(bounds)
     mc = None if monotone is None \
         else monotone.to(device=dev, dtype=torch.int64)[None, :, None]
 
@@ -433,8 +488,8 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
                  & (rh >= p.min_sum_hessian_in_leaf)
                  & (lc > 0) & (rc > 0))
         if exact:
-            lo = constrained_output(lg, lh, lc, po, bd, p)
-            ro = constrained_output(rg, rh, rc, po, bd, p)
+            lo = constrained_output(lg, lh, lc, po, bl, p)
+            ro = constrained_output(rg, rh, rc, po, br, p)
             gain = gain_at_output(lg, lh, lo, p) + gain_at_output(rg, rh,
                                                                  ro, p)
         else:
@@ -459,13 +514,17 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
         is_cat = feat_is_cat.to(device=dev, dtype=torch.bool)[None, :, None]
         stacks = [torch.where(is_cat, neg_inf, s) for s in stacks]
         ce = _cat_split_eval(h3, parent_g, parent_h, parent_cnt, fnb, p,
-                             p_out, bounds)
+                             p_out, bc)
         cmask = fmask & is_cat
         stacks += [torch.where(cmask, s, neg_inf)
                    for s in (ce.gains_oh, ce.gains_fwd, ce.gains_bwd)]
 
     shift = _parent_gain_shifted(total, p, p_out)[:, None, None, None]
     nets = torch.stack(stacks, dim=1) - shift              # [C, D, F, B]
+    if gain_penalty is not None:
+        gp = gain_penalty.to(device=dev, dtype=nets.dtype)
+        nets = nets - (gp[None, None, :, None] if gp.dim() == 1
+                       else gp[:, None, :, None])
     if mc is not None and p.monotone_penalty > 0.0:
         nets = _mono_pen(nets, (mc != 0)[:, None], leaf_depth, p)
     flat = nets.reshape(C, -1)
@@ -482,7 +541,9 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
                   ce.csum_b[ci, f, t, :]]
     sel = torch.stack(cands, dim=1)[ci, d]                   # [C, 3]
     gain = torch.where(torch.isfinite(best), best, neg_inf)
-    lo, ro = _winner_outputs(sel, total, d >= 3, exact, p, p_out, bounds)
+    b_lw, b_rw = _winner_bounds(bounds, d >= 2, lambda a: a[ci, f, t])
+    lo, ro = _winner_outputs(sel, total, d >= 3, exact, p, p_out, b_lw,
+                             b_rw)
     rec = _record(gain, f, t, d, sel, total, lo, ro, p)
     if ce is None:
         return rec
@@ -530,8 +591,8 @@ def find_best_split_bundled(hist: torch.Tensor, parent_g: torch.Tensor,
                             feat_num_bins: torch.Tensor = None,
                             monotone: torch.Tensor = None,
                             parent_output: torch.Tensor = None,
-                            leaf_depth: int = 0,
-                            bounds: torch.Tensor = None):
+                            leaf_depth=0, bounds=None,
+                            gain_penalty: torch.Tensor = None):
     """Best split of each of ``C`` leaves over bundled histograms.
 
     Every candidate is one (bundle, position) cell. A direct (singleton)
@@ -550,7 +611,9 @@ def find_best_split_bundled(hist: torch.Tensor, parent_g: torch.Tensor,
     0`` cut; a direct categorical column runs the plain categorical
     search (one-hot and sorted subsets) on its row of the histogram.
     Monotone signs apply to numerical candidates only; the depth penalty
-    to every candidate of a constrained feature.
+    to every candidate of a constrained feature. Advanced bounds and the
+    CEGB penalty, given over original features, are read per candidate
+    through the position's member (and its local threshold).
 
     Args:
       hist: ``[C, G, B, 2]`` f32 bundle histograms.
@@ -558,7 +621,8 @@ def find_best_split_bundled(hist: torch.Tensor, parent_g: torch.Tensor,
       tables: the plan's tables on the device.
       feature_mask: ``[F]`` bool usable original features, or ``[C, F]``.
       feat_is_cat, feat_num_bins, monotone, parent_output, leaf_depth,
-        bounds: as :func:`find_best_split`'s, over original features.
+        bounds, gain_penalty: as :func:`find_best_split`'s, over original
+        features.
     Returns:
       ``[C, len(FIELDS)]`` f32 records, as :func:`find_best_split`'s,
       with the original feature and its member-local threshold bin;
@@ -596,14 +660,21 @@ def find_best_split_bundled(hist: torch.Tensor, parent_g: torch.Tensor,
     exact = p.path_smooth > 0.0 or bounds is not None
     p_out = torch.zeros_like(parent_g) if parent_output is None \
         else parent_output
-    po, bd = _cands(p_out, bounds)
+    po = p_out[:, None, None]
+    if isinstance(bounds, AdvancedBounds):
+        # [C, F, Bf] -> per candidate [C, G, B]: the member's bound at its
+        # local threshold (cells without a member are masked anyway)
+        tl = torch.clamp(tables.tloc_at, 0, bounds.lmin_l.shape[2] - 1)
+        bounds = AdvancedBounds(*(a[:, member_ix, tl] for a in bounds[:4]),
+                                bounds.smin, bounds.smax)
+    bl, br, bc = _bound_sets(bounds)
     mc_pos = None
     if monotone is not None:
         mono = monotone.to(device=dev, dtype=torch.int64)[member_ix]
         mc_pos = torch.where(is_cat_pos, 0, mono)[None]     # [1, G, B]
         mono_pos = ((mono != 0) & has_member)[None, None]
 
-    def eval_left(left, extra_valid):
+    def eval_left(left, extra_valid, bl=bl, br=br):
         right = tot - left
         lg, lh, lc = left[..., 0], left[..., 1], left[..., 2]
         rg, rh, rc = right[..., 0], right[..., 1], right[..., 2]
@@ -613,8 +684,8 @@ def find_best_split_bundled(hist: torch.Tensor, parent_g: torch.Tensor,
                  & (rh >= p.min_sum_hessian_in_leaf)
                  & (lc > 0) & (rc > 0))
         if exact:
-            lo = constrained_output(lg, lh, lc, po, bd, p)
-            ro = constrained_output(rg, rh, rc, po, bd, p)
+            lo = constrained_output(lg, lh, lc, po, bl, p)
+            ro = constrained_output(rg, rh, rc, po, br, p)
             gain = gain_at_output(lg, lh, lo, p) + gain_at_output(rg, rh,
                                                                  ro, p)
         else:
@@ -646,7 +717,7 @@ def find_best_split_bundled(hist: torch.Tensor, parent_g: torch.Tensor,
         # is its reconstructed bin-0 mass
         left_oh = torch.where(((tloc == 0) & ~tables.is_direct[member_ix]
                                )[None, :, :, None], tot - (e - cum), h3)
-        g_oh = eval_left(left_oh, has_member & is_cat_pos & use_oh)
+        g_oh = eval_left(left_oh, has_member & is_cat_pos & use_oh, bc, bc)
         # sorted subsets on direct categorical columns, whose histogram
         # rows are their features'
         direct_member = member_ix[:, 0]
@@ -655,7 +726,7 @@ def find_best_split_bundled(hist: torch.Tensor, parent_g: torch.Tensor,
         col_nb = torch.where(col_cat, feat_num_bins.to(dev, torch.int64)
                              [direct_member], 0)
         ce = _cat_split_eval(h3, parent_g, parent_h, parent_cnt, col_nb, p,
-                             p_out, bounds)
+                             p_out, bc)
         # a direct column's position 0 holds its feature's mask
         cmask = (col_cat[None, :] & fmask[:, :, 0])[:, :, None]
         stacks += [g_oh, torch.where(cmask, ce.gains_fwd, neg_inf),
@@ -663,6 +734,12 @@ def find_best_split_bundled(hist: torch.Tensor, parent_g: torch.Tensor,
         cands += [left_oh, ce.csum_f, ce.csum_b]
 
     shift = _parent_gain_shifted(total, p, p_out)[:, None, None, None]
+    if gain_penalty is not None:
+        # CEGB per original feature, through the position's member
+        gp = gain_penalty.to(device=dev, dtype=dtype)
+        gp = gp[None] if gp.dim() == 1 else gp
+        shift = shift + torch.where(has_member[None], gp[:, member_ix],
+                                    0.0)[:, None]
     net = torch.stack(stacks, dim=1) - shift                 # [C, D, G, B]
     if mc_pos is not None and p.monotone_penalty > 0.0:
         net = _mono_pen(net, mono_pos, leaf_depth, p)
@@ -676,10 +753,67 @@ def find_best_split_bundled(hist: torch.Tensor, parent_g: torch.Tensor,
     ci = torch.arange(C, device=dev)
     sel = torch.stack([c[ci, g, pos] for c in cands], dim=1)[ci, d]
     gain = torch.where(torch.isfinite(best), best, neg_inf)
-    lo, ro = _winner_outputs(sel, total, d >= 3, exact, p, p_out, bounds)
+    b_lw, b_rw = _winner_bounds(bounds, d >= 2, lambda a: a[ci, g, pos])
+    lo, ro = _winner_outputs(sel, total, d >= 3, exact, p, p_out, b_lw,
+                             b_rw)
     tl = tables.tloc_at[g, pos]
     rec = _record(gain, tables.member_at[g, pos], tl, d, sel, total, lo, ro,
                   p)
     if ce is None:
         return rec
     return rec, _cat_masks(ce, d, g, pos, tl)
+
+
+def forced_result(hist: torch.Tensor, leaf_cnt: torch.Tensor, f: int,
+                  t: int, parent_output: torch.Tensor, bounds,
+                  p: SplitParams, exact: bool, rules) -> torch.Tensor:
+    """The record of a forced split of feature ``f`` at bin ``t`` (the
+    JAX grower's ``forced_result``, ForceSplits): missing rows go right,
+    the children's counts are hessian-ratio estimates from the leaf's
+    exact count ``leaf_cnt``, and with ``exact`` (path smoothing or
+    monotone constraints) the outputs are smoothed and clamped into
+    ``bounds`` (``(min, max)`` floats, or None) and the gain taken at
+    them, against the parent's gain at ``parent_output``.
+
+    ``hist`` is the leaf's ``[C, B, 2]`` f32 histogram over the grower's
+    columns; ``rules`` (:class:`ops.partition.RangeRules`) places ``f``
+    in them: its own column, or a bundle column where a member of a
+    multi-member bundle has its left side reconstructed from the leaf
+    totals (the FixHistogram algebra). Returns one ``[len(FIELDS)]``
+    f32 record (``direction`` 0)."""
+    dev = hist.device
+    B = hist.shape[1]
+    tg, th = hist[0].sum(dim=0).unbind()        # every row hits column 0
+    h = hist[int(rules.col[f])]
+    bins = torch.arange(B, device=dev)
+    nanb = int(rules.nan[f])
+    sel = bins <= t
+    if nanb >= 0:
+        sel = sel & (bins != nanb)
+    if rules.direct[f]:
+        left = (h * sel[:, None].to(h.dtype)).sum(dim=0)
+    else:
+        off, nb = int(rules.off[f]), int(rules.nb[f])
+        rsel = (bins >= off + t) & (bins <= off + nb - 2)
+        left = torch.stack([tg, th]) \
+            - (h * rsel[:, None].to(h.dtype)).sum(dim=0)
+    lg, lh = left[0], left[1]
+    tc = leaf_cnt.to(torch.float32)
+    lc = torch.round(lh * tc / torch.clamp_min(th, K_EPS))
+    rg, rh, rc = tg - lg, th - lh, tc - lc
+    if exact:
+        bd = None if bounds is None else tuple(
+            torch.tensor(b, dtype=torch.float32, device=dev)
+            for b in bounds)
+        wl = constrained_output(lg, lh, lc, parent_output, bd, p)
+        wr = constrained_output(rg, rh, rc, parent_output, bd, p)
+        gain = gain_at_output(lg, lh, wl, p) + gain_at_output(rg, rh, wr, p) \
+            - gain_at_output(tg, th, parent_output, p)
+    else:
+        wl, wr = leaf_output(lg, lh, p), leaf_output(rg, rh, p)
+        gain = leaf_gain(lg, lh, p) + leaf_gain(rg, rh, p) \
+            - leaf_gain(tg, th, p)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return torch.stack([
+        gain, zero + f, zero + t, zero, lg, lh, lc, rg, rh, rc, wl, wr,
+        leaf_output(lg + rg, lh + rh, p), zero])

@@ -18,6 +18,16 @@ regressions and ranking. A random forest's model
 over the iterations used, before the transform. Scores are ``[n]`` for
 K = 1, else ``[n, K]``; ``num_iteration`` counts iterations (K trees
 each).
+
+``pred_early_stop`` (prediction_early_stop.cpp, the JAX
+``_predict_scores_early_stop``) walks the forest in chunks of ``freq *
+K`` trees and freezes a row once its margin passes ``margin``: ``2 |s|``
+for one score, the gap between the two largest for K > 1; once every row
+is frozen the walk stops (one read-back per chunk). It is on only for
+the objectives that tolerate inexact sums (binary, multiclass and
+ranking) and never for averaged outputs (random forest).
+``pred_contrib`` gives TreeSHAP contributions (:mod:`shap`, float64 on
+the device) as ``[n, (F + 1) * K]``.
 """
 
 from __future__ import annotations
@@ -133,7 +143,10 @@ def _matrix(data, pandas_categorical) -> np.ndarray:
 
 def predict_any(booster, data, start_iteration: int = 0,
                 num_iteration: int = -1, raw_score: bool = False,
-                pred_leaf: bool = False) -> np.ndarray:
+                pred_leaf: bool = False, pred_contrib: bool = False,
+                pred_early_stop: bool = False,
+                pred_early_stop_freq: int = 10,
+                pred_early_stop_margin: float = 10.0) -> np.ndarray:
     from .basic import Dataset, LightGBMError
     if isinstance(data, Dataset):
         raise LightGBMError(
@@ -155,21 +168,39 @@ def predict_any(booster, data, start_iteration: int = 0,
     num_iteration = min(num_iteration, total_iters - start_iteration)
     sel = trees[start_iteration * K:(start_iteration + num_iteration) * K]
     n = X.shape[0]
+    if pred_contrib:
+        if any(t.is_linear and t.leaf_coeff
+               and any(len(c) for c in t.leaf_coeff) for t in sel):
+            raise LightGBMError(
+                "pred_contrib (SHAP) is not supported for linear trees")
+        from .shap import predict_contrib
+        return predict_contrib(booster, X, sel, K)
     if not sel:
         out = np.zeros((n, K), np.float64)
         return out[:, 0] if K == 1 else out
     device = booster._device
     stacked = stack_trees(sel, device)
     Xd = torch.as_tensor(X, dtype=torch.float32, device=device)
-    leaves = predict_leaf_raw(stacked, Xd)                     # [T, n]
+    obj_name = (booster._objective_str or "none").split()[0]
+    use_es = pred_early_stop and not pred_leaf \
+        and not booster._avg_output and obj_name in (
+            "binary", "multiclass", "multiclassova", "softmax",
+            "lambdarank", "rank_xendcg")
+    leaves = None if use_es else predict_leaf_raw(stacked, Xd)  # [T, n]
     if pred_leaf:
         return leaves.T.to(torch.int32).cpu().numpy()
-    vals = stacked.leaf_value.gather(1, leaves)
-    # tree i adds to class i % K, one tree after the other: the order
-    # in which training adds them to a valid set's float32 score
-    scores = torch.zeros((K, n), dtype=vals.dtype, device=device)
-    for i in range(vals.shape[0]):
-        scores[i % K] += vals[i]
+    if use_es:
+        scores = _scores_early_stop(stacked, Xd, K,
+                                    max(1, pred_early_stop_freq),
+                                    pred_early_stop_margin)
+    else:
+        vals = stacked.leaf_value.gather(1, leaves)
+        # tree i adds to class i % K, one tree after the other: the
+        # order in which training adds them to a valid set's float32
+        # score
+        scores = torch.zeros((K, n), dtype=vals.dtype, device=device)
+        for i in range(vals.shape[0]):
+            scores[i % K] += vals[i]
     out = scores.T.cpu().numpy().astype(np.float64)
     if booster._avg_output:
         # random forest: the trees are stored unscaled; average over the
@@ -178,6 +209,35 @@ def predict_any(booster, data, start_iteration: int = 0,
     if not raw_score:
         out = convert_raw_scores(booster._objective_str, out)
     return out[:, 0] if K == 1 else out
+
+
+def _scores_early_stop(stacked: StackedTrees, X: torch.Tensor, K: int,
+                       freq: int, margin: float) -> torch.Tensor:
+    """``[K, n]`` float32 scores of the forest walked in chunks of ``freq
+    * K`` trees, each row frozen once its margin passes ``margin``. Trees
+    add one after the other, so a walk that freezes no row gives the
+    full walk's scores bit for bit."""
+    T = stacked.leaf_value.shape[0]
+    n = X.shape[0]
+    scores = torch.zeros((K, n), dtype=torch.float32, device=X.device)
+    done = torch.zeros(n, dtype=torch.bool, device=X.device)
+    chunk = freq * K
+    for lo in range(0, T, chunk):
+        hi = min(T, lo + chunk)
+        sub = StackedTrees(*(v[lo:hi] if isinstance(v, torch.Tensor) else v
+                             for v in stacked))
+        vals = sub.leaf_value.gather(1, predict_leaf_raw(sub, X))
+        for i in range(hi - lo):
+            scores[(lo + i) % K] += torch.where(done, 0.0, vals[i])
+        if K == 1:
+            m = 2.0 * scores[0].abs()
+        else:
+            top2 = torch.topk(scores, 2, dim=0).values
+            m = top2[0] - top2[1]
+        done = done | (m > margin)
+        if bool(done.all()):
+            break
+    return scores
 
 
 def convert_raw_scores(objective_str: Optional[str],

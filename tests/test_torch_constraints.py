@@ -221,10 +221,14 @@ def test_predictions_are_monotone_along_constrained_features(mono_model,
 
 @pytest.mark.parametrize("method", ["intermediate", "advanced"])
 def test_other_monotone_methods_stay_refused(method):
-    X, y = _data(n=300)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tlgb.train({**P, **CPU, "monotone_constraints_method": method},
-                   tlgb.Dataset(X, label=y, params=CPU), 1)
+    """The other methods were refused before the port had them; now each
+    trains as the JAX package does (more cases in
+    tests/test_torch_split_breadth.py) and keeps its constraints."""
+    X, y = _data()
+    params = {**P, "monotone_constraints_method": method}
+    ja, tb = _train_both(params, X, y, 3)
+    _same_trees(ja, tb)
+    _assert_monotone(tb, X, MC)
 
 
 def test_parameters_and_aliases_parse_like_jax():

@@ -375,10 +375,11 @@ def test_dart_multiclass_matches_jax():
 
 
 @pytest.mark.parametrize("params", [{"extra_trees": True},
-                                    {"bagging_by_query": True}])
+                                    {"bagging_by_query": True},
+                                    {"feature_contri": [1.0, 0.5, 1.0]}])
 def test_accepted_but_unread_parameters_leave_trees_as_jax(params):
-    """The JAX package accepts extra_trees and bagging_by_query and no
-    module reads them; the port does the same."""
+    """The JAX package accepts extra_trees, bagging_by_query and
+    feature_contri and no module reads them; the port does the same."""
     X, y = _data(1500, 5, seed=12)
     p = {"objective": "binary", "num_leaves": 10, "verbosity": -1}
     ja, tb = _train_both({**p, **params}, X, y, 3)

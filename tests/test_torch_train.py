@@ -339,14 +339,13 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
 
 
 @pytest.mark.parametrize("params", [
-    {"monotone_constraints": [1, 0, 0],
-     "monotone_constraints_method": "intermediate"},
-    {"cegb_penalty_split": 1.0},
+    {"tree_learner": "data"},
+    {"grower": "level"},
     {"two_round": True},
-    {"interaction_constraints": "[0,1]"},
+    {"forcedbins_filename": "bins.json"},
     {"histogram_pool_size": 100.0},
     {"linear_tree": True},
-    {"feature_contri": [1.0, 0.5, 1.0]},
+    {"ingest_chunk_rows": 1000},
     {"hist_method": "pallas"},
     {"reg_sqrt": True},
     {"nonfinite_policy": "clamp"},
