@@ -103,6 +103,26 @@ Phases, in order; any failure exits non-zero:
              path inside one group; CEGB (split, coupled and lazy
              penalties), two quantized trees and the lazy matrix equal to
              the twin's; monotone sweeps of the monotone models;
+6f. surface_higgs — the Python surface on train's Dataset and model:
+             save_binary of it and of a valid set (bins loaded back
+             equal); ``python3 -m lightgbm_tpu_torch task=train`` in a
+             subprocess from the binary files, 2 trees, float (equal to
+             train's first two node for node, leaf values to 1e-6
+             relative) and quantized (equal to an in-process twin); the
+             held-out rows as a %.17g CSV parsed by the native parser
+             (which must have built; parse rate) and ``task=predict`` on
+             it equal to Booster.predict (1e-7); ``task=refit`` on 1M
+             training rows equal to a numpy refit of the model text
+             (1e-5 relative); ``task=convert_model`` compiled by g++ and
+             run on 1,000 rows, equal to a float64 numpy walk (1e-9) and
+             to predict(raw_score=True), whose sums are float32 (1e-6);
+             LGBMClassifier (4 trees, eval_set, AUC, early_stopping)
+             equal to train's trees, predict_proba equal to
+             booster_.predict, sk_iter_s; a custom objective (numpy
+             binary log loss through fobj, 1 + 3 iterations) with the
+             built-in binary's root splits (boost_from_average off) and
+             AUC within 0.002, custom_iter_s and the seconds of fobj and
+             its two copies; every CLI run counts its kernels' launches;
 7. small runs — uint16 bins (max_bin=400) held to the float standard,
              a deterministic quantized run (200k x 28, no stochastic
              rounding) whose every tree equals its plain twin's, and
@@ -134,8 +154,8 @@ Phases, in order; any failure exits non-zero:
              probabilities summing to 1, launch counters, one profiled
              iteration; against the plain twin, whose float histograms
              sum in float64 (float32 sums of 531k near-equal hessians
-             drift: that twin and the drift of the root histogram are
-             printed beside), the first iteration's 7 root splits and
+             drift: the drift of the root histogram is printed beside),
+             the first iteration's 7 root splits and
              multi_logloss within 0.002; one unbundled iteration with the
              same 7 root splits and multi_logloss within 0.002; then one
              multiclassova and one quantized iteration, each with its 7
@@ -182,6 +202,14 @@ Phases, in order; any failure exits non-zero:
              iterations', the JAX package's average_output model
              (JAX_RF_MODEL) predicting JAX's numbers; cv (3 folds, 3
              rounds, early stopping);
+9h. surface_examples — examples/generate_data.py's data; the four
+             examples/*/train.conf through ``python3 -m
+             lightgbm_tpu_torch config=train.conf num_trees=25`` (four
+             processes at once), then predict.conf or task=predict; predictions equal
+             to a numpy walk of the model text (1e-5) and quality above
+             tests/test_examples.py's floors; LGBMRegressor, LGBMRanker
+             with group, LGBMClassifier with string labels and
+             class_weight="balanced" on the same data;
 10. report — the card's name and power limit, then one JSON line with
              every kernel's launches (by path), times, bound and library
              time.
@@ -359,19 +387,19 @@ def _parse_model(text):
     return trees
 
 
-def numpy_predict_raw(text, X):
-    """Raw scores of ``X`` by a numpy walk of a model text: LightGBM's
-    NumericalDecision (missing types none, zero and nan) and
-    CategoricalDecision (``int(v)`` goes left when its bit is set in the
-    node's u32 words; NaN, negative values and values past the words go
-    right)."""
+def numpy_leaves(text, X):
+    """``[T, n]`` leaf of every row of ``X`` in every tree of a model
+    text, by a numpy walk: LightGBM's NumericalDecision (missing types
+    none, zero and nan) and CategoricalDecision (``int(v)`` goes left
+    when its bit is set in the node's u32 words; NaN, negative values and
+    values past the words go right)."""
     X = np.asarray(X, np.float64)
     n = X.shape[0]
-    raw = np.zeros(n)
     rows = np.arange(n)
+    out = []
     for t in _parse_model(text):
         if t["num_leaves"] <= 1:
-            raw += t["leaf_value"][0]
+            out.append(np.zeros(n, np.int64))
             continue
         node = np.zeros(n, np.int64)
         while (node >= 0).any():
@@ -400,8 +428,19 @@ def numpy_predict_raw(text, X):
                 left = np.where(cat, member, left)
             node[idx] = np.where(left, t["left_child"][nd],
                                  t["right_child"][nd])
-        raw += t["leaf_value"][~node]
-    return raw
+        out.append(~node)
+    return np.stack(out) if out else np.zeros((0, n), np.int64)
+
+
+def numpy_predict_raw(text, X, K=1):
+    """Raw scores of ``X`` by a numpy walk of a model text
+    (:func:`numpy_leaves`), in float64: ``[n]``, or ``[n, K]`` for K
+    trees per iteration (tree ``i`` in class ``i % K``)."""
+    leaves = numpy_leaves(text, X)
+    raw = np.zeros((K, np.asarray(X).shape[0]))
+    for i, (t, lv) in enumerate(zip(_parse_model(text), leaves)):
+        raw[i % K] += t["leaf_value"][lv]
+    return raw[0] if K == 1 else raw.T
 
 
 def log(msg):
@@ -2419,8 +2458,8 @@ def phase_train_multiclass(torch, lgb, dev, iters, reps):
     against the plain twin, the first iteration's 7 root splits and
     multi_logloss within 0.002. The plain twin's float histograms are
     summed in float64 (:func:`exact_float_sums`): at this shape float32
-    sums drift far from the exact ones (printed beside, with the twin
-    that sums in float32). Then one iteration unbundled
+    sums drift far from the exact ones (the root histogram's drift is
+    printed beside). Then one iteration unbundled
     (``enable_bundle=False``): the same 7 root splits as the bundled
     run's first iteration, multi_logloss within 0.002 of it. Then one
     multiclassova iteration and one quantized iteration (round to
@@ -2470,11 +2509,8 @@ def phase_train_multiclass(torch, lgb, dev, iters, reps):
     def roots(bst):
         return [(int(t.split_feature[0]), int(t.threshold_bin[0]))
                 for t in bst._models[:COV_CLASSES]]
-    # the plain twin as the other phases run it (float32 sums), for the
-    # record; then the twin it is held to, whose float sums are exact
-    bst_f, m_f = _plain_twin(torch, lgb, dev, params, ds, Xv, yv, 1,
-                             "train_multiclass f32 sums (one iteration)",
-                             scorer)
+    # the twin it is held to, whose float sums are exact (the float32
+    # sums' drift is measured at the root above)
     with exact_float_sums(torch):
         bst_p, m_p = _plain_twin(torch, lgb, dev, params, ds, Xv, yv,
                                  1 + iters, "train_multiclass", scorer)
@@ -2482,10 +2518,8 @@ def phase_train_multiclass(torch, lgb, dev, iters, reps):
     same = [int(_same_structure(a, b))
             for a, b in zip(r["bst"]._models, bst_p._models)]
     log(f"[train_multiclass] first iteration's root splits kernel={roots_k} "
-        f"plain={roots_p} (plain with float32 sums: {roots(bst_f)}); "
-        f"multi_logloss={r['multi_logloss']:.6f} plain="
-        f"{m_p['multi_logloss']:.6f} (float32 sums: "
-        f"{m_f['multi_logloss']:.6f}); trees identical in structure to the "
+        f"plain={roots_p}; multi_logloss={r['multi_logloss']:.6f} plain="
+        f"{m_p['multi_logloss']:.6f}; trees identical in structure to the "
         f"plain run's: {same}")
     if roots_k != roots_p:
         raise AssertionError("train_multiclass: the first iteration's root "
@@ -2497,7 +2531,7 @@ def phase_train_multiclass(torch, lgb, dev, iters, reps):
     # one iteration unbundled, against the bundled run's first
     ll_b1 = scorer(r["bst"].predict(Xv, num_iteration=1))["multi_logloss"]
     model_str = r["bst"].model_to_string()
-    del r["bst"], bst_p, bst_f
+    del r["bst"], bst_p
     _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2560,7 +2594,6 @@ def phase_train_multiclass(torch, lgb, dev, iters, reps):
         torch, dev, info, RangeRules(ds.feat_num_bins(), ds.feat_nan_bin(),
                                      info), "cov_bundled", reps)
     return dict(r, multi_logloss_plain=m_p["multi_logloss"],
-                multi_logloss_plain_f32=m_f["multi_logloss"],
                 f32_drift=f32_drift, construct_s=construct_s, profile=prof,
                 variants=variants, ds=ds, Xv=Xv, yv=yv, scorer=scorer,
                 params=params, bundles=bundles, model_str=model_str,
@@ -4082,6 +4115,609 @@ def _f32_drift(torch, ds, yt):
     return out
 
 
+# -- the Python surface: files, the CLI, sklearn, custom objectives -------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+# runs `python -m lightgbm_tpu_torch <args>` (runpy, as -m does), then
+# prints the launch counts of the kernels the run made and where its
+# seconds went: from the spawn (CHIP_SMOKE_SPAWNED, the parent's clock) to
+# this script's first line, the imports, the CUDA context, then the CLI's
+# main, split into its data loading, parsing, training and the rest
+_CLI_RUNNER = """
+import os, time
+t_run = time.time()
+spawned = float(os.environ["CHIP_SMOKE_SPAWNED"])
+import json, runpy, sys
+import torch
+t_torch = time.time()
+import lightgbm_tpu_torch.cli as cli
+t_import = time.time()
+if torch.cuda.is_available():
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+t_cuda = time.time()
+times = {"start_s": t_run - spawned, "import_torch_s": t_torch - t_run,
+         "import_port_s": t_import - t_torch, "cuda_init_s": t_cuda - t_import}
+
+
+def timed(name, key):
+    fn = getattr(cli, name)
+
+    def wrapper(*args, **kwargs):
+        t = time.time()
+        if name == "main":
+            times["to_main_s"] = t - spawned
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            times[key] = times.get(key, 0.0) + time.time() - t
+    setattr(cli, name, wrapper)
+
+
+parts = {"_load_dataset": "load_s", "_load_text_file": "parse_s",
+         "train_fn": "train_s", "_model": "model_load_s"}
+for name, key in [("main", "main_s"), *parts.items()]:
+    timed(name, key)
+sys.argv = ["lightgbm_tpu_torch"] + sys.argv[1:]
+code = 0
+try:
+    runpy.run_module("lightgbm_tpu_torch", run_name="__main__",
+                     alter_sys=True)
+except SystemExit as e:
+    code = e.code or 0
+times["rest_of_main_s"] = times.get("main_s", 0.0) - sum(
+    times.get(k, 0.0) for k in parts.values())
+import chip_smoke
+print("[cli_counts] " + json.dumps(chip_smoke._read_counts()), flush=True)
+print("[cli_times] " + json.dumps(times), flush=True)
+sys.exit(code)
+"""
+SURFACE_REFIT_ROWS = 1_000_000
+SURFACE_CONVERT_ROWS = 1_000
+
+
+def run_clis(jobs, timeout=600):
+    """``python3 -m lightgbm_tpu_torch <args>`` for every ``{tag: (args,
+    cwd)}`` of ``jobs``, all started together (the repo on their path):
+    ``{tag: (seconds from the start to its exit, the launch counts of its
+    kernels, its seconds by part: see _CLI_RUNNER)}``. A non-zero exit
+    fails the phase."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    procs = {}
+    for tag, (args, cwd) in jobs.items():
+        env["CHIP_SMOKE_SPAWNED"] = repr(time.time())
+        procs[tag] = subprocess.Popen(
+            [sys.executable, "-c", _CLI_RUNNER, *args], cwd=cwd,
+            env=dict(env), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+    out = {}
+    for tag, proc in procs.items():
+        so, se = proc.communicate(timeout=timeout)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"{tag}: the CLI exited {proc.returncode}:"
+                                 f"\n{so[-3000:]}\n{se[-3000:]}")
+        found = {}
+        for ln in so.splitlines():
+            if ln.startswith(("[cli_counts] ", "[cli_times] ")):
+                key, val = ln.split(" ", 1)
+                found[key] = json.loads(val)
+        out[tag] = (secs, found["[cli_counts]"], found["[cli_times]"])
+    return out
+
+
+def _cli_times(times):
+    """One CLI run's seconds by part (run_clis), as JSON."""
+    return json.dumps({k: round(v, 4) for k, v in times.items()})
+
+
+def _csv_chunk(arr):
+    import io
+    buf = io.BytesIO()
+    np.savetxt(buf, arr, delimiter=",", fmt="%.17g")
+    return buf.getvalue()
+
+
+def write_csv(path, y, X):
+    """A label-first CSV of ``%.17g`` values (exact for float64),
+    formatted in chunks by a pool of processes, written in order."""
+    import multiprocessing
+    arr = np.column_stack([np.asarray(y, np.float64),
+                           np.asarray(X, np.float64)])
+    chunks = np.array_split(arr, max(1, len(arr) // 100_000))
+    workers = max(1, min(8, os.cpu_count() or 1))
+    with multiprocessing.get_context("spawn").Pool(workers) as pool, \
+            open(path, "wb") as f:
+        for part in pool.imap(_csv_chunk, chunks):
+            f.write(part)
+    return os.path.getsize(path)
+
+
+def _model_trees(lgb, dev, text):
+    return lgb.Booster(model_str=text, params={"device_type": dev.type}
+                       )._models
+
+
+def _trees_equal(tag, got, want, rtol):
+    """Every tree of ``got`` equal to the same tree of ``want`` node for
+    node, leaf values to ``rtol``."""
+    same = [int(_same_structure(a, b) and np.allclose(
+        a.leaf_value, b.leaf_value, rtol=rtol, atol=0.0))
+        for a, b in zip(got, want)]
+    log(f"[{tag}] trees equal to the in-process model's: {same}")
+    if len(same) != len(got) or len(got) > len(want) or not all(same):
+        raise AssertionError(f"{tag}: trees differ from the in-process "
+                             "model's")
+
+
+def _numpy_binary_refit(text, X, y, decay, lr=0.1):
+    """The refit of a binary (sigmoid 1) model text in numpy: leaf of
+    every row by the numpy walk, binary log-loss gradients ``p - y`` and
+    ``p (1 - p)`` in float32 at the refitted trees' running score, leaf
+    sums by ``np.bincount``; ``new = decay * old + (1 - decay) * fit``."""
+    trees = _parse_model(text)
+    leaves = numpy_leaves(text, X)
+    score = np.zeros(len(y))
+    lab = (np.asarray(y) > 0).astype(np.float32)
+    out = []
+    for t, lv in zip(trees, leaves):
+        p = np.float32(1) / (np.float32(1) + np.exp(-score.astype(
+            np.float32)))
+        g = (p - lab).astype(np.float64)
+        h = (p * (np.float32(1) - p)).astype(np.float64)
+        L = t["num_leaves"]
+        fit = -np.bincount(lv, g, L) / np.bincount(lv, h, L) * lr
+        new = decay * t["leaf_value"] + (1.0 - decay) * fit
+        out.append(new)
+        score += new[lv]
+    return out
+
+
+_CONVERT_MAIN = r"""
+#include <cstdio>
+#include <vector>
+#include "model.cpp"
+int main(int argc, char** argv) {
+  int n = atoi(argv[1]), f = atoi(argv[2]);
+  std::vector<double> x((size_t)n * f), out(n);
+  FILE* in = fopen(argv[3], "rb");
+  if (fread(x.data(), sizeof(double), x.size(), in) != x.size()) return 1;
+  fclose(in);
+  for (int i = 0; i < n; ++i)
+    lightgbm_tpu_model::PredictRaw(x.data() + (size_t)i * f, &out[i]);
+  FILE* o = fopen(argv[4], "wb");
+  fwrite(out.data(), sizeof(double), n, o);
+  fclose(o);
+  return 0;
+}
+"""
+
+
+def phase_surface_higgs(torch, lgb, dev, tr, iters):
+    """The Python surface at the Higgs shape, on ``train``'s Dataset and
+    model: ``save_binary`` of it and of a valid set; the CLI trains 2
+    trees from the binary files (float, then quantized) — equal to the
+    in-process trees; ``task=predict`` on a CSV of the held-out rows
+    through the native parser (built: asserted) equal to
+    ``Booster.predict``; ``task=refit`` on a CSV of 1M training rows
+    equal to a numpy refit of the model text; ``task=convert_model``
+    compiled by the host's g++ and run on 1,000 rows, equal to a float64
+    numpy walk (1e-9) and to ``predict(raw_score=True)`` (its float32
+    sums, 1e-6); ``LGBMClassifier`` (4 trees, eval_set, AUC, early
+    stopping) equal to ``train``'s trees; a custom objective (numpy
+    binary log-loss through ``fobj``, 1 + ``iters`` iterations) held to
+    the built-in binary without boost_from_average by the root split of
+    every tree and AUC within 0.002."""
+    from lightgbm_tpu_torch.utils import native
+    from lightgbm_tpu_torch.metrics import auc as auc_t
+    ds, Xv, yv, Xt = tr["ds"], tr["Xv"], tr["yv"], tr["Xt"]
+    yt = np.asarray(ds.get_label())
+    base = {"objective": "binary", "num_leaves": 255, "max_bin": BINS,
+            "learning_rate": 0.1, "verbosity": -1, "device_type": dev.type}
+    cli_base = [f"{k}={v}" for k, v in base.items()]
+    out = {}
+
+    def auc_of(p):
+        return float(auc_t(torch.as_tensor(p, device=dev),
+                           torch.as_tensor(yv, device=dev)))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. binary files
+        t0 = time.perf_counter()
+        tbin = os.path.join(tmp, "train.bin")
+        ds.save_binary(tbin)
+        save_s = time.perf_counter() - t0
+        vds = ds.create_valid(Xv, label=yv).construct()
+        vbin = os.path.join(tmp, "valid.bin")
+        vds.save_binary(vbin)
+        del vds
+        t0 = time.perf_counter()
+        back = lgb.Dataset(tbin, params=base).construct()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if not torch.equal(back.device_bins(), ds.device_bins()):
+            raise AssertionError("surface: the binary file's bins differ")
+        del back
+        out.update(binary_bytes=os.path.getsize(tbin), save_s=save_s,
+                   load_s=load_s)
+        log(f"[surface_higgs] save_binary {os.path.getsize(tbin)} bytes in "
+            f"{save_s:.2f} s (valid {os.path.getsize(vbin)} bytes); load "
+            f"to the device {load_s:.2f} s, bins equal")
+
+        # 2. the CLI trains from the binary files, float and quantized
+        # (two processes at once)
+        m_float = os.path.join(tmp, "cli_float.txt")
+        m_quant = os.path.join(tmp, "cli_quant.txt")
+        qparams = {"use_quantized_grad": True, "num_grad_quant_bins": 4,
+                   "stochastic_rounding": True,
+                   "quant_train_renew_leaf": True, "seed": 0}
+        runs = run_clis({
+            "surface_cli": (["task=train", f"data={tbin}", f"valid={vbin}",
+                             "num_trees=2", f"output_model={m_float}",
+                             *cli_base], tmp),
+            "surface_cli_quant": (
+                ["task=train", f"data={tbin}", "num_trees=2",
+                 f"output_model={m_quant}", *cli_base,
+                 *[f"{k}={str(v).lower()}" for k, v in qparams.items()]],
+                tmp)})
+        (secs, counts, ctimes), (qsecs, qcounts, qtimes) = \
+            runs["surface_cli"], runs["surface_cli_quant"]
+        with open(m_float) as f:
+            cli_text = f.read()
+        cli_trees = _model_trees(lgb, dev, cli_text)
+        _check_counts("surface_cli", counts,
+                      [t.num_leaves for t in cli_trees], "hist")
+        _trees_equal("surface_cli", cli_trees,
+                     _model_trees(lgb, dev, tr["model_str"]), 1e-6)
+        with open(m_quant) as f:
+            q_trees = _model_trees(lgb, dev, f.read())
+        _check_counts("surface_cli_quant", qcounts,
+                      [t.num_leaves for t in q_trees], "hist_int")
+        twin = lgb.train({**base, **qparams}, ds, 2)
+        _trees_equal("surface_cli_quant", q_trees, twin._models, 1e-6)
+        del twin
+        out.update(cli_train_s=secs, cli_quant_s=qsecs, cli_counts=counts,
+                   cli_quant_counts=qcounts, cli_times=ctimes,
+                   cli_quant_times=qtimes)
+        log(f"[surface_higgs] CLI trainings from the binary files, two "
+            f"processes at once (2 trees each; process start, load and "
+            f"build included): float with a {len(yv)}-row valid set "
+            f"{secs:.2f} s, launches={json.dumps(counts)}; quantized "
+            f"{qsecs:.2f} s, launches={json.dumps(qcounts)}")
+        log(f"[surface_higgs] CLI seconds by part: float "
+            f"{_cli_times(ctimes)}; quantized {_cli_times(qtimes)}")
+
+        # 3-5. task=predict on the held-out rows as a CSV (the native
+        # parser), task=refit on 1M training rows, task=convert_model:
+        # three processes at once
+        if native.library() is None:
+            raise AssertionError("surface: the native text parser did not "
+                                 "build")
+        csv = os.path.join(tmp, "valid.csv")
+        t0 = time.perf_counter()
+        nbytes = write_csv(csv, yv, Xv)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parsed = native.parse_dense_text(csv, False)
+        parse_s = time.perf_counter() - t0
+        if parsed is None or not np.array_equal(parsed[:, 1:],
+                                                Xv.astype(np.float64)):
+            raise AssertionError("surface: the native parse differs from "
+                                 "the rows written")
+        del parsed
+        nr = min(SURFACE_REFIT_ROWS, len(yt))
+        rcsv = os.path.join(tmp, "refit.csv")
+        write_csv(rcsv, yt[:nr], Xt[:nr])
+        res = os.path.join(tmp, "pred.txt")
+        m_refit = os.path.join(tmp, "refit.txt")
+        cpp = os.path.join(tmp, "model.cpp")
+        dt = f"device_type={dev.type}"
+        runs = run_clis({
+            "surface_predict": (["task=predict", f"data={csv}",
+                                 f"input_model={m_float}",
+                                 f"output_result={res}", dt], tmp),
+            "surface_refit": (["task=refit", f"data={rcsv}",
+                               f"input_model={m_float}",
+                               f"output_model={m_refit}", dt], tmp),
+            "surface_convert": (["task=convert_model",
+                                 f"input_model={m_float}",
+                                 f"convert_model={cpp}", dt], tmp)})
+        os.unlink(rcsv)
+        psecs, rsecs = runs["surface_predict"][0], runs["surface_refit"][0]
+        for tag, run in runs.items():
+            out[f"{tag}_times"] = run[2]
+            log(f"[surface_higgs] {tag} seconds by part: "
+                f"{_cli_times(run[2])}")
+        got = np.loadtxt(res)
+        want = lgb.Booster(model_file=m_float,
+                           params={"device_type": dev.type}).predict(Xv)
+        perr = float(np.abs(got - want).max())
+        out.update(csv_bytes=nbytes, csv_write_s=write_s, parse_s=parse_s,
+                   parse_mb_s=nbytes / 1e6 / parse_s,
+                   parse_rows_s=len(Xv) / parse_s, cli_predict_s=psecs,
+                   predict_err=perr)
+        log(f"[surface_higgs] CSV {nbytes} bytes written in {write_s:.2f} "
+            f"s; native parse {parse_s:.3f} s = {nbytes / 1e6 / parse_s:.1f}"
+            f" MB/s, {len(Xv) / parse_s:.0f} rows/s; CLI predict "
+            f"{psecs:.2f} s, max abs err against Booster.predict {perr:.3g}")
+        if perr > 1e-7:
+            raise AssertionError("surface: CLI predictions differ")
+
+        with open(m_refit) as f:
+            refit_trees = _parse_model(f.read())
+        want = _numpy_binary_refit(cli_text, Xt[:nr], yt[:nr], 0.9)
+        rerr = max(float(np.max(np.abs(t["leaf_value"] - w)
+                                / np.maximum(np.abs(w), 1e-12)))
+                   for t, w in zip(refit_trees, want))
+        out.update(cli_refit_s=rsecs, refit_rel_err=rerr)
+        log(f"[surface_higgs] CLI refit on {nr} rows {rsecs:.2f} s, leaf "
+            f"values against the numpy refit max rel err {rerr:.3g}")
+        if len(refit_trees) != len(want) or rerr > 1e-5:
+            raise AssertionError("surface: refit differs from numpy's")
+
+        with open(os.path.join(tmp, "main.cpp"), "w") as f:
+            f.write(_CONVERT_MAIN)
+        exe = os.path.join(tmp, "convert_exe")
+        t0 = time.perf_counter()
+        subprocess.run(["g++", "-O2", "-std=c++17", "main.cpp", "-o", exe],
+                       cwd=tmp, check=True, capture_output=True,
+                       timeout=600)
+        compile_s = time.perf_counter() - t0
+        Xc = np.ascontiguousarray(Xv[:SURFACE_CONVERT_ROWS], np.float64)
+        Xc.tofile(os.path.join(tmp, "x.bin"))
+        subprocess.run([exe, str(len(Xc)), str(Xc.shape[1]), "x.bin",
+                        "y.bin"], cwd=tmp, check=True, timeout=120)
+        cpp_raw = np.fromfile(os.path.join(tmp, "y.bin"), np.float64)
+        walk_err = float(np.abs(cpp_raw - numpy_predict_raw(
+            cli_text, Xc)).max())
+        pred_err = float(np.abs(cpp_raw - lgb.Booster(
+            model_file=m_float, params={"device_type": dev.type}).predict(
+                Xc, raw_score=True)).max())
+        out.update(convert_compile_s=compile_s, convert_walk_err=walk_err,
+                   convert_predict_err=pred_err)
+        log(f"[surface_higgs] convert_model: g++ {compile_s:.2f} s; raw "
+            f"scores of {len(Xc)} rows against the float64 numpy walk max "
+            f"abs err {walk_err:.3g}, against predict(raw_score=True) "
+            f"(float32 sums) {pred_err:.3g}")
+        if walk_err > 1e-9 or pred_err > 1e-6:
+            raise AssertionError("surface: the converted model differs")
+
+    # 6. LGBMClassifier at full width
+    stamps = []
+
+    def stamp(env):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    _reset_counts()
+    t0 = time.perf_counter()
+    clf = lgb.LGBMClassifier(n_estimators=4, num_leaves=255,
+                             learning_rate=0.1, max_bin=BINS,
+                             device_type=dev.type)
+    clf.fit(Xt, yt, eval_set=[(Xv, yv)], eval_metric="auc",
+            callbacks=[lgb.early_stopping(5, verbose=False), stamp])
+    fit_s = time.perf_counter() - t0
+    sk_counts = _read_counts()
+    sk_trees = clf.booster_._models
+    _check_counts("surface_sklearn", sk_counts,
+                  [t.num_leaves for t in sk_trees], "hist")
+    proba = clf.predict_proba(Xv)[:, 1]
+    perr = float(np.abs(proba - clf.booster_.predict(Xv)).max())
+    sk_iter = statistics.median(np.diff(stamps)) if len(stamps) > 1 \
+        else float("nan")
+    _trees_equal("surface_sklearn", sk_trees,
+                 _model_trees(lgb, dev, tr["model_str"]), 1e-6)
+    sk_auc = clf.evals_result_["valid_0"]["auc"][-1]
+    out.update(sk_fit_s=fit_s, sk_iter_s=sk_iter, sk_counts=sk_counts,
+               sk_auc=sk_auc)
+    log(f"[surface_higgs] LGBMClassifier fit {fit_s:.2f} s (construct "
+        f"included), sk_iter_s={sk_iter:.4f} (eval included) against "
+        f"train's median_iter_s={statistics.median(tr['iter_s']):.4f}; "
+        f"valid auc {sk_auc:.6f}; predict_proba against booster_.predict "
+        f"max abs err {perr:.3g}; launches={json.dumps(sk_counts)}")
+    if perr > 0 or sk_auc < 0.5:
+        raise AssertionError("surface: LGBMClassifier is wrong")
+    del clf
+
+    # 7. a custom objective through fobj
+    spent = {"fobj": 0.0}
+
+    def fobj(score, data):
+        t = time.perf_counter()
+        y = data.get_label()
+        p = 1.0 / (1.0 + np.exp(-score))
+        g, h = p - y, p * (1.0 - p)
+        spent["fobj"] += time.perf_counter() - t
+        return g, h
+    cparams = {**base, "objective": "none"}
+    _reset_counts()
+    bst = lgb.train(cparams, ds, 1, fobj=fobj)
+    c_iter = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        bst.update(fobj=fobj)
+        torch.cuda.synchronize()
+        c_iter.append(time.perf_counter() - t0)
+    c_counts = _read_counts()
+    _check_counts("surface_custom", c_counts,
+                  [t.num_leaves for t in bst._models], "hist")
+    fobj_s = spent["fobj"] / (1 + iters)
+    t0 = time.perf_counter()
+    score = bst._engine.current_score(0)
+    d2h_s = time.perf_counter() - t0
+    g, h = fobj(score[0], ds)
+    t0 = time.perf_counter()
+    for a in (g, h):
+        torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    c_auc = auc_of(bst.predict(Xv, num_iteration=bst.current_iteration()))
+    builtin = lgb.train({**base, "boost_from_average": False}, ds,
+                        1 + iters)
+    b_auc = auc_of(builtin.predict(Xv))
+    roots_c = [_root_split_of(t) for t in bst._models]
+    roots_b = [_root_split_of(t) for t in builtin._models]
+    out.update(custom_iter_s=statistics.median(c_iter), fobj_s=fobj_s,
+               score_d2h_s=d2h_s, grad_h2d_s=h2d_s, custom_auc=c_auc,
+               builtin_auc=b_auc, custom_counts=c_counts)
+    log(f"[surface_higgs] custom objective: custom_iter_s="
+        f"{[round(s, 4) for s in c_iter]} median "
+        f"{statistics.median(c_iter):.4f}; per iteration fobj "
+        f"{fobj_s:.4f} s, score to host {d2h_s:.4f} s, (g, h) to device "
+        f"{h2d_s:.4f} s; root splits {roots_c} built-in {roots_b}; auc "
+        f"{c_auc:.6f} built-in {b_auc:.6f}; launches={json.dumps(c_counts)}")
+    if roots_c != roots_b or abs(c_auc - b_auc) > 0.002:
+        raise AssertionError("surface: the custom objective's model is "
+                             "not the built-in binary's")
+    return out
+
+
+# the accuracy floors of tests/test_examples.py
+EXAMPLES = {"binary_classification": ("binary", 0.85),
+            "regression": ("regression", 0.5),
+            "multiclass_classification": ("multiclass", 0.8),
+            "lambdarank": ("rank", 0.6)}
+
+
+def _example_quality(name, preds, y, test_path):
+    if name == "multiclass_classification":
+        return float(np.mean(np.argmax(preds, axis=1) == y))
+    if name == "binary_classification":
+        return float(np.mean((preds > 0.5) == (y > 0.5)))
+    if name == "regression":
+        return float(1 - np.sum((y - preds) ** 2)
+                     / np.sum((y - y.mean()) ** 2))
+    q = np.loadtxt(test_path + ".query", dtype=int, ndmin=1)
+    b = np.concatenate([[0], np.cumsum(q)])
+    return float(np.mean([y[a:c][np.argmax(preds[a:c])] >= 2
+                          for a, c in zip(b[:-1], b[1:])]))
+
+
+def phase_surface_examples(torch, lgb, dev):
+    """The four ``examples/*/train.conf`` through ``python3 -m
+    lightgbm_tpu_torch config=train.conf num_trees=25`` (as
+    ``tests/test_examples.py`` trains them) on ``examples/
+    generate_data.py``'s data (the four trainings at once, then the four
+    predictions), predictions held to a numpy walk of the model text and
+    accuracy to ``tests/test_examples.py``'s floors; then
+    ``LGBMRegressor``, ``LGBMRanker`` (with ``group``) and
+    ``LGBMClassifier`` (string labels, ``class_weight="balanced"``) on
+    the same data."""
+    import importlib.util
+    import shutil
+    spec = importlib.util.spec_from_file_location(
+        "examples_generate_data",
+        os.path.join(REPO, "examples", "generate_data.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    out = {"counts": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {}
+        for name in EXAMPLES:
+            d = os.path.join(tmp, name)
+            os.makedirs(d)
+            for fn in os.listdir(os.path.join(REPO, "examples", name)):
+                if fn.endswith(".conf"):
+                    shutil.copy(os.path.join(REPO, "examples", name, fn), d)
+            gen.GENERATORS[name](d)
+            dirs[name] = d
+
+        # num_trees=25, as tests/test_examples.py trains them
+        dt = f"device_type={dev.type}"
+        t0 = time.perf_counter()
+        counts = {n: c for n, (_, c, _t) in run_clis({
+            n: (["config=train.conf", "num_trees=25", dt], dirs[n])
+            for n in EXAMPLES}).items()}
+        train_s = time.perf_counter() - t0
+        pred_args = {}
+        for n, (stem, _) in EXAMPLES.items():
+            if os.path.exists(os.path.join(dirs[n], "predict.conf")):
+                pred_args[n] = ["config=predict.conf", dt]
+            else:
+                pred_args[n] = ["task=predict", f"data={stem}.test",
+                                "input_model=LightGBM_model.txt",
+                                "output_result=LightGBM_predict_result.txt",
+                                dt]
+        t0 = time.perf_counter()
+        run_clis({n: (a, dirs[n]) for n, a in pred_args.items()})
+        pred_s = time.perf_counter() - t0
+        for n, (stem, floor) in EXAMPLES.items():
+            d = dirs[n]
+            with open(os.path.join(d, "LightGBM_model.txt")) as f:
+                text = f.read()
+            trees = _parse_model(text)
+            K = 5 if n == "multiclass_classification" else 1
+            raw = np.loadtxt(os.path.join(d, f"{stem}.test"), delimiter=",")
+            y, X = raw[:, 0], raw[:, 1:]
+            preds = np.loadtxt(os.path.join(d, "LightGBM_predict_result.txt"))
+            walk = numpy_predict_raw(text, X, K)
+            if n == "binary_classification":
+                walk = 1.0 / (1.0 + np.exp(-walk))
+            elif K > 1:
+                e = np.exp(walk - walk.max(axis=1, keepdims=True))
+                walk = e / e.sum(axis=1, keepdims=True)
+            err = float(np.abs(preds - walk).max())
+            q = _example_quality(n, preds, y, os.path.join(d, f"{stem}.test"))
+            _check_counts(f"surface_examples {n}", counts[n],
+                          [t["num_leaves"] for t in trees], "hist")
+            out["counts"][n] = counts[n]
+            out[n] = dict(trees=len(trees), walk_err=err, quality=q)
+            log(f"[surface_examples] {n}: {len(trees)} trees, predictions "
+                f"against the numpy walk max abs err {err:.3g}, quality "
+                f"{q:.4f} (floor {floor}), launches={json.dumps(counts[n])}")
+            if err > 1e-5 or not q > floor:
+                raise AssertionError(f"surface_examples {n}: predictions "
+                                     "or quality wrong")
+        log(f"[surface_examples] the four CLI trainings at once "
+            f"{train_s:.2f} s, the four predictions {pred_s:.2f} s")
+
+        # the sklearn wrappers on the same data
+        def data(name, split):
+            stem = EXAMPLES[name][0]
+            raw = np.loadtxt(os.path.join(dirs[name], f"{stem}.{split}"),
+                             delimiter=",")
+            return raw[:, 1:], raw[:, 0]
+        kw = dict(n_estimators=20, device_type=dev.type)
+        _reset_counts()
+        Xr, yr = data("regression", "train")
+        Xe, ye = data("regression", "test")
+        reg = lgb.LGBMRegressor(**kw).fit(Xr, yr)
+        r2 = 1 - np.sum((ye - reg.predict(Xe)) ** 2) \
+            / np.sum((ye - ye.mean()) ** 2)
+        Xq, yq = data("lambdarank", "train")
+        gq = np.loadtxt(os.path.join(dirs["lambdarank"], "rank.train.query"),
+                        dtype=int)
+        rank = lgb.LGBMRanker(**kw).fit(Xq, yq, group=gq)
+        Xk, yk = data("lambdarank", "test")
+        top = _example_quality("lambdarank", rank.predict(Xk), yk,
+                               os.path.join(dirs["lambdarank"], "rank.test"))
+        Xm, ym = data("multiclass_classification", "train")
+        Xn, yn = data("multiclass_classification", "test")
+        names = np.array(["c0", "c1", "c2", "c3", "c4"])
+        clf = lgb.LGBMClassifier(class_weight="balanced", **kw).fit(
+            Xm, names[ym.astype(int)])
+        lab = clf.predict(Xn)
+        acc = float(np.mean(lab == names[yn.astype(int)]))
+        sk_counts = _read_counts()
+        leaves = [t.num_leaves for m in (reg, rank, clf)
+                  for t in m.booster_._models]
+        _check_counts("surface_examples sklearn", sk_counts, leaves, "hist")
+        out["counts"]["sklearn"] = sk_counts
+        out.update(sk_r2=float(r2), sk_rank_top=top, sk_acc=acc)
+        log(f"[surface_examples] LGBMRegressor R2 {r2:.4f}; LGBMRanker "
+            f"top-1 share {top:.4f}; LGBMClassifier (string labels, "
+            f"balanced) accuracy {acc:.4f}, classes "
+            f"{[str(c) for c in clf.classes_]}; "
+            f"launches={json.dumps(sk_counts)}")
+        if not (r2 > 0.5 and top > 0.6 and acc > 0.8
+                and set(lab) <= set(names)):
+            raise AssertionError("surface_examples: an sklearn wrapper is "
+                                 "wrong")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=HIGGS_ROWS,
@@ -4148,16 +4784,18 @@ def main(argv=None):
     done("train")
     trq = phase_train_quant(torch, lgb, dev, tr, args.iters)
     done("train_quant")
-    tv = phase_train_valid(torch, lgb, dev, tr, args.iters)
+    tv = phase_train_valid(torch, lgb, dev, tr, min(args.iters, 2))
     done("train_valid")
     tg = phase_train_goss(torch, lgb, dev, tr, min(args.iters, 3))
     done("train_goss")
     trg = phase_train_regression(torch, lgb, dev, tr, min(args.iters, 3))
     done("train_regression")
     tc = phase_train_constrained(torch, lgb, dev, tr, min(args.iters, 2))
+    done("train_constrained")
+    sh = phase_surface_higgs(torch, lgb, dev, tr, min(args.iters, 3))
     for key in ("ds", "Xt", "target", "target_valid"):
         del tr[key]
-    done("train_constrained")
+    done("surface_higgs")
     phase_train_u16(torch, lgb, dev)
     phase_train_quant_small(torch, lgb, dev)
     small = phase_small_objectives(torch, lgb, dev)
@@ -4187,6 +4825,8 @@ def main(argv=None):
     done("small categorical and monotone runs")
     phase_small_rf_cv(torch, lgb, dev)
     done("small rf and cv runs")
+    se = phase_surface_examples(torch, lgb, dev)
+    done("surface_examples")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4244,7 +4884,13 @@ def main(argv=None):
                     tc["interaction_forced"]["counts"][key],
                 "train_cegb": tc["cegb"]["counts"][key],
                 "small_constraints": sum(v["counts"][key]
-                                         for v in scons.values())}
+                                         for v in scons.values()),
+                "surface_cli": sh["cli_counts"][key],
+                "surface_cli_quant": sh["cli_quant_counts"][key],
+                "surface_sklearn": sh["sk_counts"][key],
+                "surface_custom": sh["custom_counts"][key],
+                "surface_examples": sum(v[key]
+                                        for v in se["counts"].values())}
 
     # the rungs at the bundled widths join each kernel's ladder
     for key, shapes in (("k1", k1), ("k1_int", k1i), ("k2", k2)):

@@ -6,7 +6,11 @@ numerical and categorical data, with EFB, basic monotone constraints
 and path smoothing, valid sets, metrics, callbacks, ``cv``, bagging,
 GOSS, column sampling, DART and random forests; prediction; model
 text), running on an NVIDIA GPU by default
-(``device_type="cuda"``; ``"cpu"`` on request). Its two kernels —
+(``device_type="cuda"``; ``"cpu"`` on request). The Python surface is
+the JAX package's too: files and binary datasets in, custom objectives,
+refit, the sklearn wrappers (``LGBMClassifier``, ...), plotting, C++
+conversion and the command line (``python -m lightgbm_tpu_torch
+config=train.conf``). Its two kernels —
 the gradient histogram (K1, ``csrc/hist.cu``) and the stable row
 partition (K2, ``csrc/partition.cu``) — are CUDA C++ for ``sm_90a``,
 built by ``nvcc`` at first use. It imports neither ``jax`` nor
@@ -18,13 +22,47 @@ built by ``nvcc`` at first use. It imports neither ``jax`` nor
     p = bst.predict(X_valid); bst.save_model("m.txt")
 """
 
-from .basic import Booster, Dataset, LightGBMError
-from .callback import (CallbackEnv, EarlyStopException, early_stopping,
-                       log_evaluation, record_evaluation, reset_parameter)
+from .basic import Booster, Dataset, LightGBMError, Sequence
+from .callback import (CallbackEnv, EarlyStopException, checkpoint,
+                       early_stopping, log_evaluation, record_evaluation,
+                       reset_parameter, telemetry)
+from .config import Config
 from .engine import CVBooster, cv, train
+from .log import register_logger
 
-__all__ = ["Booster", "Dataset", "LightGBMError", "train", "cv",
-           "CVBooster", "CallbackEnv", "EarlyStopException",
+__all__ = ["Dataset", "Booster", "CVBooster", "LightGBMError",
+           "train", "cv",
            "early_stopping", "log_evaluation", "record_evaluation",
-           "reset_parameter"]
+           "reset_parameter", "telemetry", "checkpoint",
+           "EarlyStopException", "CallbackEnv",
+           "register_logger", "Config",
+           "LGBMModel", "LGBMClassifier", "LGBMRegressor", "LGBMRanker",
+           "plot_importance", "plot_metric", "plot_split_value_histogram",
+           "plot_tree", "create_tree_digraph"]
 __version__ = "0.1.0"
+
+# names whose modules import optional extras (scikit-learn; matplotlib
+# and graphviz when called): loaded on first access, so importing the
+# package never imports them
+_LAZY = {
+    "LGBMModel": "sklearn", "LGBMClassifier": "sklearn",
+    "LGBMRegressor": "sklearn", "LGBMRanker": "sklearn",
+    "plot_importance": "plotting", "plot_metric": "plotting",
+    "plot_split_value_histogram": "plotting", "plot_tree": "plotting",
+    "create_tree_digraph": "plotting",
+}
+
+
+def __getattr__(name):
+    target = _LAZY.get(name)
+    if target is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+    value = getattr(importlib.import_module(f".{target}", __name__), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

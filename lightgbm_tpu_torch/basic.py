@@ -20,19 +20,40 @@ takes device memory. ``Booster`` trains through
 ``models/gbdt.py`` (with valid sets and their metrics: ``add_valid``,
 ``eval_train``, ``eval_valid``), predicts through ``prediction.py`` and
 reads and writes the JAX package's model text.
+
+A Dataset is also built from a file (:func:`_load_text_file`: CSV, TSV
+or LibSVM, sniffed from the first line, with ``header`` and
+``label_column``, and ``<file>.weight`` / ``<file>.query`` beside it;
+dense text through the native parser, ``utils/native.py``, with numpy
+as the fallback) or from a binary file written by ``save_binary`` in
+either package (an npz: the ``[n, F]`` bins, the mappers as
+``BinMapper.to_dict()``, the metadata), whose bins go straight to the
+device. ``Booster`` trains with a custom objective too (``update(fobj=)``:
+one copy of the score to the host and one of the gradients back per
+iteration), refits its leaves on new data (:meth:`Booster.refit`), and
+has the rest of the JAX package's ``Booster`` surface (rollback, leaf
+outputs, JSON dump, attributes, ...). Streaming input (``Sequence``,
+``init_streaming``, chunk sources, Arrow), ``Booster.compile`` and the
+network methods are refused, each naming the ROADMAP.md item that
+brings it.
 """
 
 from __future__ import annotations
 
+import json
+import os
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .config import Config, resolve_params
-from .ops.binning import BinType, MissingType, bin_matrix, find_bin
+from .config import _Q1, Config, resolve_params
+from .ops.binning import (BinMapper, BinType, MissingType, bin_matrix,
+                          find_bin)
 
-__all__ = ["Dataset", "Booster", "LightGBMError", "resolve_device"]
+__all__ = ["Dataset", "Booster", "LightGBMError", "Sequence",
+           "resolve_device"]
 
 
 class LightGBMError(Exception):
@@ -49,6 +70,137 @@ def resolve_device(cfg: Config) -> torch.device:
                 "available; pass device_type='cpu' to run on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
+
+
+def _refuse(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not in the port yet "
+                               f"({_Q1.format(item)})")
+
+
+def _load_text_file(path: str, cfg: Config
+                    ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray],
+                               Optional[np.ndarray]]:
+    """A CSV, TSV or LibSVM file as ``(X, label, weight, group)``, as the
+    JAX package's ``_load_text_file`` reads it: the format sniffed from
+    the first line (tabs, commas, ``index:value`` pairs), ``header``,
+    ``label_column`` (an index, or ``name:<column>`` against the header),
+    and ``<path>.weight`` / ``<path>.query`` when they exist."""
+    with open(path, "r") as f:
+        first = f.readline().strip()
+    header = cfg.header
+    sep = None
+    if "\t" in first:
+        sep = "\t"
+    elif "," in first:
+        sep = ","
+    tokens = first.replace(",", " ").replace("\t", " ").split()
+    is_libsvm = any(":" in t for t in tokens[1:])
+
+    label_col = 0
+    lc = str(cfg.label_column)
+    if lc.startswith("name:"):
+        want = lc[len("name:"):]
+        if not header:
+            raise LightGBMError(
+                "label_column='name:...' requires header=true")
+        names = [t.strip() for t in
+                 (first.split(sep) if sep else first.split())]
+        if want not in names:
+            raise LightGBMError(
+                f"label column '{want}' not found in header: {names}")
+        label_col = names.index(want)
+    elif lc != "":
+        label_col = int(lc)
+
+    if is_libsvm:
+        labels, rows = [], []
+        max_idx = -1
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                labels.append(float(parts[0]))
+                row = {}
+                for tok in parts[1:]:
+                    if ":" not in tok:
+                        continue
+                    i, v = tok.split(":")
+                    i = int(i)
+                    row[i] = float(v)
+                    max_idx = max(max_idx, i)
+                rows.append(row)
+        X = np.zeros((len(rows), max_idx + 1))
+        for r, row in enumerate(rows):
+            for i, v in row.items():
+                X[r, i] = v
+        y = np.asarray(labels)
+    else:
+        from .utils.native import parse_dense_text
+        raw = parse_dense_text(path, bool(header))
+        if raw is None:
+            raw = np.genfromtxt(path, delimiter=sep,
+                                skip_header=1 if header else 0)
+        if raw.ndim == 1:
+            raw = raw[:, None]
+        y = raw[:, label_col].copy()
+        X = np.delete(raw, label_col, axis=1)
+
+    weight = None
+    group = None
+    if os.path.exists(path + ".weight"):
+        weight = np.loadtxt(path + ".weight")
+    if os.path.exists(path + ".query"):
+        group = np.loadtxt(path + ".query").astype(np.int64)
+    return X, y, weight, group
+
+
+class Sequence:
+    """The JAX package's abstract chunked data source (``__getitem__``,
+    ``__len__``, ``batch_size``). The port does not stream yet: a
+    Dataset built from one raises, naming ROADMAP.md Queue 1 item 18."""
+
+    batch_size = 4096
+
+    def __getitem__(self, idx):  # pragma: no cover - abstract
+        raise NotImplementedError("Sequence.__getitem__")
+
+    def __len__(self) -> int:  # pragma: no cover - abstract
+        raise NotImplementedError("Sequence.__len__")
+
+
+def _refuse_streaming(data) -> None:
+    """The inputs the JAX package streams (``lightgbm_tpu/data/``): a
+    ``Sequence`` or a list of them, a chunk factory, Arrow data, a
+    parquet path. Item 18 brings them."""
+    if isinstance(data, Sequence) or (
+            isinstance(data, (list, tuple)) and data
+            and all(isinstance(d, Sequence) for d in data)):
+        raise _refuse("Dataset from a Sequence (streaming ingest)", 18)
+    if callable(data) and not isinstance(data, type):
+        raise _refuse("Dataset from a chunk factory (streaming ingest)", 18)
+    if type(data).__module__.split(".")[0] == "pyarrow":
+        raise _refuse("Dataset from Arrow data", 18)
+    if isinstance(data, (str, Path)) and \
+            str(data).endswith((".parquet", ".pq")):
+        raise _refuse("Dataset from a parquet file", 18)
+
+
+_BIN_MAGIC = "lightgbm_tpu.dataset.v1"
+
+
+def _is_binary_file(path: str) -> bool:
+    """A binary dataset of either package: a zip whose members hold
+    ``meta_json``. A text file that merely starts with ``PK`` is
+    text."""
+    try:
+        with open(path, "rb") as f:
+            if f.read(4) != b"PK\x03\x04":
+                return False
+        with np.load(path, allow_pickle=False) as z:
+            return "meta_json" in z.files
+    except (OSError, ValueError, KeyError):
+        return False
 
 
 def _extract_pandas(data, categorical_feature, pandas_categorical=None):
@@ -119,6 +271,8 @@ class Dataset:
         self._bins: Optional[torch.Tensor] = None
         self._bundle_cache: Dict[int, Any] = {}
         self._query_boundaries: Optional[np.ndarray] = None
+        # the rows of the parent's raw data a subset holds
+        self.used_indices: Optional[np.ndarray] = None
 
     # -- construction ---------------------------------------------------
     def construct(self) -> "Dataset":
@@ -129,6 +283,17 @@ class Dataset:
         self.device = self.reference.construct().device \
             if self.reference is not None else resolve_device(cfg)
         X = self.data
+        _refuse_streaming(X)
+        if isinstance(X, (str, Path)):
+            if _is_binary_file(str(X)):
+                return self._construct_from_binary(str(X))
+            X, y, w, q = _load_text_file(str(X), cfg)
+            if self.label is None:
+                self.label = y
+            if self.weight is None and w is not None:
+                self.weight = w
+            if self.group is None and q is not None:
+                self.group = q
         cat_idx: List[int] = []
         try:
             import pandas as pd
@@ -167,7 +332,9 @@ class Dataset:
                     f"same as it was in the reference ({ref._F_total})")
             self.mappers = ref.mappers
             self._used_features = ref._used_features
+            self._full_mappers = ref._full_mappers
             self._feature_names = list(ref._feature_names)
+            self._cat_idx = set(ref._cat_idx)
         else:
             names = self.feature_name
             if not isinstance(names, list):
@@ -180,11 +347,18 @@ class Dataset:
                 if spec not in ("auto", None, "", []):
                     cat_idx = _resolve_cat_indices(spec,
                                                    self._feature_names)
-            self._find_mappers(cfg, X, set(cat_idx))
+            self._cat_idx = set(cat_idx)
+            self._find_mappers(cfg, X, self._cat_idx)
         self._bins = bin_matrix(X, self._used_features, self.mappers,
                                 device=self.device)
         self._F = len(self.mappers)
         self.label = y
+        return self._install_metadata()
+
+    def _install_metadata(self) -> "Dataset":
+        """The tail of a construct: weights, init scores and groups
+        normalised and checked against the rows."""
+        n = self._n
         self.weight = None if self.weight is None else \
             np.asarray(self.weight, np.float64).ravel()
         self.set_init_score(self.init_score)
@@ -195,6 +369,98 @@ class Dataset:
         if self.free_raw_data:
             self.data = None
         return self
+
+    # -- binary files (the JAX package's save_binary layout) -------------
+    def save_binary(self, filename) -> "Dataset":
+        """Write the binned matrix, the mappers and the metadata as the
+        JAX package's npz container (magic ``lightgbm_tpu.dataset.v1``),
+        so either package loads it. The bins come to the host for the
+        write. An EFB plan is not stored: a load recomputes it."""
+        self.construct()
+        meta = {
+            "magic": _BIN_MAGIC,
+            "mappers": [m.to_dict() for m in self.mappers],
+            "full_mappers": [m.to_dict() if m is not None else None
+                             for m in self._full_mappers],
+            "feature_names": self._feature_names,
+            "F_total": int(self._F_total),
+            "cat_idx": sorted(int(c) for c in self._cat_idx),
+        }
+        arrays = {
+            "bins": self._bins.cpu().numpy(),
+            "used_features": np.asarray(self._used_features),
+            "meta_json": np.frombuffer(json.dumps(meta).encode(),
+                                       dtype=np.uint8),
+        }
+        if self.label is not None:
+            arrays["label"] = np.asarray(self.label, np.float64)
+        if self.weight is not None:
+            arrays["weight"] = np.asarray(self.weight, np.float64)
+        if self._query_boundaries is not None:
+            arrays["query_boundaries"] = self._query_boundaries
+        if self.init_score is not None:
+            arrays["init_score"] = np.asarray(self.init_score, np.float64)
+        with open(filename, "wb") as f:
+            np.savez(f, **arrays)
+        return self
+
+    def _construct_from_binary(self, path: str) -> "Dataset":
+        """A Dataset from a binary file of either package: its bins go
+        straight to the device; metadata given to the constructor wins
+        over the stored copies. A valid set must carry its reference's
+        mappers."""
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(bytes(z["meta_json"]).decode())
+            if meta.get("magic") != _BIN_MAGIC:
+                raise LightGBMError(f"{path} is not a lightgbm_tpu "
+                                    "binary dataset")
+            self._bins = torch.from_numpy(z["bins"]).to(self.device)
+            self._used_features = z["used_features"].astype(np.int32)
+            if "label" in z.files and self.label is None:
+                self.label = z["label"]
+            if "weight" in z.files and self.weight is None:
+                self.weight = z["weight"]
+            if "query_boundaries" in z.files:
+                self._query_boundaries = z["query_boundaries"]
+            if "init_score" in z.files and self.init_score is None:
+                self.init_score = z["init_score"]
+        self.mappers = [BinMapper.from_dict(d) for d in meta["mappers"]]
+        self._feature_names = meta["feature_names"]
+        self._F_total = meta["F_total"]
+        self._cat_idx = set(meta["cat_idx"])
+        self._full_mappers = [None if d is None else BinMapper.from_dict(d)
+                              for d in meta["full_mappers"]]
+        self._n = self._bins.shape[0]
+        self._F = len(self.mappers)
+        if self.reference is not None:
+            ref = self.reference.construct()
+            if [m.to_dict() for m in ref.mappers] != \
+                    [m.to_dict() for m in self.mappers]:
+                raise LightGBMError(
+                    f"Binary dataset {path} was binned differently from "
+                    "its reference dataset; rebuild it from text against "
+                    "the same training data")
+        if self.label is None:
+            raise LightGBMError("Label should not be None")
+        self.label = np.asarray(self.label, np.float64).ravel()
+        if len(self.label) != self._n:
+            raise LightGBMError(
+                f"Length of label ({len(self.label)}) != number of rows "
+                f"({self._n})")
+        return self._install_metadata()
+
+    # -- streaming push ingest: item 18 ---------------------------------
+    @classmethod
+    def init_streaming(cls, num_rows: int, num_features: int,
+                       **dataset_kwargs) -> "Dataset":
+        raise _refuse("Dataset.init_streaming", 18)
+
+    def push_rows(self, mat, start_row: int = None, label=None,
+                  weight=None) -> "Dataset":
+        raise _refuse("Dataset.push_rows", 18)
+
+    def mark_finished(self) -> "Dataset":
+        raise _refuse("Dataset.mark_finished", 18)
 
     def _find_mappers(self, cfg: Config, X: np.ndarray,
                       cat_idx: set) -> None:
@@ -219,6 +485,7 @@ class Dataset:
         used = [j for j, m in enumerate(full) if not m.is_trivial]
         self._used_features = np.asarray(used, dtype=np.int32)
         self.mappers = [full[j] for j in used]
+        self._full_mappers = full
 
     # -- accessors ------------------------------------------------------
     def device_bins(self) -> torch.Tensor:
@@ -403,6 +670,133 @@ class Dataset:
                 out.append(f"[{m.min_value:g}:{m.max_value:g}]")
         return out
 
+    # -- the rest of the JAX package's Dataset surface --------------------
+    def num_features(self) -> int:
+        """The number of used (non-trivial) features."""
+        self.construct()
+        return self._F
+
+    def set_label(self, label) -> "Dataset":
+        self.label = np.asarray(label, np.float64).ravel()
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = None if weight is None else \
+            np.asarray(weight, np.float64).ravel()
+        return self
+
+    _FIELD_GETTERS = {"label": "get_label", "weight": "get_weight",
+                      "init_score": "get_init_score",
+                      "position": "get_position", "group": "get_group"}
+
+    def get_field(self, field_name: str):
+        getter = self._FIELD_GETTERS.get(field_name)
+        if getter is None:
+            raise LightGBMError(f"Unknown field {field_name}")
+        return getattr(self, getter)()
+
+    def set_field(self, field_name: str, data) -> "Dataset":
+        setter = {"label": self.set_label, "weight": self.set_weight,
+                  "init_score": self.set_init_score,
+                  "position": self.set_position,
+                  "group": self.set_group}.get(field_name)
+        if setter is None:
+            raise LightGBMError(f"Unknown field {field_name}")
+        return setter(data)
+
+    def get_data(self):
+        """The raw data this Dataset was built from (a subset's rows of
+        it; None once freed by ``free_raw_data``)."""
+        if self.data is not None and self.used_indices is not None:
+            idx = np.asarray(self.used_indices)
+            if hasattr(self.data, "iloc"):
+                return self.data.iloc[idx]
+            return np.asarray(self.data)[idx]
+        return self.data
+
+    def get_ref_chain(self, ref_limit: int = 100):
+        """The set of Datasets along the reference chain."""
+        chain = set()
+        node, hops = self, 0
+        while node is not None and hops < ref_limit:
+            chain.add(node)
+            node = node.reference
+            hops += 1
+        return chain
+
+    def set_reference(self, reference: "Dataset") -> "Dataset":
+        if self._bins is not None:
+            raise LightGBMError(
+                "Cannot set reference after the Dataset is constructed")
+        self.reference = reference
+        return self
+
+    def set_feature_name(self, feature_name) -> "Dataset":
+        if feature_name == "auto":
+            return self
+        if self._bins is not None and feature_name is not None:
+            if len(feature_name) != self._F_total:
+                raise LightGBMError(
+                    f"Expected {self._F_total} feature names, got "
+                    f"{len(feature_name)}")
+            self._feature_names = [str(f) for f in feature_name]
+        else:
+            self.feature_name = feature_name
+        return self
+
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """The rows ``used_indices`` of this Dataset, binned with its
+        mappers (the rows gathered on the device)."""
+        from .engine import _subset_dataset
+        return _subset_dataset(self, np.asarray(used_indices, np.int64))
+
+    def add_features_from(self, other: "Dataset") -> "Dataset":
+        """Append another constructed Dataset's features (its bins beside
+        this one's on the device; u16 when either is)."""
+        self.construct()
+        other.construct()
+        if other._n != self._n:
+            raise LightGBMError(
+                "Cannot add features from a Dataset with a different "
+                "number of rows")
+        a, b = self.device_bins(), other.device_bins()
+        if a.dtype != b.dtype:
+            a, b = a.to(torch.uint16), b.to(torch.uint16)
+        self._bins = torch.cat([a, b], dim=1)
+        self._bundle_cache = {}
+        self.mappers = list(self.mappers) + list(other.mappers)
+        self._full_mappers = list(self._full_mappers) \
+            + list(other._full_mappers)
+        self._used_features = np.concatenate(
+            [self._used_features,
+             other._used_features + self._F_total]).astype(np.int32)
+        self._feature_names = list(self._feature_names) \
+            + list(other._feature_names)
+        self._cat_idx = set(self._cat_idx) | {
+            c + self._F_total for c in other._cat_idx}
+        self._F += other._F
+        self._F_total += other._F_total
+        return self
+
+    def host_bins(self) -> np.ndarray:
+        """The ``[n, F]`` bins copied to the host."""
+        self.construct()
+        return self._bins.cpu().numpy()
+
+    def free_host_bins(self) -> None:
+        raise _refuse("Dataset.free_host_bins (shard placement)", 20)
+
+    def thresholds_to_bins(self, real_feat: np.ndarray,
+                           thresholds: np.ndarray) -> np.ndarray:
+        """The bin of each real-valued threshold under the mapper of its
+        real feature."""
+        inner = self.inner_feature_index(real_feat)
+        out = np.zeros(len(thresholds), np.int32)
+        for i, (f, t) in enumerate(zip(inner, thresholds)):
+            out[i] = int(np.searchsorted(self.mappers[f].upper_bounds, t,
+                                         side="left"))
+        return out
+
 
 class Booster:
     """Trains (from a ``train_set``) or loads (``model_file`` /
@@ -425,7 +819,7 @@ class Booster:
             from .models.gbdt import GBDTBooster
             from .objectives import create_objective
             objective = create_objective(cfg)
-            if hasattr(objective, "set_dataset"):
+            if objective is not None and hasattr(objective, "set_dataset"):
                 objective.set_dataset(train_set)
             self._engine = GBDTBooster(cfg, train_set, objective)
             from .metrics import create_metrics
@@ -467,6 +861,8 @@ class Booster:
         self._feature_infos: List[str] = []
         self._objective_str = "none"
         self._avg_output = False
+        self._attrs: Dict[str, str] = {}
+        self.train_set: Optional[Dataset] = None
 
     @property
     def _models(self) -> List:
@@ -498,9 +894,30 @@ class Booster:
         self._engine.preload_models(parsed._trees)
         self._engine.init_iteration = int(self._engine.iter_)
 
-    def update(self) -> bool:
-        """One boosting iteration; True means no tree could grow."""
+    def update(self, train_set: Optional[Dataset] = None,
+               fobj=None) -> bool:
+        """One boosting iteration; True means no tree could grow. With
+        ``fobj(score, train_set) -> (grad, hess)`` the gradients come
+        from the host: the train score ``[n]`` (``[K, n]`` for K > 1)
+        copied to numpy once, the returned arrays (``[n]`` or ``[K, n]``
+        / ``[K * n]``, class-major) copied to the device once."""
+        if train_set is not None:
+            raise LightGBMError(
+                "Resetting train_set mid-training is not supported yet")
+        if fobj is not None:
+            K = self._engine.K
+            score = self._engine.current_score(0)
+            grad, hess = fobj(score[0] if K == 1 else score,
+                              self._engine.train_set)
+            return self._engine.train_one_iter(np.asarray(grad),
+                                               np.asarray(hess))
         return self._engine.train_one_iter()
+
+    def rollback_one_iter(self) -> "Booster":
+        """Drop the last iteration's trees and take their outputs out of
+        the train and valid scores on the device."""
+        self._engine.rollback_one_iter()
+        return self
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         """Score ``data`` (binned with the train set's mappers) after
@@ -574,7 +991,8 @@ class Booster:
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None,
                 raw_score: bool = False, pred_leaf: bool = False,
-                pred_contrib: bool = False, **kwargs) -> np.ndarray:
+                pred_contrib: bool = False, validate_features: bool = False,
+                **kwargs) -> np.ndarray:
         from .prediction import predict_any
         if num_iteration is None:
             num_iteration = self.best_iteration \
@@ -620,3 +1038,206 @@ class Booster:
         if importance_type == "split":
             return imp.astype(np.int64)
         return imp
+
+    def feature_name(self) -> List[str]:
+        return list(self._feature_names)
+
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0,
+                   importance_type: str = "split") -> Dict:
+        """The model as the JSON-ready dict of ``GBDT::DumpModel``."""
+        from .models.model_io import dump_model_dict
+        return dump_model_dict(self, num_iteration, start_iteration,
+                               importance_type)
+
+    def trees_to_dataframe(self):
+        """Every node of every tree as a row of a pandas DataFrame."""
+        from .models.model_io import trees_to_dataframe
+        return trees_to_dataframe(self)
+
+    @classmethod
+    def model_from_string(cls, model_str: str,
+                          params: Optional[Dict[str, Any]] = None
+                          ) -> "Booster":
+        """A Booster of a model text (``params``: its ``device_type``)."""
+        return cls(model_str=model_str, params=params)
+
+    def attr(self, key: str) -> Optional[str]:
+        return self._attrs.get(key)
+
+    def set_attr(self, **kwargs) -> "Booster":
+        """Set (a value) or delete (None) string attributes."""
+        for k, v in kwargs.items():
+            if v is None:
+                self._attrs.pop(k, None)
+            else:
+                self._attrs[k] = str(v)
+        return self
+
+    def lower_bound(self) -> float:
+        """The sum over the trees of each one's smallest leaf value."""
+        return float(sum(np.min(t.leaf_value[:t.num_leaves])
+                         for t in self._models) or 0.0)
+
+    def upper_bound(self) -> float:
+        """The sum over the trees of each one's largest leaf value."""
+        return float(sum(np.max(t.leaf_value[:t.num_leaves])
+                         for t in self._models) or 0.0)
+
+    def set_train_data_name(self, name: str) -> "Booster":
+        self._train_data_name = name
+        return self
+
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """Change ``learning_rate`` and the sampling fractions between
+        iterations (they apply from the next one)."""
+        self.params = {**self.params, **params}
+        eng = self._engine
+        if eng is None:
+            return self
+        if "learning_rate" in params:
+            eng._shrinkage = float(params["learning_rate"])
+        for k, typ in (("bagging_fraction", float), ("bagging_freq", int),
+                       ("feature_fraction", float),
+                       ("feature_fraction_bynode", float)):
+            if k in params:
+                setattr(eng.cfg, k, typ(params[k]))
+        if "feature_fraction_bynode" in params:
+            eng.grower.cfg = eng.grower.cfg._replace(
+                bynode=float(params["feature_fraction_bynode"]))
+        return self
+
+    def get_leaf_output(self, tree_id: int, leaf_id: int) -> float:
+        return float(self._models[tree_id].leaf_value[leaf_id])
+
+    def set_leaf_output(self, tree_id: int, leaf_id: int,
+                        value: float) -> "Booster":
+        self._models[tree_id].leaf_value[leaf_id] = value
+        return self
+
+    def shuffle_models(self, start_iteration: int = 0,
+                       end_iteration: int = -1) -> "Booster":
+        """Permute the iterations in ``[start, end)`` with numpy's global
+        random state (as the JAX package does)."""
+        models = self._models
+        K = self.num_model_per_iteration()
+        n_iters = len(models) // K
+        end = n_iters if end_iteration < 0 else min(end_iteration, n_iters)
+        idx = np.arange(start_iteration, end)
+        np.random.shuffle(idx)
+        order = list(range(n_iters))
+        order[start_iteration:end] = idx.tolist()
+        reordered = []
+        for it in order:
+            reordered.extend(models[it * K: (it + 1) * K])
+        models[:] = reordered
+        return self
+
+    def get_split_value_histogram(self, feature, bins=None,
+                                  xgboost_style: bool = False):
+        """``np.histogram`` of a feature's numerical split thresholds
+        (a pandas frame of the non-empty bins with ``xgboost_style``)."""
+        if isinstance(feature, str):
+            fidx = self.feature_name().index(feature)
+        else:
+            fidx = int(feature)
+        values = []
+        for t in self._models:
+            for i in range(t.num_nodes):
+                if int(t.split_feature[i]) == fidx \
+                        and not t.is_categorical_node(i):
+                    values.append(float(t.threshold[i]))
+        hist, bin_edges = np.histogram(values, bins=bins or "auto")
+        if xgboost_style:
+            import pandas as pd
+            ret = np.column_stack((bin_edges[1:], hist))
+            ret = ret[ret[:, 1] > 0]
+            return pd.DataFrame(ret, columns=["SplitValue", "Count"])
+        return hist, bin_edges
+
+    def refit(self, data, label, decay_rate: float = 0.9, weight=None,
+              **kwargs) -> "Booster":
+        """A copy of the model whose leaf values are refitted on new data,
+        tree by tree in boosting order: ``new = decay_rate * old + (1 -
+        decay_rate) * fit``, ``fit = -learning_rate * sum(g) / (sum(h) +
+        lambda_l2)`` over each leaf's rows, with the gradients of the
+        model's objective at the refitted trees' running score. Leaf
+        indices come from the device walk of ``predict(pred_leaf=True)``;
+        the gradients are the objective's float32 ones, the leaf sums
+        ``index_add_`` in float64 on the device. A non-finite fit raises
+        (``nonfinite_policy="raise"``; the other policies are ROADMAP.md
+        Queue 1 item 21)."""
+        if not self._models:
+            raise LightGBMError("Cannot refit an empty model")
+        from .objectives import create_objective
+        from .ops.predict import predict_leaf_raw
+        from .prediction import stack_trees
+        new_bst = self.__deepcopy__(None)
+        X = np.asarray(data, np.float64)
+        y = np.asarray(label, np.float64).ravel()
+        w = None if weight is None else np.asarray(weight, np.float64)
+        cfg = self._cfg or Config.from_params(self.params)
+        objective = create_objective(Config.from_params(
+            {**self.params, "objective": (self._objective_str or
+                                          "regression").split()[0]}))
+        if objective is None:
+            raise LightGBMError("Cannot refit without a built-in objective")
+        if hasattr(objective, "init_label_weights"):
+            objective.init_label_weights(y, w)
+        dev = self._device
+        trees = new_bst._models
+        K = self.num_model_per_iteration()
+        n = len(y)
+        f64 = torch.float64
+        leaves = predict_leaf_raw(stack_trees(trees, dev), torch.as_tensor(
+            X, dtype=torch.float32, device=dev))               # [T, n]
+        yt = torch.as_tensor(y, dtype=torch.float32, device=dev)
+        wt = None if w is None else torch.as_tensor(
+            w, dtype=torch.float32, device=dev)
+        score = torch.zeros((K, n), dtype=f64, device=dev)
+        for ti, tree in enumerate(trees):
+            k = ti % K
+            s32 = score.float()
+            g, h = objective.grad_hess(s32[0] if K == 1 else s32, yt, wt)
+            g = g.to(f64).reshape(K, n)[k]
+            h = h.to(f64).reshape(K, n)[k]
+            lv = leaves[ti]
+            L = tree.num_leaves
+            sg = torch.zeros(L, dtype=f64, device=dev).index_add_(0, lv, g)
+            sh = torch.zeros(L, dtype=f64, device=dev).index_add_(0, lv, h)
+            fit = -sg / (sh + cfg.lambda_l2) * cfg.learning_rate
+            if not bool(torch.isfinite(fit).all()):
+                raise LightGBMError(
+                    f"refit: non-finite leaf values fitted for tree {ti} "
+                    "(nonfinite_policy=raise)")
+            new = decay_rate * torch.as_tensor(
+                tree.leaf_value, dtype=f64, device=dev) \
+                + (1.0 - decay_rate) * fit
+            tree.leaf_value = new.cpu().numpy()
+            score[k] += new[lv]
+        return new_bst
+
+    def free_dataset(self) -> "Booster":
+        self.train_set = None
+        return self
+
+    def __copy__(self):
+        return self.__deepcopy__(None)
+
+    def __deepcopy__(self, memo):
+        """A copy through the model text, on the same device."""
+        return Booster(model_str=self.model_to_string(),
+                       params={"device_type": self._device.type})
+
+    # -- refused: serving and the network ---------------------------------
+    def compile(self, num_iteration: Optional[int] = None,
+                start_iteration: int = 0, **kwargs):
+        raise _refuse("Booster.compile (the compiled serving forest)", 19)
+
+    def set_network(self, machines, local_listen_port: int = 12400,
+                    listen_time_out: int = 120,
+                    num_machines: int = 1) -> "Booster":
+        raise _refuse("Booster.set_network (distributed training)", 20)
+
+    def free_network(self) -> "Booster":
+        raise _refuse("Booster.free_network (distributed training)", 20)

@@ -1,0 +1,217 @@
+"""The port's command line: ``python -m lightgbm_tpu_torch``.
+
+A copy of the training half of ``lightgbm_tpu/cli.py`` (LightGBM's
+``application.cpp``): ``key=value`` arguments and an optional
+``config=<file>`` of ``key = value`` lines (``#`` starts a comment;
+pairs on the command line win), dispatching the tasks ``train`` (with
+``valid``, ``input_model``, ``snapshot_freq`` and
+``is_provide_training_metric``), ``predict``, ``convert_model``,
+``refit`` and ``save_binary``. Every task runs on the GPU unless
+``device_type=cpu`` is given.
+
+Usage:
+    python -m lightgbm_tpu_torch config=train.conf [key=value ...]
+    python -m lightgbm_tpu_torch task=train data=train.csv objective=binary
+    python -m lightgbm_tpu_torch task=predict data=test.csv \
+        input_model=LightGBM_model.txt
+
+The JAX package's other subcommands (``stats``, ``trace``,
+``checkpoints``, ``lint``, ``launch``, ``serve``, ``pipeline``) raise,
+naming the ROADMAP.md item that brings each.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from . import callback as callback_mod
+from .basic import Booster, Dataset, LightGBMError, _load_text_file
+from .config import Config, resolve_params
+from .engine import train as train_fn
+from .log import log_info, log_warning
+
+__all__ = ["main", "parse_args", "load_config_file"]
+
+# the JAX package's subcommands that the port does not have yet
+_SUBCOMMANDS = {
+    "stats": 21, "trace": 21, "checkpoints": 21,
+    "lint": "21 (its last entry)", "launch": 20, "serve": 19,
+    "pipeline": 19,
+}
+
+
+def load_config_file(path: str) -> Dict[str, str]:
+    """The ``key = value`` pairs of a config file."""
+    out: Dict[str, str] = {}
+    with open(path) as f:
+        for line in f:
+            line = line.split("#", 1)[0].strip()
+            if not line:
+                continue
+            if "=" not in line:
+                log_warning(f"Unknown config line ignored: {line!r}")
+                continue
+            k, v = line.split("=", 1)
+            out[k.strip()] = v.strip()
+    return out
+
+
+def parse_args(argv: List[str]) -> Dict[str, str]:
+    """The parameters of a command line: the config file's pairs, then
+    the command line's over them."""
+    cli: Dict[str, str] = {}
+    for a in argv:
+        if "=" not in a:
+            raise LightGBMError(f"Unknown argument (expected key=value): {a}")
+        k, v = a.split("=", 1)
+        cli[k.strip()] = v.strip()
+    resolved = resolve_params(cli)
+    conf_path = resolved.pop("config", None)
+    params: Dict[str, str] = {}
+    if conf_path:
+        params.update(resolve_params(load_config_file(conf_path)))
+    params.update(resolved)
+    return params
+
+
+def _load_dataset(params: Dict[str, Any], path: str,
+                  reference: Optional[Dataset] = None) -> Dataset:
+    return Dataset(path, params=params, reference=reference).construct()
+
+
+def _model(cfg: Config) -> Booster:
+    """The ``input_model`` on the task's device."""
+    return Booster(model_file=cfg.input_model,
+                   params={"device_type": cfg.device_type})
+
+
+def _task_train(cfg: Config, params: Dict[str, Any]) -> None:
+    if not cfg.data:
+        raise LightGBMError("No training data: pass data=<file>")
+    train_set = _load_dataset(params, cfg.data)
+    valid_sets = [_load_dataset(params, v, reference=train_set)
+                  for v in cfg.valid]
+    valid_names = [f"valid_{i + 1}" for i in range(len(valid_sets))]
+
+    callbacks: List[Any] = []
+    if cfg.verbosity >= 1 and (valid_sets or cfg.is_provide_training_metric):
+        callbacks.append(callback_mod.log_evaluation(
+            period=max(1, cfg.metric_freq)))
+    if cfg.snapshot_freq > 0:
+        # the model every snapshot_freq iterations (GBDT::Train)
+        out = cfg.output_model
+
+        def _snapshot(env) -> None:
+            it = env.iteration + 1
+            if it % cfg.snapshot_freq == 0:
+                env.model.save_model(f"{out}.snapshot_iter_{it}")
+
+        _snapshot.order = 100
+        callbacks.append(_snapshot)
+    if cfg.is_provide_training_metric:
+        valid_sets = [train_set] + valid_sets
+        valid_names = ["training"] + valid_names
+
+    booster = train_fn(
+        params, train_set,
+        num_boost_round=cfg.num_iterations,
+        valid_sets=valid_sets, valid_names=valid_names,
+        init_model=cfg.input_model or None,
+        callbacks=callbacks)
+    booster.save_model(cfg.output_model)
+    log_info(f"Finished training; model saved to {cfg.output_model}")
+
+
+def _task_predict(cfg: Config, params: Dict[str, Any]) -> None:
+    if not cfg.input_model:
+        raise LightGBMError("task=predict needs input_model=<model file>")
+    if not cfg.data:
+        raise LightGBMError("No data to predict: pass data=<file>")
+    booster = _model(cfg)
+    X, _, _, _ = _load_text_file(cfg.data, cfg)
+    num_iteration = (cfg.num_iteration_predict
+                     if cfg.num_iteration_predict > 0 else None)
+    pred = booster.predict(
+        X,
+        start_iteration=cfg.start_iteration_predict,
+        num_iteration=num_iteration,
+        raw_score=cfg.predict_raw_score,
+        pred_leaf=cfg.predict_leaf_index,
+        pred_contrib=cfg.predict_contrib)
+    pred = np.asarray(pred)
+    if pred.ndim == 1:
+        pred = pred[:, None]
+    fmt = "%d" if cfg.predict_leaf_index else "%.18g"
+    np.savetxt(cfg.output_result, pred, fmt=fmt, delimiter="\t")
+    log_info(f"Finished prediction; results saved to {cfg.output_result}")
+
+
+def _task_convert_model(cfg: Config, params: Dict[str, Any]) -> None:
+    if not cfg.input_model:
+        raise LightGBMError("task=convert_model needs input_model=<file>")
+    if cfg.convert_model_language not in ("", "cpp"):
+        raise LightGBMError(
+            f"Unsupported convert_model_language: "
+            f"{cfg.convert_model_language}")
+    from .convert import model_to_if_else
+    code = model_to_if_else(_model(cfg))
+    with open(cfg.convert_model, "w") as f:
+        f.write(code)
+    log_info(f"Converted model saved to {cfg.convert_model}")
+
+
+def _task_refit(cfg: Config, params: Dict[str, Any]) -> None:
+    if not cfg.input_model:
+        raise LightGBMError("task=refit needs input_model=<model file>")
+    if not cfg.data:
+        raise LightGBMError("No refit data: pass data=<file>")
+    X, y, w, _ = _load_text_file(cfg.data, cfg)
+    refitted = _model(cfg).refit(X, y, decay_rate=cfg.refit_decay_rate,
+                                 weight=w)
+    refitted.save_model(cfg.output_model)
+    log_info(f"Finished refit; model saved to {cfg.output_model}")
+
+
+def _task_save_binary(cfg: Config, params: Dict[str, Any]) -> None:
+    if not cfg.data:
+        raise LightGBMError("No data: pass data=<file>")
+    out = cfg.data + ".bin"
+    _load_dataset(params, cfg.data).save_binary(out)
+    log_info(f"Binned dataset saved to {out}")
+
+
+_TASKS = {
+    "train": _task_train,
+    "refit": _task_refit,
+    "refit_tree": _task_refit,
+    "predict": _task_predict,
+    "prediction": _task_predict,
+    "test": _task_predict,
+    "convert_model": _task_convert_model,
+    "save_binary": _task_save_binary,
+}
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv or argv in (["-h"], ["--help"]):
+        print(__doc__)
+        return 0
+    if argv[0] in _SUBCOMMANDS:
+        raise NotImplementedError(
+            f"the {argv[0]!r} subcommand is not in the port yet (ROADMAP.md "
+            f"Queue 1 item {_SUBCOMMANDS[argv[0]]})")
+    try:
+        params = parse_args(argv)
+        cfg = Config.from_params(params)
+        task = _TASKS.get(cfg.task)
+        if task is None:
+            raise LightGBMError(f"Unknown task: {cfg.task}")
+        task(cfg, params)
+    except (LightGBMError, ValueError, OSError) as e:
+        print(f"[LightGBM-TPU] [Fatal] {e}", file=sys.stderr)
+        return 1
+    return 0

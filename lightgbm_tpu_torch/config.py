@@ -29,12 +29,18 @@ __all__ = ["Config", "ALIASES", "NOT_IMPLEMENTED", "resolve_params"]
 # alias -> canonical name (the subset of the JAX package's table whose
 # canonical names the port knows)
 ALIASES: Dict[str, str] = {
+    "config_file": "config",
+    "task_type": "task",
     "objective_type": "objective",
     "app": "objective",
     "application": "objective",
     "loss": "objective",
     "boosting_type": "boosting",
     "boost": "boosting",
+    "train": "data",
+    "train_data": "data",
+    "train_data_file": "data",
+    "data_filename": "data",
     "test": "valid",
     "valid_data": "valid",
     "valid_data_file": "valid",
@@ -134,9 +140,35 @@ ALIASES: Dict[str, str] = {
     "bundle": "enable_bundle",
     "two_round_loading": "two_round",
     "use_two_round_loading": "two_round",
-    "cat_feature": "categorical_feature",
-    "categorical_column": "categorical_feature",
-    "cat_column": "categorical_feature",
+    "has_header": "header",
+    "label": "label_column",
+    "weight": "weight_column",
+    "group": "group_column",
+    "group_id": "group_column",
+    "query_column": "group_column",
+    "query": "group_column",
+    "query_id": "group_column",
+    "ignore_feature": "ignore_column",
+    "blacklist": "ignore_column",
+    "is_save_binary": "save_binary",
+    "is_save_binary_file": "save_binary",
+    "is_predict_raw_score": "predict_raw_score",
+    "predict_rawscore": "predict_raw_score",
+    "raw_score": "predict_raw_score",
+    "is_predict_leaf_index": "predict_leaf_index",
+    "leaf_index": "predict_leaf_index",
+    "is_predict_contrib": "predict_contrib",
+    "contrib": "predict_contrib",
+    "model_output": "output_model",
+    "model_out": "output_model",
+    "model_input": "input_model",
+    "model_in": "input_model",
+    "predict_result": "output_result",
+    "prediction_result": "output_result",
+    "predict_name": "output_result",
+    "prediction_name": "output_result",
+    "pred_name": "output_result",
+    "name_pred": "output_result",
     "num_classes": "num_class",
     "unbalance": "is_unbalance",
     "unbalanced_sets": "is_unbalance",
@@ -173,6 +205,7 @@ _OBJECTIVE_ALIASES = {
     "rank_xendcg": "rank_xendcg", "xendcg": "rank_xendcg",
     "xe_ndcg": "rank_xendcg", "xe_ndcg_mart": "rank_xendcg",
     "xendcg_mart": "rank_xendcg",
+    "none": "custom", "null": "custom", "custom": "custom", "na": "custom",
     "cross_entropy": "cross_entropy", "xentropy": "cross_entropy",
     "cross_entropy_lambda": "cross_entropy_lambda",
     "xentlambda": "cross_entropy_lambda",
@@ -211,11 +244,9 @@ NOT_IMPLEMENTED: Dict[str, tuple] = {
 
 
 def canonical_objective(name: str) -> str:
+    """The canonical objective name; ``none``, ``null``, ``custom`` and
+    ``na`` are ``"custom"``: gradients from ``fobj``."""
     key = str(name).strip().lower()
-    if key in ("none", "null", "custom", "na"):
-        raise NotImplementedError(
-            f"objective={name!r} (a custom objective) is not in the port "
-            f"yet ({_Q1.format(22)})")
     if key not in _OBJECTIVE_ALIASES:
         raise ValueError(f"Unknown objective: {name}")
     return _OBJECTIVE_ALIASES[key]
@@ -291,11 +322,18 @@ class Config:
     """The implemented parameters (names and defaults as in the JAX
     package's ``Config``, except ``device_type``)."""
 
+    # the command line's task: train | predict | convert_model | refit |
+    # save_binary (cli.py)
+    task: str = "train"
+    # "custom" (objective none): gradients from fobj, raw-score output
     objective: str = "regression"
     # gbdt | dart | rf ("goss" is gbdt + data_sample_strategy="goss",
     # "random_forest" is rf, as in the JAX package)
     boosting: str = "gbdt"
     data_sample_strategy: str = "bagging"  # bagging | goss
+    # the command line's training (or predict / refit) file and its
+    # valid files
+    data: str = ""
     valid: List[str] = field(default_factory=list)
     num_iterations: int = 100
     learning_rate: float = 0.1
@@ -408,6 +446,31 @@ class Config:
     deterministic: bool = False
     feature_pre_filter: bool = True
     is_enable_sparse: bool = True
+    # text files (basic.py _load_text_file): a header line, the label
+    # column (an index or "name:<column>")
+    header: bool = False
+    label_column: str = ""
+    # accepted and read by nothing, as in the JAX package
+    weight_column: str = ""
+    group_column: str = ""
+    ignore_column: str = ""
+    save_binary: bool = False
+    precise_float_parser: bool = False
+    parser_config_file: str = ""
+    # the command line's model and result files (cli.py)
+    input_model: str = ""
+    output_model: str = "LightGBM_model.txt"
+    output_result: str = "LightGBM_predict_result.txt"
+    snapshot_freq: int = -1
+    convert_model_language: str = ""
+    convert_model: str = "gbdt_prediction.cpp"
+    refit_decay_rate: float = 0.9
+    # task=predict
+    start_iteration_predict: int = 0
+    num_iteration_predict: int = -1
+    predict_raw_score: bool = False
+    predict_leaf_index: bool = False
+    predict_contrib: bool = False
     extra: Dict[str, Any] = field(default_factory=dict)
 
     _BOUNDS = {
@@ -448,6 +511,7 @@ class Config:
         "lambdarank_truncation_level": (1, None),
         "num_class": (1, None),
         "multi_error_top_k": (1, None),
+        "refit_decay_rate": (0.0, 1.0),
     }
 
     def __post_init__(self) -> None:
@@ -484,7 +548,7 @@ class Config:
             if self.num_class < 2:
                 raise ValueError(
                     "num_class must be >= 2 for multiclass objectives")
-        elif self.num_class != 1:
+        elif self.objective != "custom" and self.num_class != 1:
             raise ValueError(
                 f"num_class must be 1 for objective {self.objective}")
         if self.boosting == "rf":

@@ -16,7 +16,8 @@ without the resilience, telemetry, fault-plan and watchdog parts
 - ``cv`` trains one booster per fold (stratified and shuffled folds as
   the JAX package draws them, for the same seed), evaluates each on its
   held-out rows and reports the per-round means and standard
-  deviations.
+  deviations; it accepts ``init_model`` and reads it not, as the JAX
+  package does.
 """
 
 from __future__ import annotations
@@ -38,12 +39,17 @@ __all__ = ["train", "cv", "CVBooster"]
 
 def train(params: Dict[str, Any], train_set: Dataset,
           num_boost_round: int = 100, valid_sets=None, valid_names=None,
-          feval=None, init_model=None, callbacks=None,
-          **kwargs) -> Booster:
-    if kwargs:
+          feval=None, init_model=None, keep_training_booster: bool = False,
+          callbacks=None, fobj=None, resume_from=None) -> Booster:
+    """``fobj(score, train_set) -> (grad, hess)``: a custom objective
+    (``Booster.update(fobj=)`` every iteration); ``objective="none"``
+    needs one. ``keep_training_booster`` is accepted and changes
+    nothing, as in the JAX package (the returned booster can always
+    train on)."""
+    if resume_from is not None:
         raise NotImplementedError(
-            f"train() options {sorted(kwargs)} are not in the port yet "
-            "(ROADMAP.md Queue 1 items 21-22)")
+            "train(resume_from=...) is not in the port yet (ROADMAP.md "
+            "Queue 1 item 21)")
     params = resolve_params(params)
     if "num_iterations" in params:
         num_boost_round = int(params["num_iterations"])
@@ -52,7 +58,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
     with scoped_verbosity(cfg.verbosity):
         return _train_impl(params, cfg, train_set, num_boost_round,
                            valid_sets, valid_names, feval, init_model,
-                           callbacks)
+                           callbacks, fobj)
 
 
 def _sorted_callbacks(callbacks) -> Tuple[list, list]:
@@ -80,7 +86,10 @@ def _with_early_stopping(callbacks, cfg: Config, min_delta=0.0) -> list:
 
 def _train_impl(params, cfg: Config, train_set, num_boost_round: int,
                 valid_sets, valid_names, feval, init_model,
-                callbacks) -> Booster:
+                callbacks, fobj=None) -> Booster:
+    if cfg.objective == "custom" and fobj is None:
+        raise LightGBMError(
+            "objective=none requires a custom objective function (fobj)")
     if not isinstance(train_set, Dataset):
         raise TypeError("train() only accepts Dataset object(s)")
     booster = Booster(params=params, train_set=train_set)
@@ -122,7 +131,7 @@ def _train_impl(params, cfg: Config, train_set, num_boost_round: int,
                 begin_iteration=begin_iteration,
                 end_iteration=end_iteration,
                 evaluation_result_list=None))
-        finished = booster.update()
+        finished = booster.update(fobj=fobj)
         evaluation_result_list = []
         if ((i + 1) % max(1, cfg.metric_freq) == 0
                 or i == end_iteration - 1) \
@@ -255,8 +264,8 @@ def cv(params: Dict[str, Any], train_set: Dataset,
     when early stopping ends it), plus ``"cvbooster"`` on request."""
     if not isinstance(train_set, Dataset):
         raise TypeError("cv() only accepts Dataset object(s)")
-    if init_model is not None:
-        raise NotImplementedError("cv(init_model=...) is not in the port")
+    # init_model is accepted and read by nothing, as in the JAX package
+    # (every fold trains from scratch; ROADMAP.md Queue 3)
     params = resolve_params(params)
     if "num_iterations" in params:
         num_boost_round = int(params["num_iterations"])
@@ -343,7 +352,7 @@ def _subset_dataset(full: Dataset, idx: np.ndarray) -> Dataset:
         idx, device=full._bins.device))
     sub._bundle_cache = {}
     sub._n = len(idx)
-    sub.data = None
+    sub.used_indices = idx
     sub.label = np.asarray(full.get_label())[idx]
     w = full.get_weight()
     sub.weight = None if w is None else np.asarray(w)[idx]

@@ -3,7 +3,8 @@ JAX package's ``utils/log.py`` format, so a training run prints the same
 text through either package.
 
 ``verbosity`` (the parameter) applies for the duration of one ``train``
-or ``cv`` call (:func:`scoped_verbosity`): below 1 it silences them.
+or ``cv`` call (:func:`scoped_verbosity`): below 1 it silences the info
+lines, below 0 the warnings too.
 :func:`register_logger` routes the lines to another
 ``logging.Logger``.
 """
@@ -15,7 +16,7 @@ import sys
 from contextlib import contextmanager
 from typing import Optional
 
-__all__ = ["log_info", "register_logger", "scoped_verbosity"]
+__all__ = ["log_info", "log_warning", "register_logger", "scoped_verbosity"]
 
 _logger: Optional[logging.Logger] = None
 _verbosity = 1
@@ -51,3 +52,9 @@ def log_info(msg: str) -> None:
     if _verbosity >= 1:
         (_logger or _default_logger()).info(f"[LightGBM-TPU] [Info] {msg}")
 
+
+
+def log_warning(msg: str) -> None:
+    if _verbosity >= 0:
+        (_logger or _default_logger()).warning(
+            f"[LightGBM-TPU] [Warning] {msg}")

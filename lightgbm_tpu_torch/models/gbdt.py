@@ -67,7 +67,12 @@ Validation and sampling (the eager path of the JAX ``train_one_iter``):
   score folded into every tree, the scores the running average of the
   trees' outputs; the model predicts with ``average_output``;
 - ``preload_models`` continues training from a model's trees (the train
-  score rebuilt from the set's bins).
+  score rebuilt from the set's bins), and ``rollback_one_iter`` takes
+  the last iteration's trees out of the train and valid scores;
+- a custom objective (``objective`` None, ``objective="none"``) grows
+  one tree per iteration from zero scores, without boost_from_average
+  or renewal, on gradients handed to ``train_one_iter`` from the host
+  (the non-finite guard checks them as it checks the objective's).
 
 Split constraints (the JAX booster's ``_parse_interaction_constraints``,
 ``_load_forced_splits`` and ``_init_cegb``): ``interaction_constraints``
@@ -219,7 +224,10 @@ class GBDTBooster:
         self.weight = None if w is None else torch.as_tensor(
             w, dtype=torch.float32, device=dev)
         self.n = len(label)
-        self.K = K = objective.num_model_per_iteration
+        # a custom objective (None: gradients from fobj) grows one tree
+        # per iteration, from zero scores, as in the JAX package
+        self.K = K = objective.num_model_per_iteration \
+            if objective is not None else 1
         if hasattr(objective, "init_label_weights"):
             objective.init_label_weights(label, w)
         # boost_from_average: folded into the first iteration's trees
@@ -228,7 +236,8 @@ class GBDTBooster:
         init = np.zeros((K,), np.float64)
         user_init = train_set.get_init_score()
         self._fold_bias = False
-        if cfg.boost_from_average and user_init is None:
+        if objective is not None and cfg.boost_from_average \
+                and user_init is None:
             self._fold_bias = cfg.boosting != "rf"
             init = np.asarray(objective.boost_from_score(label, w),
                               np.float64).reshape(K)
@@ -466,9 +475,13 @@ class GBDTBooster:
         return mask
 
     # -- one iteration ---------------------------------------------------
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, custom_grad: Optional[np.ndarray] = None,
+                       custom_hess: Optional[np.ndarray] = None) -> bool:
         """One boosting iteration (K trees); True when no tree could grow
-        (the constant trees are kept and training should stop)."""
+        (the constant trees are kept and training should stop).
+        ``custom_grad``/``custom_hess`` (host arrays of ``K * n`` values,
+        class-major) take the place of the objective's gradients; each
+        is copied to the device once."""
         cfg, K, it = self.cfg, self.K, self.iter_
         is_rf = cfg.boosting == "rf"
         drop_idx: List[int] = []
@@ -476,12 +489,18 @@ class GBDTBooster:
             drop_idx = self._dart_select_drop()
             if drop_idx:
                 self._dart_apply_drop(drop_idx)
-        # rf's trees are independent: gradients from the init score
-        base = self._base_score(self.n, None, True) if is_rf else self.score
-        g, h = self.objective.grad_hess(
-            base if K > 1 else base[0], self.label, self.weight)
-        if K == 1:
-            g, h = g[None, :], h[None, :]
+        if custom_grad is not None:
+            g, h = (torch.as_tensor(
+                np.asarray(a, np.float32).reshape(K, self.n),
+                device=self.device) for a in (custom_grad, custom_hess))
+        else:
+            # rf's trees are independent: gradients from the init score
+            base = self._base_score(self.n, None, True) if is_rf \
+                else self.score
+            g, h = self.objective.grad_hess(
+                base if K > 1 else base[0], self.label, self.weight)
+            if K == 1:
+                g, h = g[None, :], h[None, :]
         gh_flag = torch.where(torch.isfinite(g).all(), 0, _NF_GRAD) \
             | torch.where(torch.isfinite(h).all(), 0, _NF_HESS)
         row_w = self._row_weights(it, g, h)
@@ -511,7 +530,8 @@ class GBDTBooster:
                 "(nonfinite_policy='raise')")
         grew_any = False
         for k, (arrays, row_leaf) in enumerate(grown):
-            if arrays.num_leaves > 1 and self.objective.need_renew:
+            if arrays.num_leaves > 1 and self.objective is not None \
+                    and self.objective.need_renew:
                 arrays = arrays._replace(leaf_value=self._renewed(
                     arrays, row_leaf, k, row_w))
             tree = tree_from_arrays(arrays, self.train_set.mappers,
@@ -644,6 +664,36 @@ class GBDTBooster:
             self.models[i].apply_shrinkage(old_factor)
             self._add_tree(i, 1.0)
 
+    def rollback_one_iter(self) -> None:
+        """Drop the last iteration's K trees and take their outputs out
+        of the train and valid scores (RollbackOneIter); random forests
+        undo one step of the running average."""
+        if not self.models:
+            return
+        is_rf = self.cfg.boosting == "rf"
+        m = self.iter_ - 1              # iterations left after it
+        for k in reversed(range(self.K)):
+            tree = self.models.pop()
+            if is_rf:
+                dv = self._tree_values(tree, self.train_set)
+                self.score[k] = (self.score[k] * (m + 1) - dv) / m if m \
+                    else torch.full_like(self.score[k],
+                                         float(self.init_score[k]))
+                for v in self.valid_sets:
+                    vv = self._tree_values(tree, v.dataset)
+                    v.score[k] = (v.score[k] * (m + 1) - vv) / m if m \
+                        else torch.zeros_like(v.score[k])
+                continue
+            if tree.num_leaves > 1 or tree.leaf_value[0] != 0.0:
+                self.score[k] -= self._tree_values(tree, self.train_set)
+                if m == 0 and self._fold_bias:
+                    # the tree carried the folded init score, which the
+                    # train score started from
+                    self.score[k] += float(self.init_score[k])
+                for v in self.valid_sets:
+                    v.score[k] -= self._tree_values(tree, v.dataset)
+        self.iter_ -= 1
+
     # -- evaluation ------------------------------------------------------
     def eval_metrics(self, metrics, data_idx: int) -> Dict[str, float]:
         """``{name: value}`` of every metric on the train set
@@ -658,7 +708,8 @@ class GBDTBooster:
         w = ds.get_weight()
         weight = None if w is None else torch.as_tensor(
             np.asarray(w), dtype=torch.float32, device=self.device)
-        convert = self.objective.convert_output
+        convert = self.objective.convert_output \
+            if self.objective is not None else (lambda s: s)
         out = {}
         for m in metrics:
             if hasattr(m, "eval_with_query"):

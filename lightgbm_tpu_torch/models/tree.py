@@ -62,6 +62,16 @@ class Tree:
     def num_nodes(self) -> int:
         return max(self.num_leaves - 1, 0)
 
+    def is_categorical_node(self, i: int) -> bool:
+        return bool(self.decision_type[i] & CAT_MASK)
+
+    def default_left(self, i: int) -> bool:
+        return bool(self.decision_type[i] & DEFAULT_LEFT_MASK)
+
+    def missing_type(self, i: int) -> int:
+        """0 none, 1 zero, 2 nan (decision_type bits 2-3)."""
+        return (int(self.decision_type[i]) >> 2) & 3
+
     def cat_decision(self, node: int, values: np.ndarray) -> np.ndarray:
         """CategoricalDecision of categorical node ``node`` over raw
         values: ``int(v)`` goes left when its bit is set; NaN, negative

@@ -438,7 +438,11 @@ _REGISTRY = {
 }
 
 
-def create_objective(cfg: Config) -> Objective:
+def create_objective(cfg: Config) -> Optional[Objective]:
+    """The objective of ``cfg``; None for a custom one (``objective=
+    "none"``), whose gradients come from ``fobj``."""
+    if cfg.objective == "custom":
+        return None
     if cfg.objective in ("lambdarank", "rank_xendcg"):
         from .ranking import create_ranking_objective
         return create_ranking_objective(cfg)

@@ -284,6 +284,10 @@ def _py_files():
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
+    scanned = {str(p.relative_to(REPO)) for p in _py_files()}
+    assert {f"lightgbm_tpu_torch/{m}" for m in (
+        "__main__.py", "cli.py", "sklearn.py", "plotting.py", "convert.py",
+        "utils/native.py")} <= scanned
     for path in _py_files():
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
@@ -301,13 +305,21 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
 def test_import_and_train_leave_jax_unloaded():
     """In a fresh interpreter (this one has jax: tests/conftest.py
     imports it), every module of the port plus a tiny CPU training
-    leave jax and lightgbm_tpu out of sys.modules."""
+    leave jax and lightgbm_tpu out of sys.modules, and importing the
+    package leaves the sklearn wrappers and matplotlib unloaded until
+    their names are used."""
     code = """
 import importlib, pkgutil, sys
 import numpy as np
 import lightgbm_tpu_torch as lgb
+# the optional extras load only when their names are first used
+assert "matplotlib" not in sys.modules
+assert "lightgbm_tpu_torch.sklearn" not in sys.modules
+assert lgb.LGBMRegressor.__module__ == "lightgbm_tpu_torch.sklearn"
+assert callable(lgb.plot_importance)
 for m in pkgutil.walk_packages(lgb.__path__, "lightgbm_tpu_torch."):
     importlib.import_module(m.name)
+assert "matplotlib" not in sys.modules
 import chip_smoke
 rs = np.random.RandomState(0)
 X = rs.randn(300, 4); y = (X[:, 0] > 0).astype(float)
@@ -327,6 +339,89 @@ print("CLEAN")
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "CLEAN" in out.stdout
+
+
+class _Rows(tlgb.Sequence):
+    def __getitem__(self, idx):
+        return np.zeros((1, 2))
+
+    def __len__(self):
+        return 1
+
+
+def _tiny():
+    return tlgb.Dataset(np.zeros((4, 2)), label=[0, 1, 0, 1], params=CPU)
+
+
+def _tiny_booster():
+    X = np.random.RandomState(0).randn(100, 2)
+    return tlgb.train({"objective": "binary", "num_leaves": 3, "verbosity": -1,
+                       **CPU}, tlgb.Dataset(X, label=X[:, 0] > 0), 1)
+
+
+# the JAX package's public names the port has but refuses, each with the
+# ROADMAP.md Queue 1 item that brings it, and a call that must raise so
+REFUSED = {
+    "Sequence": (18, lambda: tlgb.Dataset(_Rows(), label=[0],
+                                          params=CPU).construct()),
+    "Dataset.init_streaming": (18, lambda: tlgb.Dataset.init_streaming(
+        4, 2)),
+    "Dataset.push_rows": (18, lambda: _tiny().push_rows(np.zeros((1, 2)))),
+    "Dataset.mark_finished": (18, lambda: _tiny().mark_finished()),
+    "Dataset.free_host_bins": (20, lambda: _tiny().free_host_bins()),
+    "Booster.compile": (19, lambda: _tiny_booster().compile()),
+    "Booster.set_network": (20, lambda: _tiny_booster().set_network("a")),
+    "Booster.free_network": (20, lambda: _tiny_booster().free_network()),
+    "telemetry": (21, lambda: tlgb.telemetry("t.jsonl")),
+    "checkpoint": (21, lambda: tlgb.checkpoint("ckpt")),
+}
+
+
+# the JAX package's public Dataset methods that are hooks of its own
+# grower, not API: the port has none of them, and says here why
+INTERNAL = {
+    "Dataset.raw_numeric": "the raw values kept for linear trees "
+                           "(ROADMAP.md Queue 1 item 16)",
+    "Dataset.device_raw": "the raw values on the device for linear trees "
+                          "(ROADMAP.md Queue 1 item 16)",
+    "Dataset.device_feat_num_bins": "the JAX grower's device copy; the "
+                                    "port's grower reads feat_num_bins()",
+    "Dataset.device_feat_nan_bin": "the JAX grower's device copy; the "
+                                   "port's grower reads feat_nan_bin()",
+    "Dataset.device_feat_is_cat": "the JAX grower's device copy; the "
+                                  "port's grower reads feat_is_cat()",
+    "Dataset.usable_feature_mask": "the JAX grower's feature mask, all "
+                                   "True in the JAX package too",
+}
+
+
+def _public(obj):
+    return {n for n in dir(obj) if not n.startswith("_")}
+
+
+def test_public_surface_covers_the_jax_package():
+    """Every public name of the JAX package (its ``__all__``, its
+    ``basic`` module's, and the methods of ``Dataset`` and ``Booster``)
+    is in the port, ported or in REFUSED, or a grower hook in INTERNAL
+    (which the port must not have)."""
+    import lightgbm_tpu.basic as jax_basic
+    import lightgbm_tpu_torch.basic as port_basic
+    missing = (set(jlgb.__all__) - set(tlgb.__all__)) \
+        | (set(jax_basic.__all__) - set(port_basic.__all__)) \
+        | {f"Dataset.{n}" for n in
+           _public(jlgb.Dataset) - _public(tlgb.Dataset)} \
+        | {f"Booster.{n}" for n in
+           _public(jlgb.Booster) - _public(tlgb.Booster)}
+    assert missing == set(INTERNAL), sorted(missing ^ set(INTERNAL))
+    for name in tlgb.__all__:
+        assert getattr(tlgb, name) is not None
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_refused_names_raise_naming_their_roadmap_item(name):
+    item, call = REFUSED[name]
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        call()
 
 
 def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
