@@ -103,6 +103,24 @@ Phases, in order; any failure exits non-zero:
              path inside one group; CEGB (split, coupled and lazy
              penalties), two quantized trees and the lazy matrix equal to
              the twin's; monotone sweeps of the monotone models;
+6g. train_growth — the growth variants on train's Dataset: the masked
+             grower's first tree (one K1 pass over every row per leaf)
+             equal to train's first tree node for node; a histogram pool
+             of 16 slots (1 + 1 iterations; misses per tree and the K1
+             calls they add): the quantized trees equal train_quant's,
+             the float ones with train's root split and AUC within 0.002
+             (a recomputed float histogram can differ in its last bit);
+             linear trees on a second Dataset of the same rows that
+             keeps the raw values (1 + 2 iterations: iter_s, the second
+             tree's fit timed alone by CUDA events with its peak extra
+             memory, its leaves' models within 1e-3 of a float64 solve
+             of their normal equations, AUC within 0.002 of the plain
+             twin, predict within 1e-5 of a numpy walk of the model
+             text); the level grower under max_depth=7 (the same leaves
+             as the compact grower for 99% of 1M training rows) and at
+             the full budget (1 + 2 iterations, read-backs per tree,
+             launches per iteration, one profiled iteration, AUC within
+             0.002 of the plain twin);
 6f. surface_higgs — the Python surface on train's Dataset and model:
              save_binary of it and of a valid set (bins loaded back
              equal); ``python3 -m lightgbm_tpu_torch task=train`` in a
@@ -151,8 +169,9 @@ Phases, in order; any failure exits non-zero:
              EFB at its default: the one-hot indicators bundle; G, B and
              the groups printed): 1 warm-up + 1 timed iteration of 7
              trees, held-out multi_logloss and accuracy, every row's
-             probabilities summing to 1, launch counters, one profiled
-             iteration; against the plain twin, whose float histograms
+             probabilities summing to 1, launch counters (no profiled
+             iteration: its trace took 77.5 s); against the
+             plain twin, whose float histograms
              sum in float64 (float32 sums of 531k near-equal hessians
              drift: the drift of the root histogram is printed beside),
              the first iteration's 7 root splits and
@@ -383,6 +402,17 @@ def _parse_model(text):
                 t[k] = np.asarray(kv[k].split(), np.int64)
         for k in ("threshold", "leaf_value"):
             t[k] = np.asarray(kv[k].split(), np.float64)
+        if int(kv.get("is_linear", "0")) and "leaf_const" in kv:
+            # linear leaves: per leaf its constant and its features'
+            # coefficients, in the order of the text
+            nf = np.asarray(kv["num_features"].split(), np.int64)
+            feats = np.asarray(kv["leaf_features"].split(), np.int64)
+            coef = np.asarray(kv["leaf_coeff"].split(), np.float64)
+            ends = np.cumsum(nf)
+            t["leaf_const"] = np.asarray(kv["leaf_const"].split(),
+                                         np.float64)
+            t["linear"] = [(feats[e - k:e], coef[e - k:e])
+                           for k, e in zip(nf, ends)]
         trees.append(t)
     return trees
 
@@ -432,14 +462,35 @@ def numpy_leaves(text, X):
     return np.stack(out) if out else np.zeros((0, n), np.int64)
 
 
+def numpy_tree_values(t, X, lv):
+    """Outputs of one parsed tree ``t`` on the rows of ``X`` in leaves
+    ``lv``, in float64: the leaf value, or a linear leaf's constant plus
+    its coefficients times the row's values (the leaf value for a row
+    with NaN in one of its features)."""
+    if "linear" not in t:
+        return t["leaf_value"][lv]
+    X = np.asarray(X, np.float64)
+    out = t["leaf_const"][lv].copy()
+    for leaf, (feats, coef) in enumerate(t["linear"]):
+        rows = np.nonzero(lv == leaf)[0]
+        if not len(feats) or not len(rows):
+            continue
+        x = X[np.ix_(rows, feats)]
+        nan = np.isnan(x).any(axis=1)
+        out[rows] = np.where(nan, t["leaf_value"][leaf],
+                             out[rows] + np.nan_to_num(x) @ coef)
+    return out
+
+
 def numpy_predict_raw(text, X, K=1):
     """Raw scores of ``X`` by a numpy walk of a model text
-    (:func:`numpy_leaves`), in float64: ``[n]``, or ``[n, K]`` for K
-    trees per iteration (tree ``i`` in class ``i % K``)."""
+    (:func:`numpy_leaves`, :func:`numpy_tree_values`), in float64:
+    ``[n]``, or ``[n, K]`` for K trees per iteration (tree ``i`` in class
+    ``i % K``)."""
     leaves = numpy_leaves(text, X)
     raw = np.zeros((K, np.asarray(X).shape[0]))
     for i, (t, lv) in enumerate(zip(_parse_model(text), leaves)):
-        raw[i % K] += t["leaf_value"][lv]
+        raw[i % K] += numpy_tree_values(t, X, lv)
     return raw[0] if K == 1 else raw.T
 
 
@@ -2038,8 +2089,275 @@ def phase_train_quant(torch, lgb, dev, tr, iters):
     if r["auc"] < tr["auc"] - 0.01:
         raise AssertionError(f"train_quant: AUC {r['auc']} below the float "
                              f"path's {tr['auc']} - 0.01")
+    model_str = r["bst"].model_to_string()
     del r["bst"], bst_p
-    return dict(r, auc_plain=auc_p, profile=prof, same_trees=same)
+    return dict(r, auc_plain=auc_p, profile=prof, same_trees=same,
+                params=params, model_str=model_str)
+
+
+def _growth_run(torch, lgb, dev, params, ds, rounds, tag):
+    """``rounds`` iterations through ``lgb.train`` with the launch counts
+    set to 0 just before and read just after: the booster, its seconds,
+    the counts and the grower's read-backs and pool misses per tree."""
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    bst = lgb.train(params, ds, num_boost_round=rounds)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = _read_counts()
+    g = bst._engine.grower
+    trees = len(bst._models)
+    info = dict(seconds=sec, counts=counts, grower=g.cfg.grower,
+                pool_slots=g.cfg.pool_slots,
+                readbacks_per_tree=g.readbacks / trees,
+                misses_per_tree=g.pool_misses / trees,
+                leaves=[t.num_leaves for t in bst._models])
+    log(f"[{tag}] {rounds} iterations in {sec:.3f} s grower={g.cfg.grower} "
+        f"pool_slots={g.cfg.pool_slots} leaves={info['leaves']} "
+        f"readbacks_per_tree={info['readbacks_per_tree']:.1f} "
+        f"pool_misses_per_tree={info['misses_per_tree']:.1f} "
+        f"launches={json.dumps(counts)}")
+    return bst, info
+
+
+def _same_trees_as(tag, got, want, exact):
+    """Trees of ``got`` against the first ones of ``want``: structure
+    node for node, leaf values to rtol=1e-4, atol=1e-5. ``exact``: fail
+    unless every tree is equal; else return the list of matches."""
+    same = [int(_same_structure(a, b) and np.allclose(
+        a.leaf_value, b.leaf_value, rtol=1e-4, atol=1e-5))
+        for a, b in zip(got, want)]
+    log(f"[{tag}] trees equal to the reference run's: {same}")
+    if exact and not (len(same) == len(got) and all(same)):
+        raise AssertionError(f"{tag}: trees differ from the reference run's")
+    return same
+
+
+def _linear_reference(torch, raw, row_leaf, grad, hess, feats, lam):
+    """Every leaf's linear model by a float64 solve of its normal
+    equations, built on the device leaf by leaf (rows sorted by leaf,
+    one float64 matmul each): ``(const [L] or NaN, coeff list)``; NaN
+    where the leaf keeps its constant (too few rows, or not finite)."""
+    order = torch.argsort(row_leaf, stable=True)
+    counts = torch.bincount(row_leaf, minlength=len(feats)).cpu().numpy()
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    const = np.full(len(feats), np.nan)
+    coef = []
+    for leaf, f in enumerate(feats):
+        rows = order[starts[leaf]:starts[leaf + 1]]
+        x = raw[rows][:, f].double() if f else \
+            torch.zeros((len(rows), 0), dtype=torch.float64,
+                        device=raw.device)
+        ok = ~torch.isnan(x).any(dim=1)
+        xa = torch.cat([x[ok], torch.ones((int(ok.sum()), 1),
+                                          dtype=torch.float64,
+                                          device=raw.device)], dim=1)
+        h = hess[rows][ok].double()
+        g = grad[rows][ok].double()
+        coef.append(None)
+        if xa.shape[0] < len(f) + 1:
+            continue
+        A = (xa * h[:, None]).T @ xa + torch.diag(torch.tensor(
+            [lam] * len(f) + [0.0], dtype=torch.float64, device=raw.device))
+        sol = -torch.linalg.solve(A, xa.T @ g).cpu().numpy()
+        if np.all(np.isfinite(sol)):
+            const[leaf] = sol[-1]
+            coef[-1] = sol[:-1]
+    return const, coef
+
+
+def phase_train_growth(torch, lgb, dev, tr, trq):
+    """The growth variants on the main path's data (ROADMAP Queue 1 item
+    16): the masked grower's first tree, the histogram pool (16 slots,
+    float and quantized, 2 iterations) against ``train``'s and
+    ``train_quant``'s trees, linear trees on a second Dataset of the same
+    rows (1 + 2 iterations: the fit's ms and peak memory, the second
+    tree's models against a float64 solve, the held-out AUC against the
+    plain twin, predict against a numpy walk of the model text), and the
+    level grower (per-row outputs equal to the compact grower's under
+    ``max_depth=7``; at the full budget 1 + 2 iterations, read-backs per
+    tree, one profiled iteration, AUC against the plain twin)."""
+    from lightgbm_tpu_torch.ops.histogram import plain_kernels
+    from lightgbm_tpu_torch.ops.linear import fit_leaf_linear
+    ds, Xv, yv = tr["ds"], tr["Xv"], tr["yv"]
+    base = {"objective": "binary", "num_leaves": 255, "max_bin": BINS,
+            "learning_rate": 0.1, "verbosity": -1, "device_type": dev.type}
+    train_trees = _model_trees(lgb, dev, tr["model_str"])
+    quant_trees = _model_trees(lgb, dev, trq["model_str"])
+    score = binary_scorer(torch, dev, yv)
+    out = {}
+
+    # ---- the masked grower: train's first tree ----
+    bst, out["masked"] = _growth_run(torch, lgb, dev,
+                                     {**base, "grower": "masked"}, ds, 1,
+                                     "train_masked")
+    _same_trees_as("train_masked", bst._models, train_trees, exact=True)
+    if out["masked"]["counts"]["hist"] != bst._models[0].num_leaves \
+            or out["masked"]["counts"]["partition"] != 0:
+        raise AssertionError("train_masked: not one K1 pass per leaf")
+
+    # ---- the histogram pool, 16 slots ----
+    nb = ds.num_total_bins()
+    pool_mb = 16.5 * FEATURES * nb * 8 / 2 ** 20
+    bst, out["pool"] = _growth_run(
+        torch, lgb, dev, {**base, "histogram_pool_size": pool_mb}, ds, 2,
+        "train_pool")
+    if out["pool"]["pool_slots"] != 16:
+        raise AssertionError("train_pool: the pool does not hold 16 slots")
+    same = _same_trees_as("train_pool", bst._models, train_trees,
+                          exact=False)
+    auc_pool = score(bst.predict(Xv))["auc"]
+    auc_train2 = score(lgb.Booster(model_str=tr["model_str"], params={
+        "device_type": dev.type}).predict(Xv, num_iteration=2))["auc"]
+    roots = [(int(t.split_feature[0]), float(t.threshold[0]))
+             for t in (bst._models[0], train_trees[0])]
+    log(f"[train_pool] auc={auc_pool:.6f} train's first 2 iterations "
+        f"auc={auc_train2:.6f} root splits {roots}")
+    # a recomputed float histogram can differ from a cached difference
+    # in the last bit (as in the JAX package): the float standard
+    if roots[0] != roots[1] or abs(auc_pool - auc_train2) > 0.002:
+        raise AssertionError("train_pool: root split or AUC differ from "
+                             "train's")
+    out["pool"].update(same_trees=same, auc=auc_pool, auc_train=auc_train2)
+    bst, out["pool_quant"] = _growth_run(
+        torch, lgb, dev, {**trq["params"], "histogram_pool_size": pool_mb},
+        ds, 2, "train_pool_quant")
+    _same_trees_as("train_pool_quant", bst._models, quant_trees, exact=True)
+
+    # ---- linear trees ----
+    t0 = time.perf_counter()
+    ds_lin = lgb.Dataset(tr["Xt"], label=ds.get_label(), params={
+        "max_bin": BINS, "linear_tree": True, "device_type": dev.type})
+    ds_lin.construct()
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    lin_params = {**base, "linear_tree": True}
+    captured = {}
+
+    def capture(b):
+        eng = b._engine
+        fit = eng._fit_linear
+
+        def wrapped(arrays, row_leaf, g, h, row_w, is_first):
+            if not is_first and "arrays" not in captured:
+                captured.update(arrays=arrays, row_leaf=row_leaf.clone(),
+                                g=g.clone(), h=h.clone())
+            return fit(arrays, row_leaf, g, h, row_w, is_first)
+        eng._fit_linear = wrapped
+        return {}
+    r = _drive(torch, lgb, dev, lin_params, ds_lin, Xv, yv, 2,
+               "train_linear", after_warmup=capture)
+    lin = r["bst"]
+    # the second tree's fit again, timed alone, and its peak memory
+    eng = lin._engine
+    a, rl = captured["arrays"], captured["row_leaf"]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    const, coeff, _, feats = eng._fit_linear(a, rl, captured["g"],
+                                             captured["h"], None, False)
+    ev1.record()
+    torch.cuda.synchronize()
+    fit_ms = ev0.elapsed_time(ev1)
+    fit_peak = torch.cuda.max_memory_allocated() - before
+    kmax = max(len(f) for f in feats)
+    ref_c, ref_k = _linear_reference(torch, ds_lin.device_raw(), rl,
+                                     captured["g"], captured["h"], feats,
+                                     0.0)
+    c_np = const.cpu().numpy()
+    k_np = coeff.cpu().numpy()
+    worst, fitted = 0.0, 0
+    for leaf, f in enumerate(feats):
+        if np.isnan(ref_c[leaf]):
+            continue
+        fitted += 1
+        want = np.concatenate([ref_k[leaf], [ref_c[leaf]]])
+        got = np.concatenate([k_np[leaf, :len(f)], [c_np[leaf]]])
+        worst = max(worst, float(np.abs(got - want).max()
+                                 / max(np.abs(want).max(), 1e-12)))
+    log(f"[train_linear] construct_s={construct_s:.3f} raw_bytes="
+        f"{ds_lin.device_raw().numel() * 4} fit_ms={fit_ms:.3f} (CUDA "
+        f"events, the second tree's fit) fit_peak_extra_bytes={fit_peak} "
+        f"k_max={kmax} leaves fitted={fitted}/{len(feats)} max relative "
+        f"error against the float64 solve={worst:.3g}")
+    if fitted == 0 or worst > 1e-3:
+        raise AssertionError("train_linear: the fit differs from the "
+                             "float64 solve")
+    text = lin.model_to_string()
+    raw = lin.predict(Xv, raw_score=True, num_iteration=3)
+    walk = numpy_predict_raw(text, Xv)
+    walk_err = float(np.abs(raw - walk).max())
+    _, m_p = _plain_twin(torch, lgb, dev, lin_params, ds_lin, Xv, yv, 3,
+                         "train_linear")
+    log(f"[train_linear] predict against the numpy walk max abs "
+        f"{walk_err:.3g}; auc={r['auc']:.6f} plain={m_p['auc']:.6f}; "
+        f"train's iter_s={statistics.median(tr['iter_s']):.4f}")
+    if walk_err > 1e-5 or abs(r["auc"] - m_p["auc"]) > 0.002:
+        raise AssertionError("train_linear: predict or AUC off")
+    out["linear"] = dict(counts=r["counts"], iter_s=r["iter_s"],
+                         fit_ms=fit_ms, fit_peak=fit_peak,
+                         construct_s=construct_s, auc=r["auc"],
+                         auc_plain=m_p["auc"], worst=worst)
+    del r, lin, eng, captured, ds_lin, a, rl
+
+    # ---- the level grower ----
+    bst_l, out["level_d7"] = _growth_run(
+        torch, lgb, dev, {**base, "grower": "level", "max_depth": 7}, ds, 1,
+        "train_level_d7")
+    bst_c, out["compact_d7"] = _growth_run(
+        torch, lgb, dev, {**base, "max_depth": 7}, ds, 1, "train_compact_d7")
+    # on training rows (a threshold in a range of empty bins splits
+    # them the same way, held-out rows maybe not)
+    Xs = tr["Xt"][:1_000_000]
+    pl = bst_l.predict(Xs, raw_score=True)
+    pc = bst_c.predict(Xs, raw_score=True)
+    d7 = float(np.abs(pl - pc).max())
+    # the same leaves: the share of rows in the compact leaf that holds
+    # most of their level leaf's rows. The level grower's totals are its
+    # histograms' feature-0 sums, the compact grower's its records', so
+    # a near tie can split a small leaf differently (the JAX package's
+    # growers too; ROADMAP.md Queue 3)
+    ll = bst_l.predict(Xs, pred_leaf=True)[:, 0].astype(np.int64)
+    lc = bst_c.predict(Xs, pred_leaf=True)[:, 0].astype(np.int64)
+    pairs, cnt = np.unique(ll * 1_000_000 + lc, return_counts=True)
+    best = {}
+    for pr, c in zip(pairs, cnt):
+        best[pr // 1_000_000] = max(best.get(pr // 1_000_000, 0), c)
+    agree = sum(best.values()) / len(ll)
+    close = float(np.mean(np.abs(pl - pc) <= 1e-5))
+    log(f"[train_level_d7] leaves {bst_l._models[0].num_leaves} and "
+        f"{bst_c._models[0].num_leaves}; {len(pairs)} (level, compact) leaf "
+        f"pairs; rows in the same leaf {agree:.6f}; per-row outputs within "
+        f"1e-5 {close:.6f}, max abs {d7:.3g} (1M training rows)")
+    out["level_d7"].update(max_abs=d7, agree=agree, close=close)
+    if bst_l._models[0].num_leaves != bst_c._models[0].num_leaves \
+            or agree < 0.99:
+        raise AssertionError("train_level_d7: differs from the compact "
+                             "grower under a budget that does not bind")
+    lvl_params = {**base, "grower": "level"}
+    r = _drive(torch, lgb, dev, lvl_params, ds, Xv, yv, 2, "train_level")
+    g = r["bst"]._engine.grower
+    rb = g.readbacks / len(r["bst"]._models)
+    prof = profile_iteration(torch, r["bst"], host=False)
+    _, m_p = _plain_twin(torch, lgb, dev, lvl_params, ds, Xv, yv, 3,
+                         "train_level")
+    log(f"[train_level] readbacks_per_tree={rb:.1f} (train: one per split "
+        f"and the root) launches per iteration="
+        f"{json.dumps({k: v / 3 for k, v in r['counts'].items()})} "
+        f"median_iter_s={statistics.median(r['iter_s']):.4f} (train's "
+        f"{statistics.median(tr['iter_s']):.4f}) auc={r['auc']:.6f} "
+        f"plain={m_p['auc']:.6f}")
+    if abs(r["auc"] - m_p["auc"]) > 0.002:
+        raise AssertionError("train_level: AUC not within 0.002 of the "
+                             "plain twin's")
+    out["level"] = dict(counts=r["counts"], iter_s=r["iter_s"],
+                        readbacks_per_tree=rb, profile=prof, auc=r["auc"],
+                        auc_plain=m_p["auc"])
+    return out
 
 
 def profile_iteration(torch, bst, host=True):
@@ -2454,7 +2772,8 @@ def phase_train_multiclass(torch, lgb, dev, iters, reps):
     held-out rows x 54 features, 7 classes, 255 leaves, 255 bins, EFB at
     its default, so the sparse one-hot indicators bundle): the bundles
     (G, B, group sizes); 1 warm-up + ``iters`` timed iterations of 7
-    trees, held-out multi_logloss and accuracy, one profiled iteration;
+    trees, held-out multi_logloss and accuracy (no profiled iteration:
+    its trace took 77.5 s of the smoke);
     against the plain twin, the first iteration's 7 root splits and
     multi_logloss within 0.002. The plain twin's float histograms are
     summed in float64 (:func:`exact_float_sums`): at this shape float32
@@ -2503,7 +2822,9 @@ def phase_train_multiclass(torch, lgb, dev, iters, reps):
     r = _drive(torch, lgb, dev, params, ds, Xv, yv, iters,
                "train_multiclass", scorer)
     _check_counts("train_multiclass", r["counts"], r["leaves"], "hist")
-    prof = profile_iteration(torch, r["bst"], host=False)
+    # no profiled iteration: its 319,716 device events took 77.5 s of
+    # the smoke's time, given up for train_growth (PERF.md section 4)
+    prof = None
     f32_drift = _f32_drift(torch, ds, yt)
 
     def roots(bst):
@@ -4792,6 +5113,8 @@ def main(argv=None):
     done("train_regression")
     tc = phase_train_constrained(torch, lgb, dev, tr, min(args.iters, 2))
     done("train_constrained")
+    tgr = phase_train_growth(torch, lgb, dev, tr, trq)
+    done("train_growth")
     sh = phase_surface_higgs(torch, lgb, dev, tr, min(args.iters, 3))
     for key in ("ds", "Xt", "target", "target_valid"):
         del tr[key]
@@ -4890,7 +5213,9 @@ def main(argv=None):
                 "surface_sklearn": sh["sk_counts"][key],
                 "surface_custom": sh["custom_counts"][key],
                 "surface_examples": sum(v[key]
-                                        for v in se["counts"].values())}
+                                        for v in se["counts"].values()),
+                **{f"train_growth_{k}": v["counts"][key]
+                   for k, v in tgr.items()}}
 
     # the rungs at the bundled widths join each kernel's ladder
     for key, shapes in (("k1", k1), ("k1_int", k1i), ("k2", k2)):

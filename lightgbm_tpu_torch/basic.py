@@ -269,6 +269,9 @@ class Dataset:
         self.params = dict(params or {})
         self.free_raw_data = free_raw_data
         self._bins: Optional[torch.Tensor] = None
+        # [n, F_used] float32 raw values on the device, kept for linear
+        # trees (None: not kept)
+        self._raw: Optional[torch.Tensor] = None
         self._bundle_cache: Dict[int, Any] = {}
         self._query_boundaries: Optional[np.ndarray] = None
         # the rows of the parent's raw data a subset holds
@@ -352,6 +355,17 @@ class Dataset:
         self._bins = bin_matrix(X, self._used_features, self.mappers,
                                 device=self.device)
         self._F = len(self.mappers)
+        # linear trees fit on the raw values of the used features
+        # (LightGBM's raw_data_); a valid set keeps them when its
+        # reference does, so a linear model can score it
+        self._raw = None
+        if cfg.linear_tree or (self.reference is not None
+                               and self.reference._raw is not None):
+            self._raw = torch.empty((n, len(self._used_features)),
+                                    dtype=torch.float32, device=self.device)
+            for i, j in enumerate(self._used_features):
+                self._raw[:, i] = torch.from_numpy(np.ascontiguousarray(
+                    X[:, j], np.float32)).to(self.device)
         self.label = y
         return self._install_metadata()
 
@@ -432,6 +446,8 @@ class Dataset:
                               for d in meta["full_mappers"]]
         self._n = self._bins.shape[0]
         self._F = len(self.mappers)
+        # a binary file holds no raw values, in either package
+        self._raw = None
         if self.reference is not None:
             ref = self.reference.construct()
             if [m.to_dict() for m in ref.mappers] != \
@@ -527,6 +543,23 @@ class Dataset:
                 bins_bundled=info.bins_bundled.to(self.device))
         self._bins = self._bins.cpu()
         return info
+
+    def raw_numeric(self) -> Optional[np.ndarray]:
+        """``[n, F_used]`` float32 raw values (NaN kept), a host copy of
+        :meth:`device_raw`; None when the Dataset keeps none (it keeps
+        them under ``linear_tree``, or when its reference does)."""
+        self.construct()
+        return None if self._raw is None else self._raw.cpu().numpy()
+
+    def device_raw(self) -> torch.Tensor:
+        """``[n, F_used]`` float32 raw values on the Dataset's device
+        (linear trees)."""
+        self.construct()
+        if self._raw is None:
+            raise LightGBMError(
+                "linear tree evaluation needs raw data; construct the "
+                "Dataset with the linear_tree parameter")
+        return self._raw
 
     def num_data(self) -> int:
         self.construct()
@@ -776,6 +809,9 @@ class Dataset:
             c + self._F_total for c in other._cat_idx}
         self._F += other._F
         self._F_total += other._F_total
+        self._raw = None if self._raw is None or other._raw is None \
+            else torch.cat([self._raw, other._raw.to(self._raw.device)],
+                           dim=1)
         return self
 
     def host_bins(self) -> np.ndarray:
@@ -1169,6 +1205,11 @@ class Booster:
         Queue 1 item 21)."""
         if not self._models:
             raise LightGBMError("Cannot refit an empty model")
+        if any(t.is_linear and t.leaf_coeff and any(
+                len(c) for c in t.leaf_coeff) for t in self._models):
+            raise LightGBMError(
+                "refit is not yet supported for linear trees (the "
+                "reference's is_refit CalculateLinear path)")
         from .objectives import create_objective
         from .ops.predict import predict_leaf_raw
         from .prediction import stack_trees

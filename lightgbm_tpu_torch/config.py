@@ -217,9 +217,6 @@ _TPU_KNOB = "a TPU layout knob of the JAX package with no counterpart " \
 
 # parameter -> (its JAX default, what brings it)
 NOT_IMPLEMENTED: Dict[str, tuple] = {
-    "linear_tree": (False, _Q1.format(16)),
-    "histogram_pool_size": (-1.0, _Q1.format(16)),
-    "grower": ("compact", _Q1.format(16)),
     "forcedbins_filename": ("", _Q1.format(18)),
     "two_round": (False, _Q1.format(18)),
     "ingest_chunk_rows": (0, _Q1.format(18)),
@@ -342,6 +339,17 @@ class Config:
     # what the CPU tests pass
     device_type: str = "cuda"
     max_depth: int = -1
+    # tree growth: compact (leaf-wise, rows grouped by leaf), level
+    # (depth-wise, a whole frontier per step) or masked (full-row
+    # masked histograms, the JAX package's correctness oracle)
+    grower: str = "compact"
+    # the leaf histogram cache in MB (-1: every leaf's; the compact
+    # grower keeps that many slots and recomputes a missed one)
+    histogram_pool_size: float = -1.0
+    # linear leaves: a ridge model per leaf on its branch's numerical
+    # features, fitted after growth from the second iteration on
+    linear_tree: bool = False
+    linear_lambda: float = 0.0
     min_data_in_leaf: int = 20
     min_sum_hessian_in_leaf: float = 1e-3
     max_delta_step: float = 0.0
@@ -481,6 +489,7 @@ class Config:
         "min_sum_hessian_in_leaf": (0.0, None),
         "lambda_l1": (0.0, None),
         "lambda_l2": (0.0, None),
+        "linear_lambda": (0.0, None),
         "min_gain_to_split": (0.0, None),
         "bagging_fraction": (0.0, 1.0, "gt"),
         "pos_bagging_fraction": (0.0, 1.0, "gt"),
@@ -566,6 +575,8 @@ class Config:
             raise ValueError(
                 f"Unknown monotone_constraints_method: "
                 f"{self.monotone_constraints_method}")
+        if self.grower not in ("compact", "masked", "level"):
+            raise ValueError(f"Unknown grower: {self.grower}")
 
     _LIST_INT = {"eval_at", "max_bin_by_feature", "monotone_constraints"}
     _LIST_FLOAT = {"feature_contri", "label_gain", "auc_mu_weights",

@@ -350,6 +350,8 @@ def _subset_dataset(full: Dataset, idx: np.ndarray) -> Dataset:
     idx = np.asarray(idx, np.int64)
     sub._bins = _take_rows(full._bins, torch.as_tensor(
         idx, device=full._bins.device))
+    sub._raw = None if full._raw is None else full._raw[torch.as_tensor(
+        idx, device=full._raw.device)]
     sub._bundle_cache = {}
     sub._n = len(idx)
     sub.used_indices = idx

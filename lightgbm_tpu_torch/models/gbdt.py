@@ -84,6 +84,27 @@ become per-feature arrays, and its state (:class:`ops.grow.CegbState`:
 the coupled features used, the rows that acquired each lazy feature)
 lives on the booster and carries across trees and iterations.
 
+Growth variants (the JAX booster's routing): ``grower`` ``compact``
+(the default), ``level`` or ``masked`` (:class:`ops.grow.Grower`);
+quantized gradients, interaction constraints, forced splits, CEGB,
+``path_smooth``, ``feature_fraction_bynode`` and monotone constraints
+move a run to the compact grower without a word, and the masked grower
+warns above 50M row-leaf products. Only the compact grower bundles
+(EFB) and takes ``histogram_pool_size``: its cache then holds ``max(2,
+MB * 2^20 // (C * B * 8))`` leaf histograms (C bin columns, B bins) when
+that is fewer than ``num_leaves``.
+
+Linear trees (``linear_tree``, ``linear_lambda``; LinearTreeLearner):
+no bundling; after growth, every tree from the second iteration on gets
+a ridge model per leaf on the train set's raw values
+(:func:`ops.linear.fit_leaf_linear`), and the train score adds the
+fitted outputs; the first iteration's trees stay constant (marked
+linear, with no features). The models are shrunk with the tree, the
+folded bias goes into ``leaf_const`` too, and coefficients of magnitude
+at most 1e-35 are dropped. Valid sets, DART, random forests and
+rollback score a linear tree on the set's raw values (the Dataset keeps
+them when its reference does).
+
 There is no fused/scan program, OOM ladder or resilience machinery: the
 loop is plain PyTorch on the device, driven from the host.
 """
@@ -96,8 +117,11 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..log import log_warning
 from ..ops.binning import BinType
 from ..ops.grow import CegbConfig, CegbState, GrowConfig, Grower
+from ..ops.linear import (branch_features_per_leaf, fit_leaf_linear,
+                          linear_leaf_values)
 from ..ops.partition import RangeRules
 from ..ops.predict import predict_leaf_binned
 from ..ops.renew import renew_leaf_values
@@ -185,12 +209,45 @@ def tree_values(tree: Tree, dataset, bundle=None) -> torch.Tensor:
     dataset's bundled matrix."""
     n = dataset.num_data()
     dev = dataset.device
+    linear = tree.is_linear and tree.leaf_const is not None
+    if tree.num_leaves <= 1:
+        base = tree.leaf_const[0] if linear else tree.leaf_value[0]
+        return torch.full((n,), float(np.float32(base)),
+                          dtype=torch.float32, device=dev)
+    leaves = _tree_leaves(tree, dataset, bundle)
+    if linear:
+        return _linear_values(tree, dataset, leaves)
     lv = torch.as_tensor(np.asarray(tree.leaf_value, np.float32),
                          device=dev)
-    if tree.num_leaves <= 1:
-        return torch.full((n,), float(lv[0]), dtype=torch.float32,
-                          device=dev)
-    return lv[_tree_leaves(tree, dataset, bundle)]
+    return lv[leaves]
+
+
+def _linear_values(tree: Tree, dataset, leaves: torch.Tensor):
+    """``[n]`` float32 outputs of a linear tree's leaves ``leaves`` on
+    ``dataset``'s raw values (the JAX ``_linear_values_binned``)."""
+    L = tree.num_leaves
+    dev = dataset.device
+    const = torch.as_tensor(np.asarray(tree.leaf_const[:L], np.float32),
+                            device=dev)
+    km = max((len(f) for f in tree.leaf_features), default=0)
+    if km == 0:
+        return const[leaves]
+    lf = np.zeros((L, km), np.int64)
+    nf = np.zeros(L, np.int64)
+    cf = np.zeros((L, km), np.float64)
+    for i in range(L):
+        inner = dataset.inner_feature_index(
+            np.asarray(tree.leaf_features[i], np.int64))
+        lf[i, :len(inner)] = inner
+        nf[i] = len(inner)
+        cf[i, :len(inner)] = tree.leaf_coeff[i]
+
+    def dv(a, dt=None):
+        return torch.as_tensor(a if dt is None else a.astype(dt), device=dev)
+    return linear_leaf_values(
+        const, dv(cf, np.float32), dv(lf), dv(nf),
+        dv(np.asarray(tree.leaf_value[:L]), np.float32),
+        dataset.device_raw(), leaves)
 
 
 class _ValidData:
@@ -243,14 +300,55 @@ class GBDTBooster:
                               np.float64).reshape(K)
         self.init_score = init
         self.score = self._base_score(self.n, user_init, True)
-        # EFB: train on the bundled matrix when the Dataset bundles
-        self.bundle = train_set.bundles(cfg)
         self.monotone = train_set.monotone_array(cfg)
+        # linear trees fit on the train set's raw values
+        self.raw = None
+        if cfg.linear_tree:
+            if self.monotone is not None:
+                raise ValueError(
+                    "linear_tree does not support monotone constraints "
+                    "(reference config check)")
+            if train_set._raw is None:
+                raise ValueError(
+                    "linear_tree requires the Dataset to be constructed "
+                    "with the linear_tree parameter (raw data retained)")
+            self.raw = train_set._raw
+        groups = self._interaction_groups(cfg)
+        forced = self._forced_splits(cfg)
+        cegb = self._cegb_config(cfg)
+        grower = cfg.grower
+        if cfg.use_quantized_grad or groups is not None \
+                or forced is not None or cegb is not None \
+                or cfg.path_smooth > 0.0 \
+                or cfg.feature_fraction_bynode < 1.0 \
+                or self.monotone is not None:
+            grower = "compact"
+        if grower == "masked" and self.n * cfg.num_leaves > 50_000_000:
+            log_warning(
+                "grower=masked rebuilds every histogram with a full-row "
+                "pass: O(num_leaves * rows * features) per tree "
+                f"(~{self.n * cfg.num_leaves / 1e9:.1f}B row-visits "
+                "here). Use grower=compact (the default) for data of "
+                "this size.")
+        # EFB: train on the bundled matrix when the Dataset bundles (the
+        # compact grower only, and not under linear trees)
+        self.bundle = train_set.bundles(cfg) \
+            if grower == "compact" and not cfg.linear_tree else None
+        num_bins = train_set.num_total_bins() if self.bundle is None \
+            else self.bundle.num_positions
+        # the histogram cache's slots (histogram_pool_size MB)
+        pool = 0
+        if cfg.histogram_pool_size > 0 and grower == "compact":
+            ncols = len(train_set.mappers) if self.bundle is None \
+                else self.bundle.bins_bundled.shape[1]
+            slots = max(2, int(cfg.histogram_pool_size * 2 ** 20
+                               // (ncols * num_bins * 2 * 4)))
+            if slots < cfg.num_leaves:
+                pool = slots
         self.grower = Grower(
             GrowConfig(
                 num_leaves=cfg.num_leaves,
-                num_bins=train_set.num_total_bins() if self.bundle is None
-                else self.bundle.num_positions,
+                num_bins=num_bins,
                 max_depth=cfg.max_depth,
                 split=SplitParams(
                     lambda_l1=cfg.lambda_l1, lambda_l2=cfg.lambda_l2,
@@ -269,13 +367,13 @@ class GBDTBooster:
                 quant_bins=cfg.num_grad_quant_bins,
                 renew_leaf=cfg.quant_train_renew_leaf,
                 bynode=cfg.feature_fraction_bynode,
-                monotone_method=cfg.monotone_constraints_method),
+                monotone_method=cfg.monotone_constraints_method,
+                grower=grower, pool_slots=pool),
             None if self.bundle is not None else train_set.device_bins(),
             train_set.feat_num_bins(), train_set.feat_nan_bin(),
             bundle=self.bundle, feat_is_cat=train_set.feat_is_cat(),
-            monotone=self.monotone,
-            interaction_groups=self._interaction_groups(cfg),
-            forced=self._forced_splits(cfg), cegb=self._cegb_config(cfg))
+            monotone=self.monotone, interaction_groups=groups,
+            forced=forced, cegb=cegb)
         self.cegb_state = None
         if self.grower.cegb is not None:
             self.cegb_state = CegbState(
@@ -542,6 +640,11 @@ class GBDTBooster:
                 # AsConstantTree: only the folded bias, at iteration 0
                 bias = bias if it == 0 else 0.0
                 tree.leaf_value[:] = bias
+                if cfg.linear_tree:
+                    tree.is_linear = True
+                    tree.leaf_const = tree.leaf_value.copy()
+                    tree.leaf_features = [[] for _ in range(tree.num_leaves)]
+                    tree.leaf_coeff = [[] for _ in range(tree.num_leaves)]
                 self.models.append(tree)
                 if is_rf:
                     self._average_in(k, it, bias, lambda v: bias)
@@ -550,13 +653,23 @@ class GBDTBooster:
                         v.score[k] += bias
                 continue
             grew_any = True
-            leaf_value = torch.as_tensor(arrays.leaf_value,
-                                         device=self.device)
-            contrib = leaf_value[row_leaf]
+            lin = None
+            if cfg.linear_tree:
+                lin = self._fit_linear(arrays, row_leaf, g[k], h[k], row_w,
+                                       len(self.models) < K)
+                contrib = lin[2]
+            else:
+                contrib = torch.as_tensor(arrays.leaf_value,
+                                          device=self.device)[row_leaf]
             tree.apply_shrinkage(shrinkage)
+            if lin is not None:
+                self._attach_linear(tree, lin, shrinkage)
             if bias:
                 tree.leaf_value = tree.leaf_value + bias
                 tree.internal_value = tree.internal_value + bias
+                if tree.is_linear:
+                    # Tree::AddBias moves leaf_const too
+                    tree.leaf_const = tree.leaf_const + bias
             self.models.append(tree)
             if is_rf:
                 self._average_in(k, it, contrib + float(self.init_score[k]),
@@ -569,6 +682,58 @@ class GBDTBooster:
             self._dart_normalize(drop_idx)
         self.iter_ += 1
         return not grew_any
+
+    # -- linear leaves (LinearTreeLearner::CalculateLinear) ---------------
+    def _fit_linear(self, arrays, row_leaf: torch.Tensor,
+                    grad: torch.Tensor, hess: torch.Tensor,
+                    row_w: Optional[torch.Tensor], is_first: bool):
+        """The leaves' linear models of a grown tree: ``(const [L],
+        coeff [L, k] or None, train outputs [n], per-leaf inner
+        features)``. The first iteration's trees keep their constants."""
+        L = arrays.num_leaves
+        lv = torch.as_tensor(arrays.leaf_value[:L], device=self.device)
+        mappers = self.train_set.mappers
+        feats = [[] for _ in range(L)] if is_first \
+            else branch_features_per_leaf(
+                arrays.split_feature, arrays.left_child,
+                arrays.right_child, arrays.leaf_parent, L,
+                lambda f: mappers[f].bin_type == BinType.NUMERICAL)
+        kmax = max(len(f) for f in feats)
+        if kmax == 0:
+            return lv, None, lv[row_leaf], feats
+        lf = np.zeros((L, kmax), np.int64)
+        nf = np.zeros(L, np.int64)
+        for i, f in enumerate(feats):
+            lf[i, :len(f)] = f
+            nf[i] = len(f)
+        const, coeff, pred = fit_leaf_linear(
+            self.raw, row_leaf, grad, hess, row_w,
+            torch.as_tensor(lf, device=self.device),
+            torch.as_tensor(nf, device=self.device), lv,
+            self.cfg.linear_lambda)
+        return const, coeff, pred, feats
+
+    def _attach_linear(self, tree: Tree, lin, shrinkage: float) -> None:
+        """The fit into the host tree: real feature ids, scaled by the
+        shrinkage in float64, coefficients of magnitude at most 1e-35
+        dropped (the JAX ``_attach_linear``)."""
+        const, coeff, _, feats = lin
+        used = self.train_set.used_feature_indices()
+        tree.is_linear = True
+        tree.leaf_const = const.cpu().numpy().astype(np.float64) \
+            * shrinkage
+        cnp = None if coeff is None \
+            else coeff.cpu().numpy().astype(np.float64)
+        tree.leaf_features, tree.leaf_coeff = [], []
+        for i, fl in enumerate(feats):
+            fs, cs = [], []
+            for j, f in enumerate(fl):
+                c = 0.0 if cnp is None else cnp[i, j]
+                if abs(c) > 1e-35:
+                    fs.append(int(used[f]))
+                    cs.append(c * shrinkage)
+            tree.leaf_features.append(fs)
+            tree.leaf_coeff.append(cs)
 
     def _tree_values(self, tree: Tree, dataset) -> torch.Tensor:
         """:func:`tree_values`, over the bundled matrix for the train

@@ -3,9 +3,9 @@
 A copy of ``lightgbm_tpu/models/tree.py`` without its JAX pieces: trees
 are plain numpy arrays on the host, written and read in the same text
 layout, so a model saved by either package loads in the other.
-Linear-leaf fields are parsed and written back as they are (so any
-model text round-trips), but the port grows and predicts constant leaves
-only. Categorical splits are written as LightGBM writes them: a bitset of
+Linear leaves (``is_linear``: ``leaf_const``, ``leaf_features`` as real
+feature ids, ``leaf_coeff``) are read, written and shrunk as in the JAX
+package. Categorical splits are written as LightGBM writes them: a bitset of
 raw category values per split (``cat_boundaries`` / ``cat_threshold``,
 ``threshold`` the split's index among them, ``decision_type`` bit 0).
 
@@ -90,11 +90,14 @@ class Tree:
         return inside & (bit != 0)
 
     def apply_shrinkage(self, rate: float) -> None:
-        """Tree::Shrinkage (tree.h:188), for the constant-leaf trees the
-        port grows."""
+        """Tree::Shrinkage (tree.h:188; scales linear leaves too)."""
         self.leaf_value = self.leaf_value * rate
         self.internal_value = self.internal_value * rate
         self.shrinkage *= rate
+        if self.is_linear and self.leaf_const is not None:
+            self.leaf_const = self.leaf_const * rate
+            self.leaf_coeff = [[c * rate for c in cs]
+                               for cs in (self.leaf_coeff or [])]
 
     # -- text format ------------------------------------------------------
     def to_string(self, index: int) -> str:

@@ -1,4 +1,5 @@
-"""Leaf-wise tree growth with rows kept physically grouped by leaf.
+"""Tree growth: leaf-wise with rows kept physically grouped by leaf, and
+its variants (a bounded histogram cache, depth-wise and masked growth).
 
 Counterpart of the JAX compact grower (``lightgbm_tpu/ops/grow.py``
 ``_grow_compact_impl``): ``num_leaves``, ``num_bins``, ``max_depth``,
@@ -119,6 +120,47 @@ ns + 1`` and ``2 * ns + 2`` for the children of split ``ns``): each node
 searches the ``max(1, round(bynode * |usable|))`` usable features of
 smallest draw (the JAX ``node_feature_mask``).
 
+The histogram pool (``GrowConfig.pool_slots``, ``histogram_pool_size``;
+the JAX grower's ``hist_pool_slots``): the cache holds ``PS <
+num_leaves`` histograms; the host maps leaves to slots (``leaf2slot``,
+``slot2leaf``) and stamps each slot with the split that last stored in
+it. A split whose leaf has no slot recomputes the leaf's histogram from
+its window with K1 (at the tree's fixed-point bound) before K2 moves the
+rows; its left child keeps the leaf's slot (or takes the least recently
+stamped one), its right child the least recently stamped other slot,
+whose leaf loses it. Forced splits and the re-search read an evicted
+leaf's histogram the same way. Quantized histograms are exact, so a
+pooled quantized tree equals the unpooled one; a recomputed float
+histogram can differ from a cached difference in the last bit, as in
+the JAX package.
+
+The level grower (``GrowConfig.grower="level"``, the JAX
+``_grow_level_impl``) grows depth-wise on the same layout: per level it
+elects the frontier leaves of positive gain, the best first (a stable
+sort, ties to the lower slot) while the leaf budget lasts; K2 partitions
+every elected leaf's window (the right child of the ``j``-th elected
+leaf, in slot order, takes slot ``ns + 1 + j`` and node ``ns + j``); one
+read-back brings the level's left counts; K1 builds every smaller child
+(by the exact counts) and its sibling is the parent less it; the whole
+new frontier is searched in one batched call, its totals from each
+histogram's feature-0 row (:func:`leaf_totals`), and a second read-back
+brings its records: two read-backs per level instead of one per split.
+It covers the core set (numerical and categorical splits, row weights,
+``max_depth``) and refuses the rest, as the JAX grower does.
+
+The masked grower (``grower="masked"``, the JAX ``_grow_masked_impl``,
+its correctness oracle) keeps the rows in row order and their leaves in
+a device ``row_leaf``: a split routes the leaf's rows by the same
+decision K2 applies (:func:`ops.partition.go_left` on the split's rule),
+counts the in-bag rows going left, and K1 sums all ``n`` rows with the
+payload masked to the smaller child (by the exact counts); the sibling
+is the parent less it. One read-back per split, as the compact grower.
+K1's float path scales its fixed point by the window's row count; the
+masked pass hands K1 a bound scaled by ``2^(lc(cnt) - lc(n))`` (``lc``
+the bit length of ``count - 1``, ``cnt`` the child's in-bag rows), so
+each row is rounded as in the child's own window and the sums equal the
+compact grower's bit for bit.
+
 Int32 range: an entry of a window's histogram is at most ``cnt *
 quant_bins`` in magnitude (``cnt * 127`` for any int8 payload), so the
 exact int32 sums hold for ``n < 2**31 / quant_bins`` rows (16.9M for any
@@ -136,7 +178,7 @@ import numpy as np
 import torch
 
 from .histogram import subtract_histogram, window_hist
-from .partition import RangeRules, partition_window
+from .partition import RangeRules, go_left, partition_window
 from .predict import predict_leaf_binned
 from .quantize import dequantize, discretize
 from .split import (F_, FIELDS, AdvancedBounds, BundleTables, SplitParams,
@@ -144,7 +186,8 @@ from .split import (F_, FIELDS, AdvancedBounds, BundleTables, SplitParams,
                     leaf_output)
 
 __all__ = ["GrowConfig", "TreeArrays", "Grower", "grow_tree", "root_totals",
-           "CegbConfig", "CegbState", "allowed_features", "advanced_bounds"]
+           "leaf_totals", "masked_absmax", "CegbConfig", "CegbState",
+           "allowed_features", "advanced_bounds"]
 
 NF = len(FIELDS)
 
@@ -163,6 +206,10 @@ class GrowConfig(NamedTuple):
     bynode: float = 1.0
     # monotone_constraints_method: basic, intermediate or advanced
     monotone_method: str = "basic"
+    # compact, level or masked
+    grower: str = "compact"
+    # histogram cache slots (0: one per leaf)
+    pool_slots: int = 0
 
 
 class TreeArrays(NamedTuple):
@@ -269,6 +316,32 @@ def root_totals(full: torch.Tensor):
     return full[:, 0].sum(), full[:, 1].sum()
 
 
+def leaf_totals(hf: torch.Tensor) -> torch.Tensor:
+    """``[S, 2]`` (sum_grad, sum_hess) of ``S`` leaves from their float
+    histograms ``[S, C, B, 2]``: every row hits column 0 once. The
+    re-search and the level grower take a leaf's totals from it, as the
+    JAX growers do; the CPU tests hand in XLA's sums through this
+    function."""
+    return hf[:, 0].sum(dim=1)
+
+
+def _bit_length(c: torch.Tensor) -> torch.Tensor:
+    """``(c - 1).bit_length()`` of int64 counts ``c >= 1`` (0 for 1)."""
+    x = (c - 1).clamp_min(0).to(torch.float64)
+    return torch.where(c > 1, torch.frexp(x).exponent.to(torch.int64), 0)
+
+
+def masked_absmax(absmax: torch.Tensor, cnt: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """The fixed-point bound of a K1 pass over ``n`` rows of which only
+    ``cnt`` (an int64 device scalar) carry payload: ``absmax`` times
+    ``2^(lc(cnt) - lc(n))``, so that K1's scale (``fixed_exponent`` of
+    ``csrc/hist.cu``: ``62 - lc(rows) - frexp exponent``) is the one of
+    a window of ``cnt`` rows."""
+    shift = _bit_length(cnt) - _bit_length(torch.tensor(n, device=cnt.device))
+    return torch.ldexp(absmax, shift.to(absmax.dtype))
+
+
 class CegbConfig(NamedTuple):
     """Cost-effective gradient boosting (the JAX grower's ``cegb_*``
     knobs): ``tradeoff`` scales every penalty; ``split`` is charged per
@@ -370,6 +443,42 @@ def advanced_bounds(box_lo: torch.Tensor, box_hi: torch.Tensor,
         smax=torch.where(up_any, v2, inf).amin(dim=1))
 
 
+def _check_grower(cfg: GrowConfig, bundle, interaction_groups, forced,
+                  cegb) -> None:
+    """The JAX ``grow_tree_impl``'s refusals: the level and masked
+    growers cover the core set only, and the pool is the compact
+    grower's."""
+    if cfg.grower not in ("compact", "level", "masked"):
+        raise ValueError(f"Unknown grower: {cfg.grower}")
+    if cfg.grower == "level":
+        if bundle is not None or interaction_groups is not None \
+                or forced is not None or cegb is not None \
+                or cfg.quantized or cfg.bynode < 1.0 \
+                or cfg.split.path_smooth > 0.0 or cfg.pool_slots > 0:
+            raise NotImplementedError(
+                "grower='level' covers the core feature set only (no "
+                "EFB/interaction/forced/CEGB/quantized/bynode/"
+                "path-smooth/histogram-pool; data-parallel sharding "
+                "only) — use grower='compact'")
+    elif cfg.grower == "masked":
+        if bundle is not None:
+            raise NotImplementedError(
+                "EFB bundling requires the compact grower")
+        if interaction_groups is not None or forced is not None \
+                or cegb is not None:
+            raise NotImplementedError(
+                "interaction_constraints/forced splits/CEGB require the "
+                "compact grower")
+        if cfg.bynode < 1.0 or cfg.split.path_smooth > 0.0:
+            raise NotImplementedError(
+                "path_smooth/feature_fraction_bynode require the compact "
+                "grower")
+        if cfg.quantized or cfg.pool_slots > 0:
+            raise NotImplementedError(
+                "quantized gradients and the histogram pool require the "
+                "compact grower")
+
+
 # bytes of advanced_bounds' temporaries per queried leaf and (leaf,
 # feature, bin) cell: the chunk of queried leaves is sized from them
 _ADV_BYTES_PER_CELL = 12
@@ -385,9 +494,10 @@ class Grower:
     (``bundle.bins_bundled``; ``bins`` is then None).
 
     The ping-pong buffers (``2 * n * (C + 12)`` bytes, ``2 * n * (C + 6)``
-    when quantized, for ``C`` bin columns) and the per-leaf histogram
-    cache (``L * C * B * 8`` bytes, f32 or int32) are allocated once and
-    reused by every tree.
+    when quantized, for ``C`` bin columns; none for the masked grower)
+    and the histogram cache (``L * C * B * 8`` bytes, f32 or int32;
+    ``pool_slots`` instead of ``L`` under the pool) are allocated once
+    and reused by every tree.
 
     ``interaction_groups``: ``[G, F]`` bool interaction constraints.
     ``forced``: ``(leaf_slots, features, bins)`` of the forced splits in
@@ -405,6 +515,7 @@ class Grower:
         dev = bins.device
         L, B = cfg.num_leaves, cfg.num_bins
         F = len(feat_num_bins)
+        _check_grower(cfg, bundle, interaction_groups, forced, cegb)
         self.cfg, self.n, self.F, self.dev = cfg, n, F, dev
         self.bins = bins
         self.bundled = bundle is not None
@@ -418,13 +529,16 @@ class Grower:
             else np.asarray(feature_mask, bool)
         self.fmask_host = fm
         self.fmask = torch.as_tensor(fm, device=dev)
-        self.bins2 = torch.empty((2, n, C), dtype=bins.dtype, device=dev)
         q = cfg.quantized
-        self.pay2 = torch.empty((2, n, 2), device=dev,
-                                dtype=torch.int8 if q else torch.float32)
-        self.ids2 = torch.empty((2, n), dtype=torch.int32, device=dev)
-        self.hists = torch.empty((L, C, B, 2), device=dev,
-                                 dtype=torch.int32 if q else torch.float32)
+        if cfg.grower != "masked":
+            self.bins2 = torch.empty((2, n, C), dtype=bins.dtype, device=dev)
+            self.pay2 = torch.empty((2, n, 2), device=dev,
+                                    dtype=torch.int8 if q else torch.float32)
+            self.ids2 = torch.empty((2, n), dtype=torch.int32, device=dev)
+        self.pooled = 0 < cfg.pool_slots < L
+        self.hists = torch.empty(
+            (cfg.pool_slots if self.pooled else L, C, B, 2), device=dev,
+            dtype=torch.int32 if q else torch.float32)
         self.best = torch.empty((L, NF), dtype=torch.float32, device=dev)
         self.row_ids = torch.arange(n, dtype=torch.int32, device=dev)
         # categorical features: the leaves' and the splits' masks
@@ -461,10 +575,63 @@ class Grower:
         # the leaves' exact counts on the device (the re-search's and
         # CEGB's; the host learns them one split late)
         self.track_counts = self.intermediate or cegb is not None
-        # re-searched leaves, summed over the trees grown (the smoke
-        # prints it per tree)
+        # summed over the trees grown (the smoke prints them per tree):
+        # leaves re-searched, the host's read-backs, the histograms a
+        # pool miss recomputed
         self.researched = 0
+        self.readbacks = 0
+        self.pool_misses = 0
         self.adv_chunk = None
+
+    def _host(self, t: torch.Tensor) -> np.ndarray:
+        """A read-back of the growth loop (counted)."""
+        self.readbacks += 1
+        return t.cpu().numpy()
+
+    # -- the histogram cache ---------------------------------------------
+    def _leaf_hist(self, st, leaf: int) -> torch.Tensor:
+        """Leaf ``leaf``'s cached histogram; under the pool, an evicted
+        one recomputed from its window (K1 at the tree's bound)."""
+        if not self.pooled:
+            return self.hists[leaf]
+        slot = st.leaf2slot[leaf]
+        if slot >= 0:
+            return self.hists[slot]
+        self.pool_misses += 1
+        b = int(st.leaf_buf[leaf])
+        return window_hist(self.bins2[b], self.pay2[b], self.cfg.num_bins,
+                           int(st.leaf_begin[leaf]),
+                           int(st.leaf_count[leaf]), pay_absmax=st.absmax)
+
+    def _store_children(self, st, leaf: int, R: int, lh, rh) -> None:
+        """Cache the children of split ``R - 1`` of ``leaf``; under the
+        pool, the left child keeps ``leaf``'s slot or takes the least
+        recently stamped one, the right child the least recently stamped
+        other slot (HistogramPool's LRU, the JAX grower's ``alloc``)."""
+        if not self.pooled:
+            self.hists[leaf] = lh
+            self.hists[R] = rh
+            return
+        l2s, s2l, lru = st.leaf2slot, st.slot2leaf, st.lru
+
+        def victim(forbid: int) -> int:
+            score = lru.copy()
+            if forbid >= 0:
+                score[forbid] = 2 ** 30
+            v = int(np.argmin(score))
+            if s2l[v] >= 0:
+                l2s[s2l[v]] = -1
+            return v
+        s_l = int(l2s[leaf]) if l2s[leaf] >= 0 else victim(-1)
+        s2l[s_l] = leaf
+        lru[s_l] = R
+        s_r = victim(s_l)
+        s2l[s_r] = R
+        lru[s_r] = R
+        l2s[leaf] = s_l
+        l2s[R] = s_r
+        self.hists[s_l] = lh
+        self.hists[s_r] = rh
 
     # -- the search ------------------------------------------------------
     def _search(self, hist2, g, h, c, fmask, p_out, depth, bounds,
@@ -571,8 +738,9 @@ class Grower:
         and returns the records."""
         t = st.t
         slots = range(S)
-        hf = st.hist_f(self.hists[:S])
-        sums = hf[:, 0].sum(dim=1)
+        hf = st.hist_f(torch.stack([self._leaf_hist(st, s) for s in slots])
+                       if self.pooled else self.hists[:S])
+        sums = leaf_totals(hf)
         cnt = st.cnt_dev[:S]
         p_out = torch.as_tensor(t["leaf_value"][:S], device=self.dev)
         bounds = None
@@ -612,6 +780,8 @@ class Grower:
             else np.asarray(feature_mask, bool)
         st.fmask = self.fmask if feature_mask is None \
             else torch.as_tensor(fm, device=dev)
+        if cfg.grower == "masked":
+            return self._grow_masked(st, grad, hess, row_weight)
         st.usable = int(fm.sum())
         st.node_uniform = node_uniform if cfg.bynode < 1.0 else None
         st.cegb = cegb_state
@@ -704,8 +874,7 @@ class Grower:
             self._leaf_masks(st, [0]), root_out[None], 0, root_bounds,
             root_pen)
         self._store([0], rec, masks)
-        host = torch.cat([rec[0], torch.stack([root_out, th])
-                          ]).cpu().numpy()
+        host = self._host(torch.cat([rec[0], torch.stack([root_out, th])]))
         t["leaf_value"][0] = host[NF]
         t["leaf_weight"][0] = host[NF + 1]
         t["leaf_count"][0] = m
@@ -718,6 +887,11 @@ class Grower:
         st.leaf_count = np.zeros(L, np.int64)
         st.leaf_count[0] = m
         st.ns = 0
+        if self.pooled:
+            st.leaf2slot = np.full(L, -1, np.int64)
+            st.slot2leaf = np.full(cfg.pool_slots, -1, np.int64)
+            st.lru = np.zeros(cfg.pool_slots, np.int64)
+            st.leaf2slot[0] = st.slot2leaf[0] = 0
 
         # ---- forced splits: the first ones of the tree, in BFS order;
         # an invalid one (an empty child) ends them all ----
@@ -727,7 +901,7 @@ class Grower:
                 if st.ns >= L - 1:
                     break
                 rec = forced_result(
-                    hist_f(self.hists[leaf]),
+                    hist_f(self._leaf_hist(st, int(leaf))),
                     torch.tensor(float(st.leaf_count[leaf]),
                                  dtype=torch.float32, device=dev),
                     int(f), int(tb),
@@ -735,27 +909,22 @@ class Grower:
                                  dtype=torch.float32, device=dev),
                     (st.lmin[leaf], st.lmax[leaf]) if has_mono else None,
                     p, exact, self.rules)
-                r = rec.cpu().numpy()
+                r = self._host(rec)
                 if not (r[F_["left_count"]] > 0 and r[F_["right_count"]] > 0):
                     break
                 self.best[leaf] = rec
                 st.best_h[leaf] = r
                 self._split(st, int(leaf), r)
 
+        if cfg.grower == "level":
+            self._grow_levels(st)
         while st.ns < L - 1 and st.gains.max() > 0.0:
             leaf = int(np.argmax(st.gains))
             self._split(st, leaf, st.best_h[leaf])
 
         nleaves = t["num_leaves"]
         nn = nleaves - 1
-        cat_masks = None
-        if self.fcat is not None and t["split_is_cat"][:nn].any():
-            # the tree's one read-back of its masks
-            cat_masks = self.split_mask[:nn]
-            t["split_cat_mask"] = np.zeros((L - 1, B), bool)
-            t["split_cat_mask"][:nn] = cat_masks.cpu().numpy()
-        else:
-            t["split_cat_mask"] = np.zeros((L - 1, B), bool)
+        cat_masks = self._cat_masks(t)
         row_leaf = self._row_leaf(nleaves, st.leaf_buf, st.leaf_begin,
                                   st.leaf_count, m)
         if oob is not None and nleaves > 1:
@@ -770,6 +939,33 @@ class Grower:
             t["leaf_value"][:nleaves] = self._renewed_leaf_values(
                 grad, hess, row_leaf, nleaves)
         return TreeArrays(**t), row_leaf
+
+    def _rule(self, leaf: int, r: np.ndarray, node: int):
+        """The decision of split ``node`` of ``leaf`` by its host record
+        ``r``: ``(col, lo, hi, nan_pos, bits)``, the range rule, or with
+        ``bits`` the membership rule of a categorical split, whose mask
+        the split keeps (:class:`ops.partition.RangeRules`)."""
+        f = int(r[F_["feature"]])
+        col, lo, hi, nan_pos = self.rules(f, int(r[F_["threshold_bin"]]))
+        bits = None
+        if r[F_["direction"]] >= 2:
+            self.split_mask[node] = self.best_mask[leaf]
+            bits = self.rules.bitsets([f], self.best_mask[leaf][None],
+                                      self.cfg.num_bins)[0]
+        return col, lo, hi, nan_pos, bits
+
+    def _cat_masks(self, t: dict):
+        """The splits' categorical masks on the device (None without a
+        categorical split), with the tree's one read-back of them into
+        ``t["split_cat_mask"]``."""
+        L, B = self.cfg.num_leaves, self.cfg.num_bins
+        nn = t["num_leaves"] - 1
+        t["split_cat_mask"] = np.zeros((L - 1, B), bool)
+        if self.fcat is None or not t["split_is_cat"][:nn].any():
+            return None
+        cat_masks = self.split_mask[:nn]
+        t["split_cat_mask"][:nn] = self._host(cat_masks)
+        return cat_masks
 
     def _split(self, st, leaf: int, r: np.ndarray) -> None:
         """Split leaf slot ``leaf`` by its host record ``r``: K2 moves its
@@ -788,12 +984,10 @@ class Grower:
         f_split = int(r[F_["feature"]])
         t_bin = int(r[F_["threshold_bin"]])
         is_cat = r[F_["direction"]] >= 2
-        col, lo, hi, nan_pos = self.rules(f_split, t_bin)
-        bits = None
-        if is_cat:
-            self.split_mask[ns] = self.best_mask[leaf]
-            bits = self.rules.bitsets([f_split],
-                                      self.best_mask[leaf][None], B)[0]
+        col, lo, hi, nan_pos, bits = self._rule(leaf, r, ns)
+        # the parent's histogram before K2 moves its rows (a pool miss
+        # recomputes it from the window)
+        parent = self._leaf_hist(st, leaf)
         nl = partition_window(
             self.bins2[src], self.bins2[dst], self.pay2[src],
             self.pay2[dst], self.ids2[src], self.ids2[dst], begin, cnt,
@@ -802,10 +996,9 @@ class Grower:
         small = window_hist(self.bins2[dst], self.pay2[dst], B, begin,
                             cnt, nl, 1 if est_left_small else 2,
                             pay_absmax=st.absmax)
-        other = subtract_histogram(self.hists[leaf], small)
+        other = subtract_histogram(parent, small)
         lh, rh = (small, other) if est_left_small else (other, small)
-        self.hists[leaf] = lh
-        self.hists[R] = rh
+        self._store_children(st, leaf, R, lh, rh)
         nlf = nl.to(torch.float32)
         cnt2 = torch.cat([nlf, float(cnt) - nlf])
         if st.cnt_dev is not None:
@@ -889,8 +1082,8 @@ class Grower:
                 depth, bounds2, pen2)
             slots = [leaf, R]
             self._store(slots, rec, masks)
-        host = torch.cat([rec.reshape(-1).double(),
-                          nl.double()]).cpu().numpy()
+        host = self._host(torch.cat([rec.reshape(-1).double(),
+                                     nl.double()]))
         n_left = int(host[-1])
         n_right = cnt - n_left
         t["leaf_count"][leaf] = n_left
@@ -906,6 +1099,172 @@ class Grower:
             ok = cfg.max_depth <= 0 or t["leaf_depth"][s] < cfg.max_depth
             st.gains[s] = recs[i, F_["gain"]] if ok else -np.inf
         st.ns = ns + 1
+
+    # -- the level grower -----------------------------------------------
+    def _grow_levels(self, st) -> None:
+        """Depth-wise growth from the root's record (the JAX
+        ``level_step`` loop): each level elects, partitions, histograms
+        and searches its whole frontier with two read-backs."""
+        cfg = self.cfg
+        L, B = cfg.num_leaves, cfg.num_bins
+        t, dev = st.t, self.dev
+        level = 0
+        while st.ns < L - 1 and st.gains.max() > 0.0:
+            S = t["num_leaves"]
+            gains = st.gains[:S]
+            cand = gains > 0.0
+            order = np.argsort(np.where(cand, -gains, np.inf),
+                               kind="stable")
+            rank = np.empty(S, np.int64)
+            rank[order] = np.arange(S)
+            elected = np.nonzero(cand & (rank < L - 1 - st.ns))[0]
+            ns0 = st.ns
+            # K2 on every elected leaf's window, no read-back between
+            moves, nls = [], []
+            for j, leaf in enumerate(elected):
+                leaf = int(leaf)
+                r = st.best_h[leaf]
+                node, R = ns0 + j, ns0 + 1 + j
+                src = int(st.leaf_buf[leaf])
+                begin, cnt = int(st.leaf_begin[leaf]), int(st.leaf_count[leaf])
+                col, lo, hi, nan_pos, bits = self._rule(leaf, r, node)
+                nls.append(partition_window(
+                    self.bins2[src], self.bins2[1 - src], self.pay2[src],
+                    self.pay2[1 - src], self.ids2[src], self.ids2[1 - src],
+                    begin, cnt, col, lo, hi, nan_pos,
+                    bool(r[F_["default_left"]]), bits))
+                _apply_split(t, r, leaf, R, node, 0.0, 0.0)
+                moves.append((leaf, R, node, 1 - src, begin, cnt))
+            st.ns = ns0 + len(elected)
+            # the level's one read-back of its counts, then K1 on every
+            # smaller child (exact counts) and the siblings by subtraction
+            n_left = self._host(torch.cat(nls)).astype(np.int64)
+            slots = []
+            for (leaf, R, node, dst, begin, cnt), nl in zip(moves, n_left):
+                nl = int(nl)
+                nr = cnt - nl
+                t["leaf_count"][leaf], t["leaf_count"][R] = nl, nr
+                t["internal_count"][node] = np.float32(nl) + np.float32(nr)
+                st.leaf_buf[leaf] = st.leaf_buf[R] = dst
+                st.leaf_count[leaf], st.leaf_count[R] = nl, nr
+                st.leaf_begin[R] = begin + nl
+                left_small = nl <= nr
+                small = window_hist(
+                    self.bins2[dst], self.pay2[dst], B,
+                    begin if left_small else begin + nl,
+                    nl if left_small else nr, pay_absmax=st.absmax)
+                other = subtract_histogram(self.hists[leaf], small)
+                lh, rh = (small, other) if left_small else (other, small)
+                self.hists[leaf] = lh
+                self.hists[R] = rh
+                slots += [leaf, R]
+            # the new frontier in one search, totals from feature 0
+            idx = torch.as_tensor(slots, device=dev)
+            hf = self.hists[idx]
+            sums = leaf_totals(hf)
+            cnt = torch.as_tensor(t["leaf_count"][slots], dtype=torch.float32,
+                                  device=dev)
+            rec, masks = self._search(hf, sums[:, 0], sums[:, 1], cnt,
+                                      st.fmask, None, level + 1, None)
+            self._store(slots, rec, masks)
+            recs = self._host(rec)
+            st.gains[:] = -np.inf
+            deeper = cfg.max_depth <= 0 or level + 1 < cfg.max_depth
+            for i, sl in enumerate(slots):
+                st.best_h[sl] = recs[i]
+                if deeper:
+                    st.gains[sl] = recs[i, F_["gain"]]
+            level += 1
+
+    # -- the masked grower ----------------------------------------------
+    def _grow_masked(self, st, grad, hess, row_weight):
+        """One tree by full-row masked histograms (the JAX
+        ``_grow_masked_impl``): ``row_leaf`` on the device, one K1 pass
+        over every row per split, one read-back per split."""
+        cfg, n, p = self.cfg, self.n, self.cfg.split
+        L, B = cfg.num_leaves, cfg.num_bins
+        dev = self.dev
+        inbag = None
+        if row_weight is not None:
+            grad, hess = grad * row_weight, hess * row_weight
+            inbag = row_weight > 0
+        full = torch.stack([grad, hess], dim=1)
+        st.absmax = full.abs().amax(dim=0)
+        tg, th = root_totals(full)
+        m_dev = torch.tensor(n, device=dev) if inbag is None \
+            else inbag.sum()
+        tc = m_dev.to(torch.float32)
+        root_hist = window_hist(self.bins, full, B, 0, n, pay_absmax=(
+            st.absmax if inbag is None
+            else masked_absmax(st.absmax, m_dev, n)))
+        self.hists[0] = root_hist
+        root_out = leaf_output(tg, th, p)
+        rec, masks = self._search(root_hist[None], tg[None], th[None],
+                                  tc[None], st.fmask, root_out[None], 0,
+                                  None)
+        self._store([0], rec, masks)
+        host = self._host(torch.cat([rec[0], torch.stack([root_out, th,
+                                                          tc])]))
+        t = _init_tree(L)
+        t["leaf_value"][0] = host[NF]
+        t["leaf_weight"][0] = host[NF + 1]
+        t["leaf_count"][0] = m = int(host[NF + 2])
+        st.best_h = np.zeros((L, NF), np.float32)
+        st.best_h[0] = host[:NF]
+        st.gains = np.full(L, -np.inf, np.float32)
+        st.gains[0] = st.best_h[0, F_["gain"]]
+        counts = np.zeros(L, np.int64)
+        counts[0] = m
+        row_leaf = torch.zeros(n, dtype=torch.int64, device=dev)
+        ns = 0
+        while ns < L - 1 and st.gains.max() > 0.0:
+            leaf = int(np.argmax(st.gains))
+            r = st.best_h[leaf]
+            R = ns + 1
+            col, lo, hi, nan_pos, bits = self._rule(leaf, r, ns)
+            gl = go_left(self.bins[:, col], lo, hi, nan_pos,
+                         bool(r[F_["default_left"]]), bits)
+            on_leaf = row_leaf == leaf
+            go = on_leaf & gl
+            nl = (go if inbag is None else go & inbag).sum()
+            nr = int(counts[leaf]) - nl
+            row_leaf.masked_fill_(on_leaf & ~gl, R)
+            left_small = nl <= nr
+            small_slot = torch.where(left_small, leaf, R)
+            pay = full * (row_leaf == small_slot)[:, None].to(full.dtype)
+            small = window_hist(self.bins, pay, B, 0, n,
+                                pay_absmax=masked_absmax(
+                                    st.absmax, torch.where(left_small, nl,
+                                                           nr), n))
+            other = subtract_histogram(self.hists[leaf], small)
+            lh = torch.where(left_small, small, other)
+            rh = torch.where(left_small, other, small)
+            self.hists[leaf] = lh
+            self.hists[R] = rh
+            pb = self.best[leaf]
+            cnt2 = torch.stack([nl, nr]).to(torch.float32)
+            rec, masks = self._search(
+                torch.stack([lh, rh]),
+                torch.stack([pb[F_["left_sum_g"]], pb[F_["right_sum_g"]]]),
+                torch.stack([pb[F_["left_sum_h"]], pb[F_["right_sum_h"]]]),
+                cnt2, st.fmask,
+                torch.stack([pb[F_["left_output"]], pb[F_["right_output"]]]),
+                int(t["leaf_depth"][leaf]) + 1, None)
+            self._store([leaf, R], rec, masks)
+            host = self._host(torch.cat([rec.reshape(-1).double(),
+                                         nl.double()[None]]))
+            n_left = int(host[-1])
+            _apply_split(t, r, leaf, R, ns, n_left, counts[leaf] - n_left)
+            counts[R] = counts[leaf] - n_left
+            counts[leaf] = n_left
+            recs = host[:-1].reshape(2, NF)
+            ok = cfg.max_depth <= 0 or t["leaf_depth"][leaf] < cfg.max_depth
+            for i, sl in enumerate((leaf, R)):
+                st.best_h[sl] = recs[i]
+                st.gains[sl] = recs[i, F_["gain"]] if ok else -np.inf
+            ns += 1
+        self._cat_masks(t)
+        return TreeArrays(**t), row_leaf
 
     def _refresh_bounds(self, st, ns: int) -> None:
         """Intermediate bounds of every leaf after split ``ns`` (the JAX

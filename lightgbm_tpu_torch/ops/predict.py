@@ -55,6 +55,11 @@ class StackedTrees(NamedTuple):
     depth: int                    # levels of the deepest tree
     is_categorical: torch.Tensor = None   # [T, N] bool (None: no cat)
     cat_bitset: torch.Tensor = None       # [T, N, W] int64 u32 words
+    # linear leaves (None: a forest of constant leaves)
+    lin_const: torch.Tensor = None        # [T, L] f32
+    lin_nfeat: torch.Tensor = None        # [T, L] int64
+    lin_feats: torch.Tensor = None        # [T, L, k] int64 real ids
+    lin_coef: torch.Tensor = None         # [T, L, k] f32
 
 
 def _walk(T, n, device, decide, left_child, right_child, depth):

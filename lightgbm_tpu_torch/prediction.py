@@ -2,12 +2,15 @@
 
 Counterpart of ``predict_any`` and ``convert_raw_scores`` in
 ``lightgbm_tpu/prediction.py``, for forests of numerical and categorical
-splits with constant leaves: the forest is stacked into device tensors
+splits with constant or linear leaves: the forest is stacked into device tensors
 (a categorical split's u32 bitset over category values padded to the
 forest's widest, ``[T, N, W]``), every row
 walks every tree (:func:`ops.predict.predict_leaf_raw`) in float32 —
 thresholds rounded down to float32 so that a float32 feature keeps its
-training-time side, as in the JAX package — tree ``i`` adds to class
+training-time side, as in the JAX package — a linear leaf gives its
+model on the row's raw values (its constant for a row with NaN in one of
+its features; :func:`ops.linear.linear_leaf_values`), a constant tree in
+a forest that has linear ones a model of no feature — tree ``i`` adds to class
 ``i % K`` (K trees per iteration), and the raw scores are converted by
 the objective named in the model: a sigmoid for binary and
 cross_entropy, a softmax with the row max subtracted for multiclass, a
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from .models.tree import Tree
+from .ops.linear import linear_leaf_values
 from .ops.predict import StackedTrees, predict_leaf_raw
 
 __all__ = ["predict_any", "stack_trees", "convert_raw_scores"]
@@ -59,11 +63,6 @@ def _tree_depth(t: Tree) -> int:
 
 def stack_trees(trees: List[Tree], device) -> StackedTrees:
     """Stack a forest into ``[T, ...]`` device tensors."""
-    for t in trees:
-        if t.is_linear:
-            raise NotImplementedError(
-                "linear leaves are not in the port's predictor yet "
-                "(ROADMAP.md Queue 1 item 16)")
     T = len(trees)
     N = max(1, max((t.num_nodes for t in trees), default=1))
     Lm = max((t.num_leaves for t in trees), default=1)
@@ -102,13 +101,49 @@ def stack_trees(trees: List[Tree], device) -> StackedTrees:
     def dev(a):
         return torch.as_tensor(a, device=device)
 
+    lin = {}
+    if any(t.is_linear and t.leaf_const is not None for t in trees):
+        km = max(1, max((len(fs) for t in trees if t.leaf_features
+                         for fs in t.leaf_features), default=0))
+        lconst = np.zeros((T, Lm), np.float64)
+        lnf = np.zeros((T, Lm), np.int64)
+        lfe = np.zeros((T, Lm, km), np.int64)
+        lco = np.zeros((T, Lm, km), np.float64)
+        for i, t in enumerate(trees):
+            if t.is_linear and t.leaf_const is not None:
+                lconst[i, :t.num_leaves] = t.leaf_const[:t.num_leaves]
+                for leaf in range(t.num_leaves):
+                    fs = t.leaf_features[leaf] if t.leaf_features else []
+                    lnf[i, leaf] = len(fs)
+                    lfe[i, leaf, :len(fs)] = fs
+                    lco[i, leaf, :len(fs)] = t.leaf_coeff[leaf]
+            else:
+                # a constant tree in a linear forest: a model of no
+                # feature
+                lconst[i, :t.num_leaves] = t.leaf_value
+        lin = dict(lin_const=dev(lconst.astype(np.float32)),
+                   lin_nfeat=dev(lnf), lin_feats=dev(lfe),
+                   lin_coef=dev(lco.astype(np.float32)))
+
     return StackedTrees(
         split_feature=dev(sf), threshold=dev(thr32), default_left=dev(dl),
         missing_type=dev(mt), left_child=dev(lc), right_child=dev(rc),
         leaf_value=dev(lv.astype(np.float32)),
         depth=max((_tree_depth(t) for t in trees), default=1),
         is_categorical=dev(ic) if any_cat else None,
-        cat_bitset=dev(bits) if any_cat else None)
+        cat_bitset=dev(bits) if any_cat else None, **lin)
+
+
+def tree_outputs(stacked: StackedTrees, X: torch.Tensor,
+                 leaves: torch.Tensor) -> torch.Tensor:
+    """``[T, n]`` float32 output of every tree on every row, given the
+    rows' ``[T, n]`` leaves: the leaf value, or a linear leaf's model."""
+    if stacked.lin_const is None:
+        return stacked.leaf_value.gather(1, leaves)
+    return torch.stack([linear_leaf_values(
+        stacked.lin_const[i], stacked.lin_coef[i], stacked.lin_feats[i],
+        stacked.lin_nfeat[i], stacked.leaf_value[i], X, leaves[i])
+        for i in range(leaves.shape[0])])
 
 
 def _matrix(data, pandas_categorical) -> np.ndarray:
@@ -194,7 +229,7 @@ def predict_any(booster, data, start_iteration: int = 0,
                                     max(1, pred_early_stop_freq),
                                     pred_early_stop_margin)
     else:
-        vals = stacked.leaf_value.gather(1, leaves)
+        vals = tree_outputs(stacked, Xd, leaves)
         # tree i adds to class i % K, one tree after the other: the
         # order in which training adds them to a valid set's float32
         # score
@@ -226,7 +261,7 @@ def _scores_early_stop(stacked: StackedTrees, X: torch.Tensor, K: int,
         hi = min(T, lo + chunk)
         sub = StackedTrees(*(v[lo:hi] if isinstance(v, torch.Tensor) else v
                              for v in stacked))
-        vals = sub.leaf_value.gather(1, predict_leaf_raw(sub, X))
+        vals = tree_outputs(sub, X, predict_leaf_raw(sub, X))
         for i in range(hi - lo):
             scores[(lo + i) % K] += torch.where(done, 0.0, vals[i])
         if K == 1:

@@ -287,7 +287,7 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     scanned = {str(p.relative_to(REPO)) for p in _py_files()}
     assert {f"lightgbm_tpu_torch/{m}" for m in (
         "__main__.py", "cli.py", "sklearn.py", "plotting.py", "convert.py",
-        "utils/native.py")} <= scanned
+        "utils/native.py", "ops/linear.py")} <= scanned
     for path in _py_files():
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
@@ -380,10 +380,6 @@ REFUSED = {
 # the JAX package's public Dataset methods that are hooks of its own
 # grower, not API: the port has none of them, and says here why
 INTERNAL = {
-    "Dataset.raw_numeric": "the raw values kept for linear trees "
-                           "(ROADMAP.md Queue 1 item 16)",
-    "Dataset.device_raw": "the raw values on the device for linear trees "
-                          "(ROADMAP.md Queue 1 item 16)",
     "Dataset.device_feat_num_bins": "the JAX grower's device copy; the "
                                     "port's grower reads feat_num_bins()",
     "Dataset.device_feat_nan_bin": "the JAX grower's device copy; the "
@@ -435,11 +431,8 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
 
 @pytest.mark.parametrize("params", [
     {"tree_learner": "data"},
-    {"grower": "level"},
     {"two_round": True},
     {"forcedbins_filename": "bins.json"},
-    {"histogram_pool_size": 100.0},
-    {"linear_tree": True},
     {"ingest_chunk_rows": 1000},
     {"hist_method": "pallas"},
     {"reg_sqrt": True},
