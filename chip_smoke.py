@@ -3,6 +3,9 @@
     python3 chip_smoke.py            # the full-width run (one GPU)
     python3 chip_smoke.py --rows N   # the same at N training rows
     python3 chip_smoke.py --allstate-rows N  # train_allstate at N rows
+    python3 chip_smoke.py --stream-allstate 13200000
+                                     # only stream the Allstate shape at
+                                     # 13.2M rows into a Dataset
     python3 chip_smoke.py --parent smoke_checkout/parent/lightgbm_tpu_torch
                                      # also time the parent's K1 and K2
                                      # in turns
@@ -64,8 +67,8 @@ Phases, in order; any failure exits non-zero:
              versions forced;
 6. train_quant — quantized-gradient training on the same data
              (use_quantized_grad, 4 bins, stochastic rounding, leaf
-             renewal, seed 0): the same measurements, the int path's
-             launch counter, and a plain-kernel twin with the same seed
+             renewal, seed 0): the same measurements but no profiled
+             iteration, the int path's launch counter, and a plain-kernel twin with the same seed
              (first tree identical, AUC within 0.002); AUC not below the
              float path's less 0.01;
 6b. train_valid — the main path with this slice's features on the same
@@ -73,7 +76,7 @@ Phases, in order; any failure exits non-zero:
              mappers, metric=[auc, binary_logloss], bagging 0.8 every
              iteration, feature_fraction 0.8, record_evaluation and
              early_stopping(5); 1 warm-up + 3 timed iterations (iter_s,
-             eval_ms, the idle share, the in-bag window sizes); every
+             eval_ms, the in-bag window sizes); every
              tree's root count equal to its iteration's in-bag count, the
              last recorded valid AUC equal to the AUC of predict, and
              against the plain twin (same seeds) the same root splits and
@@ -91,9 +94,8 @@ Phases, in order; any failure exits non-zero:
              splits and L1 within 0.002 relative;
 6e. train_constrained — this slice's path on the same Dataset:
              intermediate monotone constraints on features 0-3, float,
-             1 warm-up + 2 timed iterations (iter_s, idle share and
-             launches per split of one profiled iteration, leaves
-             re-searched per tree; the float64-sum twin's root splits and
+             1 warm-up + 2 timed iterations (iter_s, leaves re-searched
+             per tree; the float64-sum twin's root splits and
              AUC within 0.002; one quantized tree equal to its twin's);
              advanced, quantized, one tree of 255 leaves equal to its
              twin's (the bounds' chunk of leaves, peak memory, tree
@@ -141,6 +143,34 @@ Phases, in order; any failure exits non-zero:
              built-in binary's root splits (boost_from_average off) and
              AUC within 0.002, custom_iter_s and the seconds of fobj and
              its two copies; every CLI run counts its kernels' launches;
+6h. ingest_higgs — streaming ingest of train's own 10.5M x 28 rows
+             (ingest_chunk_rows=65,536): an ArrayChunkSource whose device
+             bins are torch.equal to the eager Dataset's (mappers and
+             labels equal) and whose 1 + 1 trees equal train's first two
+             (model text); a chunk factory of unknown length (the
+             reservoir sample), 1 + 1, AUC within 0.002 of train's at two
+             iterations; construct_s, pass1_s, pass2_s and the host peak
+             (tracemalloc) against the float matrix; with pyarrow, the
+             held-out rows as an Arrow table streamed as a valid set,
+             equal to the eager valid set;
+6i. ingest_text — inside surface_higgs, on its %.17g CSV of the 500,000
+             held-out rows: eager,
+             two_round and ingest_chunk_rows=65,536 (each with
+             bin_construct_sample_cnt=500,000), both streamed constructs
+             bit-equal to the eager one; MB/s of each;
+6j. serve — Booster.compile() of train's model and of a 100-tree forest
+             (its 4 trees 25 times): the compiled raw scores of the
+             500,000 held-out rows within 1e-6 of a numpy walk of the
+             model text, the 100-tree ones 25x the 4-tree ones (rtol and
+             atol 1e-5), the eager Booster.predict (taken before
+             compile) equal to the compiled and the routed output,
+             no new padded shape from 200 requests of 1-20,000 rows after
+             warmup; warmup seconds, p50/p99 latency at 1 to 16,384 rows,
+             device events of a 1-row call, rows/s; a MicroBatcher (8
+             threads x 200 requests of 1-64 rows, every future equal to
+             the direct result; p50/p99); a same-layout swap written in
+             place (extra device memory at most one field + 1 MiB, the
+             old forest raising);
 7. small runs — uint16 bins (max_bin=400) held to the float standard,
              a deterministic quantized run (200k x 28, no stochastic
              rounding) whose every tree equals its plain twin's, and
@@ -160,8 +190,8 @@ Phases, in order; any failure exits non-zero:
              137 features in queries of ~120 documents, at most 1,251;
              10% more queries held out; 255 leaves, 255 bins): 1 warm-up
              + 3 timed iterations, the gradient function timed alone
-             (grad_ms), held-out NDCG@10, launch counters, one profiled
-             iteration; the card's gradients of the first 200 queries at
+             (grad_ms), held-out NDCG@10, launch counters; the card's
+             gradients of the first 200 queries at
              the warm-up scores equal to the CPU's (rtol 1e-4); against
              the plain twin the same root split and NDCG@10 within 0.002;
 9. train_multiclass — softmax multiclass at Covertype's shape (531,012 +
@@ -195,11 +225,15 @@ Phases, in order; any failure exits non-zero:
 9d. train_allstate — EFB at full width: Allstate's shape (500,000 +
              50,000 rows x 4,228 features, 33 one-hot blocks of 128, NaN
              in column 0), binary, 255 leaves: construct and bundling
-             seconds, G, B, peak device memory, iter_s, idle share, AUC;
+             seconds, G, B, peak device memory, iter_s, AUC;
              the device's bundled matrix equal to the numpy build on
              100,000 rows; against the float64-sum plain twin the same
              root split in every tree and AUC within 0.002; K1 and K2 at
-             the bundled width;
+             the bundled width; ingest_allstate: the same rows streamed from a
+             chunk factory of allstate_chunks (ingest_chunk_rows=65,536),
+             device bins torch.equal to the eager Dataset's, the host peak
+             against the float matrix and against the sample plus one
+             chunk;
 9e. train_airline — categorical splits at the airline benchmark's shape
              (10,000,000 + 500,000 rows x 8: six categoricals of 7 to
              ~300 categories, DepTime, Distance), binary, 255 leaves,
@@ -315,6 +349,39 @@ def make_higgs_like(n, f, seed=0, target=False):
 ALLSTATE_CHUNK = 262_144
 
 
+def allstate_chunks(n, f, seed=0, per_group=128, rows=ALLSTATE_CHUNK):
+    """The rows of :func:`make_allstate_like` as ``(X, y)`` chunks of at
+    most ``rows`` rows (float32, float64), in order, with the same draws:
+    each block of ``ALLSTATE_CHUNK`` rows draws its picks and its NaN
+    mask first (a few integers per row), then its rows are filled chunk
+    by chunk, so no more than one chunk of the float matrix exists."""
+    groups = f // per_group
+    vals = np.random.RandomState(12345).rand(
+        groups, per_group).astype(np.float32) * 2
+    thresh = np.float32(groups)
+    start = 0
+    while start < n:
+        c = min(ALLSTATE_CHUNK, n - start)
+        rs = np.random.RandomState((seed * 1_000_003 + start) % (2 ** 31 - 1))
+        picks = [rs.randint(0, per_group, c) for _ in range(groups)]
+        nan = rs.rand(c) < 0.1
+        signal = np.zeros(c, np.float32)
+        for g in range(groups):
+            signal += vals[g, picks[g]]
+        y = (signal > thresh).astype(np.float64)
+        for lo in range(0, c, rows):
+            hi = min(c, lo + rows)
+            Xc = np.zeros((hi - lo, f), np.float32)
+            r = np.arange(hi - lo)
+            for g in range(groups):
+                pick = picks[g][lo:hi]
+                Xc[r, g * per_group + pick] = vals[g, pick]
+            Xc[nan[lo:hi], 0] = np.nan
+            yield Xc, y[lo:hi]
+            del Xc          # one chunk at a time
+        start += c
+
+
 def make_allstate_like(n, f, seed=0, per_group=128):
     """The Allstate-shaped generator of bench.py (make_allstate_like over
     allstate_chunks at its default chunk of 262,144 rows; same draws,
@@ -322,28 +389,14 @@ def make_allstate_like(n, f, seed=0, per_group=128):
     columns, each row one nonzero per block with a value from a fixed
     stream (seed 12345), 10% NaN in column 0, the label the block values'
     sum above its expectation. One float32 matrix, filled chunk by
-    chunk."""
-    groups = f // per_group
-    vals = np.random.RandomState(12345).rand(
-        groups, per_group).astype(np.float32) * 2
-    thresh = np.float32(groups)
+    chunk (:func:`allstate_chunks`)."""
     X = np.empty((n, f), np.float32)
     y = np.empty(n, np.float64)
     start = 0
-    while start < n:
-        c = min(ALLSTATE_CHUNK, n - start)
-        rs = np.random.RandomState((seed * 1_000_003 + start) % (2 ** 31 - 1))
-        Xc = X[start:start + c]
-        Xc[:] = 0.0
-        signal = np.zeros(c, np.float32)
-        rows = np.arange(c)
-        for g in range(groups):
-            pick = rs.randint(0, per_group, c)
-            Xc[rows, g * per_group + pick] = vals[g, pick]
-            signal += vals[g, pick]
-        Xc[rs.rand(c) < 0.1, 0] = np.nan
-        y[start:start + c] = (signal > thresh).astype(np.float64)
-        start += c
+    for Xc, yc in allstate_chunks(n, f, seed, per_group):
+        X[start:start + len(yc)] = Xc
+        y[start:start + len(yc)] = yc
+        start += len(yc)
     return X, y
 
 
@@ -2063,7 +2116,8 @@ def phase_train_quant(torch, lgb, dev, tr, iters):
               "seed": 0, "device_type": dev.type}
     r = _drive(torch, lgb, dev, params, ds, Xv, yv, iters, "train_quant")
     _check_counts("train_quant", r["counts"], r["leaves"], "hist_int")
-    prof = profile_iteration(torch, r["bst"], host=False)
+    # no profiled iteration, for the smoke's time (PERF.md §4)
+    prof = None
 
     # the twin: the same seed, so the same rounding draws, and int32
     # histograms that are exact in any order
@@ -2357,6 +2411,434 @@ def phase_train_growth(torch, lgb, dev, tr, trq):
     out["level"] = dict(counts=r["counts"], iter_s=r["iter_s"],
                         readbacks_per_tree=rb, profile=prof, auc=r["auc"],
                         auc_plain=m_p["auc"])
+    return out
+
+
+# the streaming phases' chunk (ingest_chunk_rows)
+STREAM_CHUNK = 65_536
+
+
+def _host_peak(fn):
+    """``fn()`` and a bound on the host memory it held at once, by
+    tracemalloc (numpy's and Python's allocations; torch's CPU allocator
+    is not traced). Tracing pauses inside ``find_bin``, whose Python loop
+    runs ~14x slower traced: what is live at a pause is carried as a base
+    to the end (a block freed later still counts, so the figure is an
+    upper bound), and one column's temporaries inside find_bin are not
+    seen."""
+    import tracemalloc
+    from lightgbm_tpu_torch.ops import binning
+    acc = {"base": 0, "peak": 0}
+
+    def pause():
+        cur, pk = tracemalloc.get_traced_memory()
+        acc["peak"] = max(acc["peak"], acc["base"] + pk)
+        acc["base"] += cur
+        tracemalloc.stop()
+
+    orig = binning.find_bin
+
+    def untraced(*args, **kwargs):
+        pause()
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            tracemalloc.start()
+
+    binning.find_bin = untraced
+    tracemalloc.start()
+    try:
+        out = fn()
+    finally:
+        pause()
+        binning.find_bin = orig
+    return out, acc["peak"]
+
+
+def _find_bin_seconds(fn):
+    """``fn()`` and the wall seconds it spent inside ``find_bin`` (the
+    mapper loop's per-column calls, summed)."""
+    from lightgbm_tpu_torch.ops import binning
+    orig = binning.find_bin
+    acc = [0.0]
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            acc[0] += time.perf_counter() - t0
+
+    binning.find_bin = timed
+    try:
+        out = fn()
+    finally:
+        binning.find_bin = orig
+    return out, acc[0]
+
+
+def _construct(torch, lgb, dev, data, params, **kw):
+    """``Dataset(data, params=...)`` constructed: the Dataset, its
+    seconds and its host peak."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds, peak = _host_peak(lambda: lgb.Dataset(
+        data, params={**params, "device_type": dev.type}, **kw).construct())
+    torch.cuda.synchronize()
+    return ds, time.perf_counter() - t0, peak
+
+
+def _tree_blocks(text, count):
+    """The text of the first ``count`` trees of a model text."""
+    return [b.split("\nend of trees")[0].strip()
+            for b in text.split("\nTree=")[1:count + 1]]
+
+
+def _same_bins(torch, tag, ds, ref):
+    """A streamed Dataset's device bins, mappers and labels equal to
+    those of the eager ``ref``; raises otherwise."""
+    bins_eq = torch.equal(ds.device_bins(), ref.device_bins())
+    maps_eq = [m.to_dict() for m in ds.mappers] == \
+        [m.to_dict() for m in ref.mappers]
+    lab_eq = np.array_equal(ds.get_label(), ref.get_label())
+    if not (bins_eq and maps_eq and lab_eq):
+        raise AssertionError(f"{tag}: bins equal {bins_eq}, mappers equal "
+                             f"{maps_eq}, labels equal {lab_eq}")
+
+
+def phase_ingest_higgs(torch, lgb, dev, tr):
+    """Streaming ingest at the Higgs shape, on ``train``'s own rows
+    (10.5M x 28): an ArrayChunkSource with ingest_chunk_rows=65,536,
+    whose device bins must equal the eager Dataset's (torch.equal) with
+    equal mappers, trained 1 + 1 iterations with train's params: both
+    trees equal train's first two (their model text); then a chunk
+    factory that declares no length (the reservoir sample), trained 1 +
+    1: AUC within 0.002 of train's at two iterations. Prints
+    construct_s, pass1_s, pass2_s and the host peak (tracemalloc) of
+    each construct against the float matrix's bytes. Then, when pyarrow
+    is installed, the held-out rows as an Arrow table streamed as a
+    valid set against train's mappers, equal to the eager valid set."""
+    from lightgbm_tpu_torch.data import ArrayChunkSource
+    Xt, ref, Xv, yv = tr["Xt"], tr["ds"], tr["Xv"], tr["yv"]
+    yt = np.asarray(ref.get_label())
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": BINS,
+              "learning_rate": 0.1, "verbosity": -1,
+              "device_type": dev.type}
+    dparams = {"max_bin": BINS, "ingest_chunk_rows": STREAM_CHUNK}
+    out = {}
+    n = len(yt)
+
+    def factory():
+        for lo in range(0, n, STREAM_CHUNK):
+            yield Xt[lo:lo + STREAM_CHUNK], yt[lo:lo + STREAM_CHUNK]
+
+    score = binary_scorer(torch, dev, yv)
+    auc_train = score(lgb.Booster(
+        model_str=tr["model_str"], params={"device_type": dev.type})
+        .predict(Xv, num_iteration=2))["auc"]
+    for tag, data in (("ingest_higgs", ArrayChunkSource(Xt, label=yt)),
+                      ("ingest_higgs_reservoir", factory)):
+        ds, secs, peak = _construct(torch, lgb, dev, data, dparams)
+        st = ds._ingest_stats
+        log(f"[{tag}] rows={n} features={Xt.shape[1]} source={st['source']}"
+            f" chunks={st['chunks']} chunk_rows={st['chunk_rows']} "
+            f"sample_rows={st['sample_rows']} construct_s={secs:.3f} "
+            f"pass1_s={st['pass1_s']:.3f} pass2_s={st['pass2_s']:.3f} "
+            f"host_peak_bytes={peak} float matrix bytes={Xt.nbytes} "
+            f"(peak/matrix {peak / Xt.nbytes:.4f}) host_binned_bytes="
+            f"{st['host_binned_bytes']} eager construct_s="
+            f"{tr['construct_s']:.3f}")
+        if tag == "ingest_higgs":
+            _same_bins(torch, tag, ds, ref)
+            log(f"[{tag}] device bins torch.equal to the eager Dataset's, "
+                "mappers and labels equal")
+        else:
+            diff = sum(a.to_dict() != b.to_dict()
+                       for a, b in zip(ds.mappers, ref.mappers))
+            log(f"[{tag}] reservoir mappers differing from the eager "
+                f"draw's: {diff} of {len(ref.mappers)}")
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        bst = lgb.train(params, ds, num_boost_round=1)
+        bst.update()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = _read_counts()
+        leaves = [t.num_leaves for t in bst._models]
+        _check_counts(tag, counts, leaves, "hist")
+        auc = score(bst.predict(Xv, num_iteration=2))["auc"]
+        log(f"[{tag}] 1 + 1 iterations {train_s:.3f} s, launches="
+            f"{json.dumps(counts)} auc={auc:.6f} train's at two iterations "
+            f"{auc_train:.6f}")
+        if tag == "ingest_higgs":
+            if _tree_blocks(bst.model_to_string(), 2) != \
+                    _tree_blocks(tr["model_str"], 2):
+                raise AssertionError(f"{tag}: the trees differ from train's "
+                                     "first two")
+            log(f"[{tag}] both trees equal train's first two (model text)")
+        elif abs(auc - auc_train) > 0.002:
+            raise AssertionError(f"{tag}: AUC {auc} not within 0.002 of "
+                                 f"train's {auc_train}")
+        out[tag] = dict(construct_s=secs, pass1_s=st["pass1_s"],
+                        pass2_s=st["pass2_s"], host_peak=peak, auc=auc,
+                        counts=counts, train_s=train_s)
+        del bst, ds
+    # Arrow: the held-out rows as a pyarrow Table streamed as a valid set
+    # against train's mappers, equal to the eager valid set
+    try:
+        import pyarrow as pa
+    except ImportError:
+        log("[ingest_arrow] pyarrow is not installed: not run")
+        return out
+    from lightgbm_tpu_torch.data import ArrowChunkSource
+    table = pa.table({"label": yv, **{f"f{j}": Xv[:, j]
+                                      for j in range(Xv.shape[1])}})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    va = ref.create_valid(ArrowChunkSource(
+        table, chunk_rows=STREAM_CHUNK, label_column="label")).construct()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ve = ref.create_valid(Xv, label=yv).construct()
+    _same_bins(torch, "ingest_arrow", va, ve)
+    log(f"[ingest_arrow] pyarrow {pa.__version__}: {len(yv)} rows x "
+        f"{Xv.shape[1]} streamed as a valid set in {secs:.3f} s; device "
+        "bins, mappers and labels equal to the eager valid set's")
+    return out
+
+
+def phase_ingest_text(torch, lgb, dev, csv, nbytes, rows):
+    """Text ingest of the held-out rows as surface_higgs writes them (a
+    %.17g CSV of ``rows`` x 28 and a label, ``nbytes`` bytes): eager (the
+    whole file parsed, then binned), two_round and
+    ingest_chunk_rows=65,536, each with bin_construct_sample_cnt equal
+    to the rows, so every mapper sees every row; both streamed
+    constructs' device bins, mappers and labels equal to the eager
+    one's. Prints MB/s of each (not traced: tracemalloc would slow the
+    per-line passes) and the seconds each spent in ``find_bin``.
+    Reduced: rows 10.5M -> 500,000 (the text takes
+    time to write)."""
+    out = {}
+    t_all = time.perf_counter()
+    log(f"[ingest_text] the CSV of surface_higgs: {rows} rows, {nbytes} "
+        f"bytes; reduced: rows 10500000 -> {rows} (writing the text)")
+    base = {"max_bin": BINS, "bin_construct_sample_cnt": rows,
+            "device_type": dev.type}
+    eager = None
+    for tag, extra in (("eager", {}), ("two_round", {"two_round": True}),
+                       ("chunked", {"ingest_chunk_rows": STREAM_CHUNK})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ds, fb_s = _find_bin_seconds(lambda: lgb.Dataset(
+            csv, params={**base, **extra}).construct())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"[ingest_text] {tag}: construct_s={secs:.3f} "
+            f"{nbytes / 1e6 / secs:.1f} MB/s find_bin_s={fb_s:.3f}")
+        out[tag] = dict(construct_s=secs, mb_s=nbytes / 1e6 / secs,
+                        find_bin_s=fb_s)
+        if eager is None:
+            eager = ds
+            continue
+        _same_bins(torch, f"ingest_text {tag}", ds, eager)
+        log(f"[ingest_text] {tag}: device bins, mappers and labels equal "
+            "to the eager construct's")
+        del ds
+    log(f"[ingest_text] seconds {time.perf_counter() - t_all:.1f}")
+    return out
+
+
+def _repeat_trees(text, times, keep=None):
+    """A model text whose trees are ``text``'s first ``keep`` (default:
+    all) repeated ``times`` times, renumbered (no tree_sizes line: the
+    loader does not read it)."""
+    head, rest = text.split("\nTree=", 1)
+    blocks, tail = rest.split("\nend of trees", 1)
+    trees = [b.split("\n", 1)[1].strip("\n")
+             for b in ("Tree=" + blocks).split("\nTree=")][:keep]
+    head = "\n".join(ln for ln in head.split("\n")
+                     if not ln.startswith("tree_sizes="))
+    body = "\n\n".join(f"Tree={i}\n{t}"
+                       for i, t in enumerate(trees * times))
+    return f"{head}\n{body}\n\nend of trees{tail}"
+
+
+def _latency(torch, fn, reps):
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    q = np.percentile(np.asarray(ts) * 1e3, [50.0, 99.0])
+    return float(q[0]), float(q[1])
+
+
+def phase_serve(torch, lgb, dev, tr):
+    """The compiled forest and the micro-batcher on train's model (its
+    first 4 trees, of 255 leaves) and on a 100-tree forest of them
+    repeated 25 times. Checks: predict_raw on the 500,000 held-out rows within
+    1e-6 of a numpy walk of the model text; the 100-tree raw scores 25x
+    the 4-tree ones (rtol 1e-5, atol 1e-5); the eager Booster.predict,
+    taken before compile(), equal to the compiled output and to the
+    predict that compile() routes; after warmup, 200 requests
+    of 1-20,000 rows add no padded shape; a MicroBatcher with 8 threads
+    of 200 requests of 1-64 rows, every future equal to the direct
+    result; a same-layout adopt (iterations 1-2 -> 3-4) whose extra peak
+    device memory is at most the largest field + 1 MiB, the old forest
+    raising. Prints warmup seconds and buckets, p50/p99 latency by
+    rows, device launches of a 1-row call (torch.profiler), rows/s at
+    16,384 and the batcher's p50/p99."""
+    import threading
+    from lightgbm_tpu_torch.serve.batcher import MicroBatcher
+    from lightgbm_tpu_torch.serve.compile import compile_forest, padded_shapes
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    text, Xv = _repeat_trees(tr["model_str"], 1, keep=4), tr["Xv"]
+    dp = {"device_type": dev.type}
+    bst = lgb.Booster(model_str=text, params=dp)
+    out = {}
+    # the eager answers, taken before compile() routes predict
+    eager_raw = bst.predict(Xv, raw_score=True)
+    eager = bst.predict(Xv)
+    t0 = time.perf_counter()
+    cf = bst.compile()
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nb = cf.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    log(f"[serve] compile_s={compile_s:.4f} warmup_s={warm_s:.3f} buckets="
+        f"{cf.buckets()} ({nb} touched) trees={cf.num_trees}")
+    t0 = time.perf_counter()
+    raw = cf.predict_raw(Xv)[:, 0]
+    full_s = time.perf_counter() - t0
+    err = float(np.abs(raw - numpy_predict_raw(text, Xv)).max())
+    same = bst._compiled_forest is cf and \
+        np.array_equal(eager_raw, raw) and \
+        np.array_equal(eager, cf.predict(Xv)) and \
+        np.array_equal(eager, bst.predict(Xv))
+    log(f"[serve] {len(Xv)} rows in {full_s:.3f} s: max abs err against the "
+        f"numpy walk {err:.3g}; the eager Booster.predict (before "
+        f"compile) equal to the compiled output and to the routed "
+        f"predict {same}")
+    if err > 1e-6 or not same:
+        raise AssertionError("serve: compiled predictions are off")
+    b100 = lgb.Booster(model_str=_repeat_trees(text, 25), params=dp)
+    cf100 = b100.compile()
+    cf100.warmup()
+    raw100 = cf100.predict_raw(Xv)[:, 0]
+    err100 = float(np.abs(raw100 - 25 * raw).max())
+    log(f"[serve] 100-tree forest: max abs diff from 25x the 4-tree scores "
+        f"{err100:.3g}")
+    if not np.allclose(raw100, 25 * raw, rtol=1e-5, atol=1e-5):
+        raise AssertionError("serve: the 100-tree scores are not 25x the "
+                             "4-tree ones")
+    rs = np.random.RandomState(0)
+    before = padded_shapes()
+    for _ in range(200):
+        m = int(rs.randint(1, min(20_001, len(Xv))))
+        lo = int(rs.randint(0, len(Xv) - m + 1))
+        cf.predict_raw(Xv[lo:lo + m])
+    grew = padded_shapes() - before
+    log(f"[serve] 200 requests of 1-20,000 rows after warmup: {grew} new "
+        "padded shapes")
+    if grew:
+        raise AssertionError("serve: a request size brought a new shape")
+    lat = {}
+    forests = ((f"{cf.num_trees}_trees", cf),
+               (f"{cf100.num_trees}_trees", cf100))
+    for name, f in forests:
+        for rows in (1, 16, 256, 4096, 16384):
+            X = np.ascontiguousarray(Xv[:rows])
+            p50, p99 = _latency(torch, lambda: f.predict_raw(X),
+                                50 if rows <= 4096 else 20)
+            lat[f"{name}_{rows}"] = dict(p50_ms=p50, p99_ms=p99)
+        lat[f"{name}_rows_per_s_16384"] = 16384 / (
+            lat[f"{name}_16384"]["p50_ms"] / 1e3)
+        log(f"[serve] {name} latency ms (p50/p99) by rows: " + "; ".join(
+            f"{r}: {lat[f'{name}_{r}']['p50_ms']:.3f}/"
+            f"{lat[f'{name}_{r}']['p99_ms']:.3f}"
+            for r in (1, 16, 256, 4096, 16384))
+            + f"; rows/s at 16384 {lat[f'{name}_rows_per_s_16384']:.0f}")
+    launches = {}
+    for name, f in forests:
+        x1 = np.ascontiguousarray(Xv[:1])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            f.predict_raw(x1)
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA]
+        launches[name] = dict(
+            events=sum(e.count for e in ev),
+            kernels=sum(e.count for e in ev if "memcpy" not in e.key.lower()
+                        and "memset" not in e.key.lower()))
+    log(f"[serve] device events of one 1-row predict_raw (torch.profiler): "
+        f"{json.dumps(launches)}")
+    # the micro-batcher: 8 threads x 200 requests of 1-64 rows
+    mb = MicroBatcher(cf)
+    bad, reqs = [], []
+    lock = threading.Lock()
+
+    def client(seed):
+        r = np.random.RandomState(seed)
+        for _ in range(200):
+            m = int(r.randint(1, 65))
+            lo = int(r.randint(0, len(Xv) - m))
+            got = mb.submit(Xv[lo:lo + m]).result(timeout=120)
+            with lock:
+                reqs.append((lo, m, got))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(s,)) for s in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    batch_s = time.perf_counter() - t0
+    stats = mb.stats()
+    mb.close()
+    for lo, m, got in reqs:
+        if not np.array_equal(got, cf.predict_raw(Xv[lo:lo + m])):
+            bad.append((lo, m))
+    log(f"[serve] batcher: {len(reqs)} requests from 8 threads in "
+        f"{batch_s:.3f} s, {stats['batches_total']} batches, p50 "
+        f"{stats['p50_ms']} ms p99 {stats['p99_ms']} ms; futures differing "
+        f"from the direct result: {len(bad)}")
+    if bad or len(reqs) != 1600:
+        raise AssertionError("serve: the batcher's answers are off")
+    # a same-layout swap: iterations 1-2, then 3-4 written in place
+    cf12 = compile_forest(bst, num_iteration=2)
+    largest = max(t.numel() * t.element_size() for t in cf12._stacked
+                  if isinstance(t, torch.Tensor))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cf34 = compile_forest(bst, start_iteration=2, num_iteration=2,
+                          reuse=cf12)
+    torch.cuda.synchronize()
+    swap_s = time.perf_counter() - t0
+    extra = torch.cuda.max_memory_allocated() - base
+    try:
+        cf12.predict_raw(Xv[:1])
+        raise AssertionError("serve: the adopted forest still predicts")
+    except RuntimeError:
+        pass
+    want34 = compile_forest(bst, start_iteration=2,
+                            num_iteration=2).predict_raw(Xv[:10_000])
+    ok34 = np.array_equal(cf34.predict_raw(Xv[:10_000]), want34)
+    log(f"[serve] same-layout swap (iterations 1-2 -> 3-4) in {swap_s:.4f} "
+        f"s: extra peak device bytes {extra}, largest field {largest} "
+        f"bytes; the old forest raises; new forest equal to a fresh "
+        f"compile {ok34}")
+    if extra > largest + 2 ** 20 or not ok34:
+        raise AssertionError("serve: the in-place swap is off")
+    out.update(compile_s=compile_s, warmup_s=warm_s, buckets=nb,
+               max_abs_err=err, latency=lat, launches_1row=launches,
+               batcher=stats, swap_extra_bytes=extra, swap_s=swap_s)
     return out
 
 
@@ -2687,8 +3169,8 @@ def make_covertype_like(n, seed=0):
 def phase_train_rank(torch, lgb, dev, iters):
     """lambdarank at the MS LTR shape (2.27M training rows x 137
     features, 255 leaves, 255 bins): 1 warm-up + ``iters`` timed
-    iterations, the gradient function timed alone, held-out NDCG@10, one
-    profiled iteration; the card's gradients of the first 200 queries at
+    iterations, the gradient function timed alone, held-out NDCG@10 (no
+    profiled iteration, for the smoke's time); the card's gradients of the first 200 queries at
     the warm-up scores against the same function on the CPU; against the
     plain twin, the same root split and NDCG@10 within 0.002."""
     from lightgbm_tpu_torch.ranking import (_lambdarank_grads, _pad_queries,
@@ -2750,7 +3232,8 @@ def phase_train_rank(torch, lgb, dev, iters):
     r = _drive(torch, lgb, dev, params, ds, Xv, yv, iters, "train_rank",
                scorer, after_warmup)
     _check_counts("train_rank", r["counts"], r["leaves"], "hist")
-    prof = profile_iteration(torch, r["bst"], host=False)
+    # no profiled iteration, for the smoke's time (PERF.md §4)
+    prof = None
     bst_p, m_p = _plain_twin(torch, lgb, dev, params, ds, Xv, yv, 1 + iters,
                              "train_rank", scorer)
     r_k, r_p = _root_split(r["bst"]), _root_split(bst_p)
@@ -3049,7 +3532,8 @@ def phase_train_valid(torch, lgb, dev, tr, iters):
                    torch.as_tensor(yv, device=dev))
     auc_rec = ev["valid"]["auc"][-1]
     score_ms, metric_ms = _eval_ms(torch, bst)
-    prof = profile_iteration(torch, bst, host=False)
+    # no profiled iteration, for the smoke's time (PERF.md §4)
+    prof = None
     log(f"[train_valid] valid set {len(yv)} rows binned with the train "
         f"set's mappers in {valid_construct_s:.3f} s; iter_s="
         f"{[round(x, 4) for x in iter_s]} (the warm-up first; each with "
@@ -3057,8 +3541,7 @@ def phase_train_valid(torch, lgb, dev, tr, iters):
         f"{statistics.median(iter_s[1:]):.4f} "
         f"eval_ms={score_ms + metric_ms:.3f} "
         f"(valid scoring of one tree {score_ms:.3f} + metrics "
-        f"{metric_ms:.3f}, CUDA events) idle_share="
-        f"{prof['idle_share']} in-bag window sizes={in_bag} of "
+        f"{metric_ms:.3f}, CUDA events) in-bag window sizes={in_bag} of "
         f"{ds.num_data()} rows, root counts={roots}, leaves={leaves}, "
         f"launches={json.dumps(counts)}")
     log(f"[train_valid] recorded valid auc={ev['valid']['auc']} "
@@ -3130,7 +3613,8 @@ def phase_train_goss(torch, lgb, dev, tr, iters):
                 or not 0.19 * n <= s_["weight_one"] <= 0.25 * n:
             raise AssertionError(f"train_goss: iteration {s_} does not "
                                  "keep its top rows and sampled rest")
-    prof = profile_iteration(torch, r["bst"], host=False)
+    # no profiled iteration, for the smoke's time (PERF.md §4)
+    prof = None
     # the twin's float histograms sum in float64: GOSS weights its
     # sampled rows by 8, and float32 atomics over such windows drift
     # (see exact_float_sums), while the rows GOSS keeps depend on every
@@ -3353,6 +3837,84 @@ ALLSTATE_VALID = 50_000
 ALLSTATE_FEATURES = 4228
 
 
+def _allstate_source(n):
+    """A chunk source of :func:`make_allstate_like`'s rows (seed 0), its
+    own draws yielded in chunks of ``STREAM_CHUNK`` rows by a factory,
+    with the length declared (so the mappers' sample is the eager
+    construct's row draw)."""
+    from lightgbm_tpu_torch.data import GeneratorChunkSource
+    return GeneratorChunkSource(
+        lambda: allstate_chunks(n, ALLSTATE_FEATURES, seed=0,
+                                rows=STREAM_CHUNK),
+        num_rows=n, num_features=ALLSTATE_FEATURES)
+
+
+def _stream_allstate(torch, lgb, dev, n, tag):
+    """The streamed construct of ``n`` Allstate-shaped rows: the Dataset
+    and a dict of its seconds, host peak (against the float matrix and
+    against the bound of the sample plus one chunk) and device bytes."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ds, secs, peak = _construct(torch, lgb, dev, _allstate_source(n),
+                                {"max_bin": BINS,
+                                 "ingest_chunk_rows": STREAM_CHUNK})
+    st = ds._ingest_stats
+    F = ALLSTATE_FEATURES
+    matrix = n * F * 4
+    bound = (st["sample_rows"] + STREAM_CHUNK) * F * 4
+    out = dict(rows=n, construct_s=secs, pass1_s=st["pass1_s"],
+               pass2_s=st["pass2_s"], chunks=st["chunks"], host_peak=peak,
+               float_matrix_bytes=matrix, sample_chunk_bound=bound,
+               device_bytes=torch.cuda.memory_allocated() - base,
+               device_peak_bytes=torch.cuda.max_memory_allocated() - base,
+               bins_bytes=ds._bins.numel() * ds._bins.element_size())
+    log(f"[{tag}] rows={n} features={F} chunks={st['chunks']} "
+        f"chunk_rows={st['chunk_rows']} sample_rows={st['sample_rows']} "
+        f"construct_s={secs:.3f} pass1_s={st['pass1_s']:.3f} pass2_s="
+        f"{st['pass2_s']:.3f} host_peak_bytes={peak} float matrix bytes="
+        f"{matrix} (peak/matrix {peak / matrix:.4f}) sample+chunk bound "
+        f"{bound} (peak/bound {peak / bound:.4f}) device bytes="
+        f"{out['device_bytes']} device peak bytes={out['device_peak_bytes']}"
+        f" bins bytes={out['bins_bytes']}")
+    return ds, out
+
+
+def phase_ingest_allstate(torch, lgb, dev, ref, n):
+    """Streaming ingest at Allstate's width: the same ``n`` x 4,228 rows
+    as train_allstate's eager Dataset ``ref``, yielded chunk by chunk by
+    a factory (ingest_chunk_rows=65,536); device bins torch.equal to the
+    eager Dataset's, mappers and labels equal."""
+    ds, out = _stream_allstate(torch, lgb, dev, n, "ingest_allstate")
+    _same_bins(torch, "ingest_allstate", ds, ref)
+    log("[ingest_allstate] device bins torch.equal to the eager Dataset's, "
+        "mappers and labels equal")
+    del ds
+    return out
+
+
+def stream_allstate_only(torch, lgb, dev, n):
+    """``--stream-allstate N``: only the streamed construct of ``n``
+    Allstate-shaped rows (ROADMAP.md item 18's "done when" at 13.2M),
+    then the bins of its first chunk held to an eager binning of the same
+    rows with the same mappers, and the labels to the generator's."""
+    from lightgbm_tpu_torch.ops.binning import bin_matrix
+    ds, out = _stream_allstate(torch, lgb, dev, n, "stream_allstate")
+    X0, y0 = next(allstate_chunks(n, ALLSTATE_FEATURES, seed=0,
+                                  rows=STREAM_CHUNK))
+    want = bin_matrix(X0, ds.used_feature_indices(), ds.mappers,
+                      device=dev)
+    ok = torch.equal(ds.device_bins()[:len(y0)], want) and \
+        np.array_equal(ds.get_label()[:len(y0)], y0) and \
+        ds.num_data() == n
+    log(f"[stream_allstate] first chunk's bins equal to an eager binning "
+        f"with the same mappers, labels equal: {ok}; positive share "
+        f"{float(np.mean(ds.get_label())):.4f}")
+    if not ok:
+        raise AssertionError("stream_allstate: the streamed bins are off")
+    return out
+
+
 def phase_train_allstate(torch, lgb, dev, n_train, iters, reps):
     """EFB at full width: Allstate's shape (``make_allstate_like``, 4,228
     features in 33 one-hot blocks of 128 with NaN in column 0;
@@ -3362,8 +3924,9 @@ def phase_train_allstate(torch, lgb, dev, n_train, iters, reps):
     500,000 (the float32 input alone would be ~223 GB of host memory);
     the bundling sample stays 200,000 rows, so G is that of a larger run.
     Prints construct_s, the bundling seconds, G, B, the peak device
-    memory, iter_s (1 warm-up + ``iters`` timed), the idle share and AUC.
-    Checks: the bundled matrix built on the device equals the numpy build
+    memory, iter_s (1 warm-up + ``iters`` timed) and AUC (no profiled
+    iteration, for the smoke's time). Then ingest_allstate
+    (:func:`phase_ingest_allstate`) on the eager Dataset. Checks: the bundled matrix built on the device equals the numpy build
     from the same plan on 100,000 of its rows; against the plain twin
     (float64 histogram sums, the same Dataset) the same root split in
     every tree and AUC within 0.002; K1 and K2 launched at G columns;
@@ -3391,6 +3954,7 @@ def phase_train_allstate(torch, lgb, dev, n_train, iters, reps):
     log(f"[train_allstate] construct_s={construct_s:.3f} used features="
         f"{len(ds.mappers)} device bytes={torch.cuda.memory_allocated()}")
     del Xt
+    ingest = phase_ingest_allstate(torch, lgb, dev, ds, n_train)
     bundles = _bundle_stats(torch, lgb, ds, params, "train_allstate")
     from lightgbm_tpu_torch.config import Config
     info = ds.bundles(Config.from_params(params))
@@ -3404,7 +3968,8 @@ def phase_train_allstate(torch, lgb, dev, n_train, iters, reps):
     del host, want
     r = _drive(torch, lgb, dev, params, ds, Xv, yv, iters, "train_allstate")
     _check_counts("train_allstate", r["counts"], r["leaves"], "hist")
-    prof = profile_iteration(torch, r["bst"], host=False)
+    # no profiled iteration, for the smoke's time (PERF.md §4)
+    prof = None
     with exact_float_sums(torch):
         bst_p, m_p = _plain_twin(torch, lgb, dev, params, ds, Xv, yv,
                                  1 + iters, "train_allstate")
@@ -3426,7 +3991,7 @@ def phase_train_allstate(torch, lgb, dev, n_train, iters, reps):
     del ds, info
     return dict(r, auc_plain=m_p["auc"], construct_s=construct_s,
                 bundles=bundles, profile=prof, kernels=kern,
-                roots=roots_k)
+                roots=roots_k, ingest=ingest)
 
 
 class _SplitTally:
@@ -3815,8 +4380,8 @@ def phase_train_constrained(torch, lgb, dev, tr, iters):
 
     - ``intermediate`` monotone constraints on features 0-3 (``MONO``),
       float gradients, 1 warm-up + ``iters`` timed iterations: iter_s,
-      one profiled iteration (idle share, launches per split), leaves
-      re-searched per tree; against the float64-sum plain twin the same
+      leaves re-searched per tree (no profiled iteration, for the
+      smoke's time); against the float64-sum plain twin the same
       root split in every tree and AUC within 0.002; one quantized tree
       equal to its twin's;
     - ``advanced``, quantized, one tree of ``ADVANCED_LEAVES`` leaves
@@ -3850,9 +4415,8 @@ def phase_train_constrained(torch, lgb, dev, tr, iters):
     grower = r["bst"]._engine.grower
     researched = grower.researched / max(1, len(r["leaves"]))
     grower.researched = 0
-    prof = profile_iteration(torch, r["bst"], host=False)
-    splits = r["bst"]._models[-1].num_leaves - 1
-    per_split = prof["launches"] / max(1, splits)
+    # no profiled iteration, for the smoke's time (PERF.md §4)
+    prof = None
     worst = _monotone_sweep(r["bst"], Xv, MONO)
     with exact_float_sums(torch):
         bst_p, m_p = _plain_twin(torch, lgb, dev, params, ds, Xv, yv,
@@ -3860,9 +4424,7 @@ def phase_train_constrained(torch, lgb, dev, tr, iters):
     roots_k = [_root_split_of(t) for t in r["bst"]._models[:1 + iters]]
     roots_p = [_root_split_of(t) for t in bst_p._models]
     log(f"[train_intermediate] leaves re-searched per tree {researched:.1f}"
-        f"; profiled iteration: {prof['launches']} device events over "
-        f"{splits} splits ({per_split:.1f} per split), idle share "
-        f"{prof['idle_share']}; root splits kernel={roots_k} plain="
+        f"; root splits kernel={roots_k} plain="
         f"{roots_p}; auc={r['auc']:.6f} plain={m_p['auc']:.6f}; monotone "
         f"sweep: largest step against a constraint {worst:.3g}")
     if roots_k != roots_p:
@@ -3877,7 +4439,6 @@ def phase_train_constrained(torch, lgb, dev, tr, iters):
     del r["bst"], bst_p
     out["intermediate"] = dict(r, auc_plain=m_p["auc"], profile=prof,
                                researched_per_tree=researched,
-                               launches_per_split=per_split,
                                worst_step=worst)
     _, _, q = _twin_trees(torch, lgb, dev, "train_intermediate_quant",
                           dict(params, **quant), ds, 1, "hist_int")
@@ -4155,7 +4716,7 @@ def _shap_oracle(tree, x):
     return phi
 
 
-CONTRIB_ROWS = 10_000
+CONTRIB_ROWS = 2_000
 ORACLE_ROWS = 200
 
 
@@ -4752,6 +5313,9 @@ def phase_surface_higgs(torch, lgb, dev, tr, iters):
             out[f"{tag}_times"] = run[2]
             log(f"[surface_higgs] {tag} seconds by part: "
                 f"{_cli_times(run[2])}")
+        # the same CSV, ingested eagerly, by two_round and in chunks
+        out["ingest_text"] = phase_ingest_text(torch, lgb, dev, csv, nbytes,
+                                               len(yv))
         got = np.loadtxt(res)
         want = lgb.Booster(model_file=m_float,
                            params={"device_type": dev.type}).predict(Xv)
@@ -5056,6 +5620,11 @@ def main(argv=None):
                          "10,000,000)")
     ap.add_argument("--reps", type=int, default=20,
                     help="launches per kernel timing")
+    ap.add_argument("--stream-allstate", type=int, default=0,
+                    metavar="ROWS",
+                    help="only the streamed construct of ROWS "
+                         "Allstate-shaped rows (13,200,000: the full "
+                         "set), then exit")
     ap.add_argument("--parent", default=None,
                     help="a copy of the parent commit's lightgbm_tpu_torch "
                          "package: time its K1 and K2 beside this one's in "
@@ -5075,9 +5644,24 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    try:
+        import pyarrow
+        arrow = pyarrow.__version__
+    except ImportError:
+        arrow = "none"
     log(f"[env] torch={torch.__version__} cuda={torch.version.cuda} "
-        f"python={sys.version.split()[0]} "
+        f"python={sys.version.split()[0]} pyarrow={arrow} "
         f"device={torch.cuda.get_device_name(0)}")
+
+    if args.stream_allstate:
+        res = stream_allstate_only(torch, lgb, dev, args.stream_allstate)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        print(smi.stdout.strip(), flush=True)
+        print(json.dumps({"stream_allstate": res}), flush=True)
+        return 0
 
     t_start = time.perf_counter()
     t_last = [t_start]
@@ -5115,6 +5699,10 @@ def main(argv=None):
     done("train_constrained")
     tgr = phase_train_growth(torch, lgb, dev, tr, trq)
     done("train_growth")
+    ih = phase_ingest_higgs(torch, lgb, dev, tr)
+    done("ingest_higgs")
+    phase_serve(torch, lgb, dev, tr)
+    done("serve")
     sh = phase_surface_higgs(torch, lgb, dev, tr, min(args.iters, 3))
     for key in ("ds", "Xt", "target", "target_valid"):
         del tr[key]
@@ -5215,7 +5803,8 @@ def main(argv=None):
                 "surface_examples": sum(v[key]
                                         for v in se["counts"].values()),
                 **{f"train_growth_{k}": v["counts"][key]
-                   for k, v in tgr.items()}}
+                   for k, v in tgr.items()},
+                **{k: v["counts"][key] for k, v in ih.items()}}
 
     # the rungs at the bundled widths join each kernel's ladder
     for key, shapes in (("k1", k1), ("k1_int", k1i), ("k2", k2)):

@@ -10,7 +10,10 @@ text), running on an NVIDIA GPU by default
 the JAX package's too: files and binary datasets in, custom objectives,
 refit, the sklearn wrappers (``LGBMClassifier``, ...), plotting, C++
 conversion and the command line (``python -m lightgbm_tpu_torch
-config=train.conf``). Its two kernels —
+config=train.conf``). Large data streams in chunk by chunk (``data/``:
+chunk sources, ``Sequence``, ``two_round``, ``ingest_chunk_rows``), and
+``Booster.compile()`` gives a forest stacked on the device once for
+serving (``serve/``, with a micro-batcher). Its two kernels —
 the gradient histogram (K1, ``csrc/hist.cu``) and the stable row
 partition (K2, ``csrc/partition.cu``) — are CUDA C++ for ``sm_90a``,
 built by ``nvcc`` at first use. It imports neither ``jax`` nor

@@ -32,10 +32,17 @@ device. ``Booster`` trains with a custom objective too (``update(fobj=)``:
 one copy of the score to the host and one of the gradients back per
 iteration), refits its leaves on new data (:meth:`Booster.refit`), and
 has the rest of the JAX package's ``Booster`` surface (rollback, leaf
-outputs, JSON dump, attributes, ...). Streaming input (``Sequence``,
-``init_streaming``, chunk sources, Arrow), ``Booster.compile`` and the
-network methods are refused, each naming the ROADMAP.md item that
-brings it.
+outputs, JSON dump, attributes, ...).
+
+Streaming input (``data/``): a chunk source, a chunk factory, a
+``Sequence`` or a list of them, and with ``ingest_chunk_rows > 0`` a
+text or parquet path or an Arrow table, is built in two passes (a
+sample for the mappers, then chunk by chunk binned on the device into
+the preallocated device matrix); ``two_round`` loads a text file so
+too; ``init_streaming`` / ``push_rows`` / ``mark_finished`` stage rows
+on the host and construct once. ``Booster.compile`` gives a
+``serve.CompiledForest``, which ``predict`` then rides. The network
+methods are refused, naming the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -49,8 +56,8 @@ import numpy as np
 import torch
 
 from .config import _Q1, Config, resolve_params
-from .ops.binning import (BinMapper, BinType, MissingType, bin_matrix,
-                          find_bin)
+from .data.ingest import _find_chunk_mappers, used_mappers
+from .ops.binning import BinMapper, BinType, MissingType, bin_matrix
 
 __all__ = ["Dataset", "Booster", "LightGBMError", "Sequence",
            "resolve_device"]
@@ -155,10 +162,121 @@ def _load_text_file(path: str, cfg: Config
     return X, y, weight, group
 
 
+def _two_round_load(path: str, cfg: Config, cat_idx_set, device):
+    """Two-round text loading (``two_round=true``), as the JAX package's
+    ``_two_round_load``: round 1 streams the file once, counting rows
+    and reservoir-sampling up to ``bin_construct_sample_cnt`` raw lines
+    (``RandomState(data_random_seed)``), and the mappers come from the
+    sample only; round 2 parses the file in chunks of 16,384 lines and
+    bins each on the device straight into the preallocated device
+    matrix, so the float matrix never exists. Lines are parsed by the
+    native parser (numpy without it). None for a LibSVM file (the eager
+    loader takes it).
+
+    Returns (bins [n, F_used] on ``device``, mappers, used,
+    full_mappers, n, F, label, weight, group)."""
+    from .data.ingest import alloc_bins, bin_chunk
+    from .data.sources import _text_sep, parse_text_lines
+
+    with open(path, "r") as f:
+        first = f.readline().strip()
+    sep = _text_sep(first)
+    tokens = first.replace(",", " ").replace("\t", " ").split()
+    if any(":" in t for t in tokens[1:]):
+        return None
+    header = bool(cfg.header)
+    label_col = 0
+    lc = str(cfg.label_column)
+    if lc.startswith("name:"):
+        # resolved here: the mode exists for files too large for the
+        # eager loader, so it must not fall back to it
+        want = lc[len("name:"):]
+        if not header:
+            raise LightGBMError(
+                "label_column='name:...' requires header=true")
+        names = [t.strip() for t in
+                 (first.split(sep) if sep else first.split())]
+        if want not in names:
+            raise LightGBMError(
+                f"label column '{want}' not found in header: {names}")
+        label_col = names.index(want)
+    elif lc:
+        label_col = int(lc)
+    cols = len(first.split(sep) if sep else first.split())
+
+    # ---- round 1: count + reservoir sample of raw lines ----
+    rs = np.random.RandomState(cfg.data_random_seed)
+    cap = max(int(cfg.bin_construct_sample_cnt), 2)
+    sample_lines: List[bytes] = []
+    n = 0
+    with open(path, "rb") as f:
+        if header:
+            f.readline()
+        for line in f:
+            if not line.strip():
+                continue
+            if n < cap:
+                sample_lines.append(line)
+            else:
+                j = int(rs.randint(0, n + 1))
+                if j < cap:
+                    sample_lines[j] = line
+            n += 1
+    if n == 0:
+        raise LightGBMError(f"empty data file {path}")
+    sample = parse_text_lines(sample_lines, sep, cols)
+    del sample_lines
+    F = sample.shape[1] - 1
+    Xs = np.delete(sample, label_col, axis=1)
+    del sample
+    full_mappers = _find_chunk_mappers(Xs, cfg, cat_idx_set)
+    del Xs
+    used, mappers = used_mappers(full_mappers)
+
+    # ---- round 2: chunked parse -> bin on the device in place ----
+    CHUNK = 16384
+    bins = alloc_bins(n, mappers, device)
+    label = np.zeros(n, np.float64)
+    row = 0
+
+    def flush(buf):
+        arr = parse_text_lines(buf, sep, cols)
+        label[row:row + len(buf)] = arr[:, label_col]
+        bin_chunk(np.delete(arr, label_col, axis=1), used, mappers, bins,
+                  row)
+        return row + len(buf)
+
+    with open(path, "rb") as f:
+        if header:
+            f.readline()
+        buf: List[bytes] = []
+        for line in f:
+            if not line.strip():
+                continue
+            buf.append(line)
+            if len(buf) == CHUNK:
+                row = flush(buf)
+                buf = []
+        if buf:
+            row = flush(buf)
+    if row != n:
+        raise LightGBMError(
+            f"two_round: second pass read {row} rows, first pass {n}")
+    weight = None
+    group = None
+    if os.path.exists(path + ".weight"):
+        weight = np.loadtxt(path + ".weight")
+    if os.path.exists(path + ".query"):
+        group = np.loadtxt(path + ".query").astype(np.int64)
+    return (bins, mappers, used, full_mappers, n, F, label, weight, group)
+
+
 class Sequence:
-    """The JAX package's abstract chunked data source (``__getitem__``,
-    ``__len__``, ``batch_size``). The port does not stream yet: a
-    Dataset built from one raises, naming ROADMAP.md Queue 1 item 18."""
+    """Generic chunked data source (the reference's abstract streaming
+    Sequence): subclass with ``__getitem__`` (row index or slice -> numpy
+    rows), ``__len__``, and optionally ``batch_size``. A Sequence (or a
+    list of them) is a valid ``Dataset(data=...)``: rows are pulled
+    batch by batch through the streaming construct (``data/``)."""
 
     batch_size = 4096
 
@@ -169,21 +287,26 @@ class Sequence:
         raise NotImplementedError("Sequence.__len__")
 
 
-def _refuse_streaming(data) -> None:
-    """The inputs the JAX package streams (``lightgbm_tpu/data/``): a
-    ``Sequence`` or a list of them, a chunk factory, Arrow data, a
-    parquet path. Item 18 brings them."""
-    if isinstance(data, Sequence) or (
-            isinstance(data, (list, tuple)) and data
-            and all(isinstance(d, Sequence) for d in data)):
-        raise _refuse("Dataset from a Sequence (streaming ingest)", 18)
-    if callable(data) and not isinstance(data, type):
-        raise _refuse("Dataset from a chunk factory (streaming ingest)", 18)
-    if type(data).__module__.split(".")[0] == "pyarrow":
-        raise _refuse("Dataset from Arrow data", 18)
-    if isinstance(data, (str, Path)) and \
-            str(data).endswith((".parquet", ".pq")):
-        raise _refuse("Dataset from a parquet file", 18)
+def _extract_arrow(data):
+    """A pyarrow Table / RecordBatch / Array as ``[n, F]`` float64 and
+    its column names, as the JAX package's ``_extract_arrow`` reads
+    it."""
+    import pyarrow as pa
+
+    if isinstance(data, pa.RecordBatch):
+        data = pa.Table.from_batches([data])
+    if isinstance(data, (pa.ChunkedArray, pa.Array)):
+        col = data.combine_chunks() if isinstance(data, pa.ChunkedArray) \
+            else data
+        return np.asarray(col, dtype=np.float64)[:, None], []
+    if not isinstance(data, pa.Table):
+        raise LightGBMError(
+            f"Unsupported pyarrow input {type(data)}; pass a Table, "
+            "RecordBatch or Array")
+    cols = [np.asarray(data.column(name).to_numpy(zero_copy_only=False),
+                       dtype=np.float64) for name in data.column_names]
+    X = np.column_stack(cols) if cols else np.zeros((data.num_rows, 0))
+    return X, list(data.column_names)
 
 
 _BIN_MAGIC = "lightgbm_tpu.dataset.v1"
@@ -276,6 +399,9 @@ class Dataset:
         self._query_boundaries: Optional[np.ndarray] = None
         # the rows of the parent's raw data a subset holds
         self.used_indices: Optional[np.ndarray] = None
+        # a streamed construct's data digest and its ingest stats
+        self._data_digest: Optional[str] = None
+        self._ingest_stats: Optional[Dict[str, Any]] = None
 
     # -- construction ---------------------------------------------------
     def construct(self) -> "Dataset":
@@ -286,10 +412,22 @@ class Dataset:
         self.device = self.reference.construct().device \
             if self.reference is not None else resolve_device(cfg)
         X = self.data
-        _refuse_streaming(X)
+        if isinstance(X, (str, Path)) and _is_binary_file(str(X)):
+            return self._construct_from_binary(str(X))
+        # chunk sources always stream; text and parquet paths and Arrow
+        # tables stream when ingest_chunk_rows > 0 (data/)
+        from .data.sources import coerce_chunk_source
+        src = coerce_chunk_source(X, cfg)
+        if src is not None:
+            return self._construct_streaming(cfg, src)
         if isinstance(X, (str, Path)):
-            if _is_binary_file(str(X)):
-                return self._construct_from_binary(str(X))
+            if cfg.two_round and self.reference is None:
+                cat_set = self._resolve_streaming_cats(cfg,
+                                                       two_round=True)
+                out = None if cat_set is None else _two_round_load(
+                    str(X), cfg, cat_set, self.device)
+                if out is not None:
+                    return self._finish_two_round(cfg, out, cat_set)
             X, y, w, q = _load_text_file(str(X), cfg)
             if self.label is None:
                 self.label = y
@@ -311,6 +449,10 @@ class Dataset:
                     self.feature_name = names
         except ImportError:
             pass
+        if type(X).__module__.split(".")[0] == "pyarrow":
+            X, names = _extract_arrow(X)
+            if self.feature_name == "auto" and names:
+                self.feature_name = names
         if hasattr(X, "toarray"):
             X = np.asarray(X.todense(), np.float64)
         if not (isinstance(X, np.ndarray) and X.dtype == np.float32):
@@ -465,18 +607,198 @@ class Dataset:
                 f"({self._n})")
         return self._install_metadata()
 
-    # -- streaming push ingest: item 18 ---------------------------------
+    # -- streaming constructs (data/) -------------------------------------
+    def _resolve_streaming_cats(self, cfg: Config, names=None,
+                                two_round: bool = False) -> Optional[set]:
+        """Categorical features of a streamed construct: integer indices
+        always; names through the source's column ``names`` (a CSV
+        header, an Arrow schema) when it has any. The
+        ``categorical_feature`` argument wins, the params' spec is the
+        fallback, as in the eager construct. A ``two_round`` text load
+        takes the union of both specs and gives None for a name (the
+        eager loader resolves it against the parsed header), as the
+        JAX package does."""
+        cat_set = set()
+        for spec in (self.categorical_feature, cfg.categorical_feature):
+            if cat_set and not two_round:
+                break
+            if spec in ("auto", "", None):
+                continue
+            if isinstance(spec, str):
+                spec = [c for c in spec.split(",") if c]
+            for c in spec or []:
+                try:
+                    cat_set.add(int(c))
+                    continue
+                except (TypeError, ValueError):
+                    pass
+                if two_round:
+                    return None
+                if names and str(c) in names:
+                    cat_set.add(names.index(str(c)))
+                else:
+                    raise LightGBMError(
+                        f"categorical feature {c!r} cannot be resolved "
+                        "for a chunked source without column names; "
+                        "pass integer indices (or a header/Arrow "
+                        "schema)")
+        return cat_set
+
+    def _construct_streaming(self, cfg: Config, src) -> "Dataset":
+        """The two-pass construct of a chunk source (``data/ingest.py``):
+        a sample for the mappers, then chunk by chunk binned on the
+        device. The float matrix never exists; peak host memory scales
+        with ``ingest_chunk_rows`` times the features, not the rows."""
+        from .data.ingest import dataset_digest, ingest_dataset
+        cat_set = self._resolve_streaming_cats(cfg, src.feature_names())
+        ref = None if self.reference is None \
+            else self.reference.construct()
+        # linear trees fit on raw values: pass 2 keeps the used columns
+        # on the device; a valid set keeps them when its reference does
+        keep_raw = bool(cfg.linear_tree) or (
+            ref is not None and ref._raw is not None)
+        res = ingest_dataset(src, cfg, cat_set, reference=ref,
+                             keep_raw=keep_raw, device=self.device)
+        y = res.label
+        if self.label is not None:
+            y = np.asarray(self.label, np.float64).ravel()
+        if y is None:
+            raise LightGBMError("Label should not be None")
+        if len(y) != res.n:
+            raise LightGBMError(
+                f"Length of label ({len(y)}) != number of rows "
+                f"({res.n})")
+        if self.weight is None and res.weight is not None:
+            self.weight = res.weight
+        # a streamed text path's companion files, as the eager loader
+        # reads them
+        path = getattr(src, "path", None)
+        if path is not None:
+            if self.weight is None and os.path.exists(path + ".weight"):
+                self.weight = np.loadtxt(path + ".weight")
+            if self.group is None and os.path.exists(path + ".query"):
+                self.group = np.loadtxt(path + ".query").astype(np.int64)
+        self._n, self._F_total = res.n, res.F
+        fn = self.feature_name
+        names = src.feature_names()
+        if ref is not None:
+            self._feature_names = list(ref._feature_names)
+            self._cat_idx = set(ref._cat_idx)
+        else:
+            if isinstance(fn, list) and len(fn) == res.F:
+                self._feature_names = list(fn)
+            elif names and len(names) == res.F:
+                self._feature_names = [str(c) for c in names]
+            else:
+                self._feature_names = [f"Column_{i}"
+                                       for i in range(res.F)]
+            self._cat_idx = set(cat_set)
+        self.mappers = res.mappers
+        self._used_features = res.used
+        self._full_mappers = res.full_mappers
+        self._bins = res.bins
+        self._F = len(res.mappers)
+        self._raw = res.raw
+        # the digest accumulated over the source's labels, unless a
+        # label argument replaced them
+        if self.label is not None or res.digest is None:
+            self._data_digest = dataset_digest(y, res.bins[:64].cpu()
+                                               .numpy())
+        else:
+            self._data_digest = res.digest
+        self._ingest_stats = res.stats
+        self.label = y
+        return self._install_metadata()
+
+    def _finish_two_round(self, cfg: Config, out, cat_set) -> "Dataset":
+        """Install a two-round load's device bins (the tail of
+        construct without a float matrix)."""
+        (bins, mappers, used, full_mappers, n, F, y, w, q) = out
+        if self.label is not None:
+            y = np.asarray(self.label, np.float64).ravel()
+        if self.weight is None and w is not None:
+            self.weight = w
+        if self.group is None and q is not None:
+            self.group = q
+        if len(y) != n:
+            raise LightGBMError(
+                f"Length of label ({len(y)}) != number of rows ({n})")
+        if cfg.linear_tree:
+            raise LightGBMError(
+                "two_round loading cannot retain raw data for "
+                "linear_tree (the reference's two-pass loader has the "
+                "same restriction on raw-data consumers)")
+        self._n, self._F_total = n, F
+        fn = self.feature_name
+        self._feature_names = list(fn) if isinstance(fn, list) \
+            and len(fn) == F else [f"Column_{i}" for i in range(F)]
+        self._cat_idx = set(cat_set)
+        self.mappers = mappers
+        self._used_features = used
+        self._full_mappers = full_mappers
+        self._bins = bins
+        self._F = len(mappers)
+        self._raw = None
+        self.label = y
+        return self._install_metadata()
+
+    # -- streaming push ingest (LGBM_DatasetInitStreaming / PushRows /
+    # MarkFinished): rows and their metadata arrive in batches, in any
+    # order, into a host staging matrix; construct runs once, at
+    # mark_finished ------------------------------------------------------
     @classmethod
     def init_streaming(cls, num_rows: int, num_features: int,
                        **dataset_kwargs) -> "Dataset":
-        raise _refuse("Dataset.init_streaming", 18)
+        ds = cls(data=np.zeros((0, num_features)), **dataset_kwargs)
+        ds.data = np.full((num_rows, num_features), np.nan, np.float64)
+        ds._stream_label = np.zeros(num_rows, np.float64)
+        ds._stream_weight = None
+        ds._stream_filled = np.zeros(num_rows, bool)
+        ds._stream_total = num_rows
+        return ds
 
     def push_rows(self, mat, start_row: int = None, label=None,
                   weight=None) -> "Dataset":
-        raise _refuse("Dataset.push_rows", 18)
+        """Append (or place, with ``start_row``) a batch of raw rows,
+        with their labels and weights when given."""
+        if getattr(self, "_stream_filled", None) is None:
+            raise LightGBMError(
+                "push_rows requires a Dataset.init_streaming dataset")
+        mat = np.atleast_2d(np.asarray(mat, np.float64))
+        if start_row is None:
+            filled = np.flatnonzero(~self._stream_filled)
+            start_row = int(filled[0]) if len(filled) else \
+                self._stream_total
+        end = start_row + mat.shape[0]
+        if end > self._stream_total:
+            raise LightGBMError("push_rows beyond the declared num_rows")
+        self.data[start_row:end] = mat
+        self._stream_filled[start_row:end] = True
+        if label is not None:
+            self._stream_label[start_row:end] = np.asarray(label).ravel()
+        if weight is not None:
+            if self._stream_weight is None:
+                self._stream_weight = np.ones(self._stream_total,
+                                              np.float64)
+            self._stream_weight[start_row:end] = \
+                np.asarray(weight).ravel()
+        return self
 
     def mark_finished(self) -> "Dataset":
-        raise _refuse("Dataset.mark_finished", 18)
+        """Every row pushed: bin and construct."""
+        if getattr(self, "_stream_filled", None) is None:
+            raise LightGBMError(
+                "mark_finished requires a Dataset.init_streaming dataset")
+        if not self._stream_filled.all():
+            missing = int((~self._stream_filled).sum())
+            raise LightGBMError(
+                f"streaming dataset has {missing} unpushed rows")
+        if self.label is None:
+            self.label = self._stream_label
+        if self.weight is None and self._stream_weight is not None:
+            self.weight = self._stream_weight
+        self._stream_filled = None
+        return self.construct()
 
     def _find_mappers(self, cfg: Config, X: np.ndarray,
                       cat_idx: set) -> None:
@@ -487,20 +809,8 @@ class Dataset:
             rows = rng.choice(n, size=sample_cnt, replace=False)
         else:
             rows = slice(None)
-        full = []
-        for j in range(F):
-            mb = cfg.max_bin
-            if cfg.max_bin_by_feature and j < len(cfg.max_bin_by_feature):
-                mb = cfg.max_bin_by_feature[j]
-            full.append(find_bin(X[rows, j], mb,
-                                 min_data_in_bin=cfg.min_data_in_bin,
-                                 bin_type=BinType.CATEGORICAL
-                                 if j in cat_idx else BinType.NUMERICAL,
-                                 use_missing=cfg.use_missing,
-                                 zero_as_missing=cfg.zero_as_missing))
-        used = [j for j, m in enumerate(full) if not m.is_trivial]
-        self._used_features = np.asarray(used, dtype=np.int32)
-        self.mappers = [full[j] for j in used]
+        full = _find_chunk_mappers(X, cfg, cat_idx, rows=rows)
+        self._used_features, self.mappers = used_mappers(full)
         self._full_mappers = full
 
     # -- accessors ------------------------------------------------------
@@ -711,6 +1021,8 @@ class Dataset:
 
     def set_label(self, label) -> "Dataset":
         self.label = np.asarray(label, np.float64).ravel()
+        # a streamed construct's digest described the old labels
+        self._data_digest = None
         return self
 
     def set_weight(self, weight) -> "Dataset":
@@ -899,6 +1211,7 @@ class Booster:
         self._avg_output = False
         self._attrs: Dict[str, str] = {}
         self.train_set: Optional[Dataset] = None
+        self._compiled_forest = None
 
     @property
     def _models(self) -> List:
@@ -945,14 +1258,17 @@ class Booster:
             score = self._engine.current_score(0)
             grad, hess = fobj(score[0] if K == 1 else score,
                               self._engine.train_set)
+            self._compiled_forest = None
             return self._engine.train_one_iter(np.asarray(grad),
                                                np.asarray(hess))
+        self._compiled_forest = None
         return self._engine.train_one_iter()
 
     def rollback_one_iter(self) -> "Booster":
         """Drop the last iteration's trees and take their outputs out of
         the train and valid scores on the device."""
         self._engine.rollback_one_iter()
+        self._compiled_forest = None
         return self
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
@@ -1149,6 +1465,7 @@ class Booster:
     def set_leaf_output(self, tree_id: int, leaf_id: int,
                         value: float) -> "Booster":
         self._models[tree_id].leaf_value[leaf_id] = value
+        self._compiled_forest = None
         return self
 
     def shuffle_models(self, start_iteration: int = 0,
@@ -1167,6 +1484,7 @@ class Booster:
         for it in order:
             reordered.extend(models[it * K: (it + 1) * K])
         models[:] = reordered
+        self._compiled_forest = None
         return self
 
     def get_split_value_histogram(self, feature, bins=None,
@@ -1270,10 +1588,28 @@ class Booster:
         return Booster(model_str=self.model_to_string(),
                        params={"device_type": self._device.type})
 
-    # -- refused: serving and the network ---------------------------------
     def compile(self, num_iteration: Optional[int] = None,
                 start_iteration: int = 0, **kwargs):
-        raise _refuse("Booster.compile (the compiled serving forest)", 19)
+        """Stack the forest on the device once (``serve/compile.py``):
+        the returned :class:`~lightgbm_tpu_torch.serve.compile.CompiledForest`
+        predicts in power-of-two row buckets, and later :meth:`predict`
+        calls over the same iteration range ride it too. It is bypassed
+        when another range is asked for, and dropped when the trees
+        change (``update``, ``rollback_one_iter``, ``set_leaf_output``,
+        ``shuffle_models``), so ``predict`` never answers from a stale
+        forest; the JAX package keeps it and bypasses it only when the
+        tree count changes. ``kwargs``: ``min_bucket`` / ``max_batch_rows`` (powers of
+        two)."""
+        if num_iteration is None:
+            num_iteration = self.best_iteration \
+                if self.best_iteration > 0 else -1
+        from .serve.compile import compile_forest
+        cf = compile_forest(self, num_iteration=num_iteration,
+                            start_iteration=start_iteration, **kwargs)
+        self._compiled_forest = cf
+        return cf
+
+    # -- refused: the network ---------------------------------------------
 
     def set_network(self, machines, local_listen_port: int = 12400,
                     listen_time_out: int = 120,

@@ -217,9 +217,6 @@ _TPU_KNOB = "a TPU layout knob of the JAX package with no counterpart " \
 
 # parameter -> (its JAX default, what brings it)
 NOT_IMPLEMENTED: Dict[str, tuple] = {
-    "forcedbins_filename": ("", _Q1.format(18)),
-    "two_round": (False, _Q1.format(18)),
-    "ingest_chunk_rows": (0, _Q1.format(18)),
     "tree_learner": ("serial", _Q1.format(20)),
     "num_devices": (0, _Q1.format(20)),
     "num_machines": (1, _Q1.format(20)),
@@ -458,6 +455,15 @@ class Config:
     # column (an index or "name:<column>")
     header: bool = False
     label_column: str = ""
+    # streaming ingest (data/): two_round parses a text file in two
+    # passes (a sample, then chunks binned on the device);
+    # ingest_chunk_rows > 0 streams text and parquet paths through the
+    # chunked two-pass pipeline, and is the chunk size of every chunk
+    # source
+    two_round: bool = False
+    ingest_chunk_rows: int = 0
+    # accepted and read by nothing, as in the JAX package
+    forcedbins_filename: str = ""
     # accepted and read by nothing, as in the JAX package
     weight_column: str = ""
     group_column: str = ""
@@ -510,6 +516,7 @@ class Config:
         "path_smooth": (0.0, None),
         "min_data_in_bin": (1, None),
         "bin_construct_sample_cnt": (1, None),
+        "ingest_chunk_rows": (0, None),
         "sigmoid": (0.0, None, "gt"),
         "alpha": (0.0, None, "gt"),
         "fair_c": (0.0, None, "gt"),

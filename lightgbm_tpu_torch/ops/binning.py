@@ -368,29 +368,37 @@ def bin_values(columns: Sequence[np.ndarray], mappers: Sequence[BinMapper],
     return out
 
 
-def bin_matrix(X: np.ndarray, col_indices, mappers: Sequence[BinMapper],
-               device=None, dtype=None):
+def bin_matrix(X, col_indices, mappers: Sequence[BinMapper],
+               device=None, dtype=None, out=None):
     """Bin selected columns of a row-major ``[n, F]`` values matrix into
     a dense row-major ``[n, C]`` bin tensor on ``device``.
 
+    ``X`` is a host array, whose columns go to the device one at a time,
+    or a tensor already on the device (a streamed chunk, in one copy).
     Numerical columns are mapped on the device, one column at a time,
     with ``torch.searchsorted`` in float64 — the rule of
     ``BinMapper.value_to_bin``: ``side="left"``, clamped to the last
     bound, NaN to the last bin for ``MissingType.NAN`` and to the bin of
     0.0 otherwise. Categorical columns by :func:`_categorical_bins`. The
     result is u8 when every mapper has at most 256 bins, else u16
-    (``torch.uint16``)."""
+    (``torch.uint16``); ``out`` (an ``[n, C]`` tensor, a row slice of a
+    larger one) receives it in place, on its own device and dtype."""
     import torch
     col_indices = np.asarray(col_indices, np.int64)
-    max_bins = max((m.num_bins for m in mappers), default=2)
-    if dtype is None:
-        dtype = torch.uint8 if max_bins <= 256 else torch.uint16
     n = X.shape[0]
-    out = torch.empty((n, len(mappers)), dtype=dtype, device=device)
+    if out is None:
+        max_bins = max((m.num_bins for m in mappers), default=2)
+        if dtype is None:
+            dtype = torch.uint8 if max_bins <= 256 else torch.uint16
+        out = torch.empty((n, len(mappers)), dtype=dtype, device=device)
+    dtype, device = out.dtype, out.device
     for i, m in enumerate(mappers):
-        col = X[:, col_indices[i]]
-        v = torch.from_numpy(np.ascontiguousarray(col)).to(
-            device=device, dtype=torch.float64)
+        if isinstance(X, torch.Tensor):
+            v = X[:, int(col_indices[i])].to(torch.float64).contiguous()
+        else:
+            v = torch.from_numpy(np.ascontiguousarray(
+                X[:, col_indices[i]])).to(device=device,
+                                          dtype=torch.float64)
         if m.bin_type != BinType.NUMERICAL:
             out[:, i] = _categorical_bins(v, m).to(dtype)
             continue

@@ -30,7 +30,10 @@ is frozen the walk stops (one read-back per chunk). It is on only for
 the objectives that tolerate inexact sums (binary, multiclass and
 ranking) and never for averaged outputs (random forest).
 ``pred_contrib`` gives TreeSHAP contributions (:mod:`shap`, float64 on
-the device) as ``[n, (F + 1) * K]``.
+the device) as ``[n, (F + 1) * K]``. After ``Booster.compile()`` a
+prediction over the compiled iteration range (not early-stopping, not
+``pred_leaf``) walks the compiled forest (``serve/compile.py``) instead
+of stacking the trees again; the answers are the same bit for bit.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ from .models.tree import Tree
 from .ops.linear import linear_leaf_values
 from .ops.predict import StackedTrees, predict_leaf_raw
 
-__all__ = ["predict_any", "stack_trees", "convert_raw_scores"]
+__all__ = ["predict_any", "stack_trees", "convert_raw_scores",
+           "forest_scores"]
 
 
 def _tree_depth(t: Tree) -> int:
@@ -146,6 +150,19 @@ def tree_outputs(stacked: StackedTrees, X: torch.Tensor,
         for i in range(leaves.shape[0])])
 
 
+def forest_scores(stacked: StackedTrees, X: torch.Tensor,
+                  K: int) -> torch.Tensor:
+    """``[K, n]`` float32 raw scores of raw rows ``X``: tree ``i`` adds
+    to class ``i % K``, one tree after the other, the order in which
+    training adds them to a valid set's float32 score."""
+    vals = tree_outputs(stacked, X, predict_leaf_raw(stacked, X))
+    scores = torch.zeros((K, X.shape[0]), dtype=vals.dtype,
+                         device=X.device)
+    for i in range(vals.shape[0]):
+        scores[i % K] += vals[i]
+    return scores
+
+
 def _matrix(data, pandas_categorical) -> np.ndarray:
     """A float64 matrix of the rows to predict: a pandas frame's
     category columns become their codes (over the training frame's
@@ -213,30 +230,32 @@ def predict_any(booster, data, start_iteration: int = 0,
     if not sel:
         out = np.zeros((n, K), np.float64)
         return out[:, 0] if K == 1 else out
-    device = booster._device
-    stacked = stack_trees(sel, device)
-    Xd = torch.as_tensor(X, dtype=torch.float32, device=device)
     obj_name = (booster._objective_str or "none").split()[0]
     use_es = pred_early_stop and not pred_leaf \
         and not booster._avg_output and obj_name in (
             "binary", "multiclass", "multiclassova", "softmax",
             "lambdarank", "rank_xendcg")
-    leaves = None if use_es else predict_leaf_raw(stacked, Xd)  # [T, n]
-    if pred_leaf:
-        return leaves.T.to(torch.int32).cpu().numpy()
-    if use_es:
-        scores = _scores_early_stop(stacked, Xd, K,
-                                    max(1, pred_early_stop_freq),
-                                    pred_early_stop_margin)
+    cf = getattr(booster, "_compiled_forest", None)
+    lo, hi = start_iteration * K, (start_iteration + num_iteration) * K
+    if cf is not None and not use_es and not pred_leaf \
+            and cf.matches(lo, hi, len(trees)):
+        # the compiled forest (serve/compile.py): stacked on the device
+        # once, rows padded to its power-of-two buckets
+        out = cf.predict_raw(X)
     else:
-        vals = tree_outputs(stacked, Xd, leaves)
-        # tree i adds to class i % K, one tree after the other: the
-        # order in which training adds them to a valid set's float32
-        # score
-        scores = torch.zeros((K, n), dtype=vals.dtype, device=device)
-        for i in range(vals.shape[0]):
-            scores[i % K] += vals[i]
-    out = scores.T.cpu().numpy().astype(np.float64)
+        device = booster._device
+        stacked = stack_trees(sel, device)
+        Xd = torch.as_tensor(X, dtype=torch.float32, device=device)
+        if pred_leaf:
+            return predict_leaf_raw(stacked, Xd).T.to(
+                torch.int32).cpu().numpy()
+        if use_es:
+            scores = _scores_early_stop(stacked, Xd, K,
+                                        max(1, pred_early_stop_freq),
+                                        pred_early_stop_margin)
+        else:
+            scores = forest_scores(stacked, Xd, K)
+        out = scores.T.cpu().numpy().astype(np.float64)
     if booster._avg_output:
         # random forest: the trees are stored unscaled; average over the
         # iterations actually used

@@ -25,7 +25,7 @@ import numpy as np
 
 from ..log import log_warning
 
-__all__ = ["parse_dense_text", "library"]
+__all__ = ["parse_dense_text", "parse_dense_rows", "library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "native" / "fastparse.cpp"
@@ -112,3 +112,19 @@ def parse_dense_text(path: str, skip_header: bool) -> Optional[np.ndarray]:
     got = lib.ltpu_parse_dense(buf, len(buf), int(skip_header), delim.value,
                                rows.value, cols.value, out)
     return out[:got] if got != rows.value else out
+
+
+def parse_dense_rows(buf: bytes, rows: int, cols: int,
+                     sep: Optional[str]) -> Optional[np.ndarray]:
+    """``rows`` non-empty lines of delimited text (``sep``: ``","``,
+    ``"\\t"`` or None for whitespace) as ``[rows, cols]`` float64, by the
+    same parser as :func:`parse_dense_text` (short rows NaN-padded, extra
+    cells ignored); None when the native parser is unavailable. The
+    streaming text sources parse each chunk of lines with it."""
+    lib = library()
+    if lib is None:
+        return None
+    out = np.empty((rows, cols), np.float64)
+    delim = (sep or " ").encode()
+    got = lib.ltpu_parse_dense(buf, len(buf), 0, delim, rows, cols, out)
+    return out[:got] if got != rows else out

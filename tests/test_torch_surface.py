@@ -470,33 +470,71 @@ def test_predict_accepts_validate_features_unread_like_jax():
 
 class _Rows(tlgb.Sequence):
     def __getitem__(self, idx):
-        return np.zeros((1, 2))
+        return np.array([[0.0, 1.0]])[idx]
 
     def __len__(self):
         return 1
 
 
-@pytest.mark.parametrize("call,item", [
-    (lambda: tlgb.Dataset.init_streaming(10, 2), "18"),
-    (lambda: tlgb.Dataset(np.zeros((2, 2)), label=[0, 1]).push_rows(
-        np.zeros((1, 2))), "18"),
-    (lambda: tlgb.Dataset(np.zeros((2, 2)), label=[0, 1]).mark_finished(),
-     "18"),
-    (lambda: tlgb.Dataset(_Rows(), label=[0], params=CPU).construct(),
-     "18"),
-    (lambda: tlgb.Dataset("x.parquet", params=CPU).construct(), "18"),
-    (lambda: tlgb.Dataset(np.zeros((3, 2)), label=[0, 1, 0],
-                          params=CPU).free_host_bins(), "20"),
+def _arrow_dataset():
+    pa = pytest.importorskip("pyarrow")
+    return tlgb.Dataset(pa.table({"a": [0.0, 1.0], "b": [1.0, 0.0]}),
+                        label=[0, 1], params=CPU).construct()
+
+
+def _pushed():
+    ds = tlgb.Dataset.init_streaming(2, 2, params=CPU)
+    return ds.push_rows(np.eye(2), label=[0, 1]).mark_finished()
+
+
+@pytest.mark.parametrize("call,item,match", [
+    pytest.param(lambda: tlgb.Dataset(np.zeros((2, 2)), label=[0, 1])
+                 .push_rows(np.zeros((1, 2))), "18",
+                 "requires a Dataset.init_streaming", id="call0-18"),
+    pytest.param(lambda: tlgb.Dataset(np.zeros((2, 2)), label=[0, 1])
+                 .mark_finished(), "18",
+                 "requires a Dataset.init_streaming", id="call1-18"),
+    pytest.param(lambda: tlgb.Dataset.init_streaming(1, 2, params=CPU)
+                 .push_rows(np.ones((2, 2))), "18",
+                 "beyond the declared num_rows", id="call2-18"),
+    pytest.param(lambda: tlgb.Dataset.init_streaming(2, 2, params=CPU)
+                 .push_rows(np.ones((1, 2)), label=[1]).mark_finished(),
+                 "18", "1 unpushed rows", id="call3-18"),
+    pytest.param(lambda: tlgb.Dataset(_Rows(), label=[0], params=CPU,
+                                      categorical_feature=["a"])
+                 .construct(), "18", "cannot be resolved",
+                 id="call4-18"),
+    pytest.param(lambda: tlgb.Dataset(np.zeros((3, 2)), label=[0, 1, 0],
+                                      params=CPU).free_host_bins(), "20",
+                 "item 20", id="call5-20"),
 ])
-def test_streaming_and_placement_are_refused(call, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+def test_streaming_and_placement_are_refused(call, item, match):
+    """Misuse of the streaming API (item 18, ported) is refused with the
+    JAX package's LightGBMError; placement (item 20) is still refused
+    with a NotImplementedError that names its item."""
+    exc = tlgb.LightGBMError if item == "18" else NotImplementedError
+    with pytest.raises(exc, match=match):
         call()
+
+
+@pytest.mark.parametrize("call", [
+    lambda: tlgb.Dataset.init_streaming(10, 2).push_rows(np.ones((1, 2))),
+    _pushed,
+    lambda: tlgb.Dataset(_Rows(), label=[0], params=CPU).construct(),
+    _arrow_dataset,
+])
+def test_streaming_apis_construct(call):
+    """The push API, a Sequence and an Arrow table give a Dataset."""
+    assert isinstance(call(), tlgb.Dataset)
 
 
 def test_booster_refusals_name_their_items(pair):
     X, y, _, tb = pair
-    with pytest.raises(NotImplementedError, match="item 19"):
-        tb.compile()
+    # compile is in the port (item 19, first part); the network is not
+    eager = tb.predict(X)
+    cf = tb.compile()
+    np.testing.assert_array_equal(cf.predict(X), eager)
+    tb._compiled_forest = None
     with pytest.raises(NotImplementedError, match="item 20"):
         tb.set_network("127.0.0.1:1")
     with pytest.raises(NotImplementedError, match="item 20"):

@@ -287,7 +287,9 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     scanned = {str(p.relative_to(REPO)) for p in _py_files()}
     assert {f"lightgbm_tpu_torch/{m}" for m in (
         "__main__.py", "cli.py", "sklearn.py", "plotting.py", "convert.py",
-        "utils/native.py", "ops/linear.py")} <= scanned
+        "utils/native.py", "ops/linear.py", "data/__init__.py",
+        "data/sources.py", "data/ingest.py", "serve/__init__.py",
+        "serve/compile.py", "serve/batcher.py")} <= scanned
     for path in _py_files():
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
@@ -341,14 +343,6 @@ print("CLEAN")
     assert "CLEAN" in out.stdout
 
 
-class _Rows(tlgb.Sequence):
-    def __getitem__(self, idx):
-        return np.zeros((1, 2))
-
-    def __len__(self):
-        return 1
-
-
 def _tiny():
     return tlgb.Dataset(np.zeros((4, 2)), label=[0, 1, 0, 1], params=CPU)
 
@@ -362,14 +356,7 @@ def _tiny_booster():
 # the JAX package's public names the port has but refuses, each with the
 # ROADMAP.md Queue 1 item that brings it, and a call that must raise so
 REFUSED = {
-    "Sequence": (18, lambda: tlgb.Dataset(_Rows(), label=[0],
-                                          params=CPU).construct()),
-    "Dataset.init_streaming": (18, lambda: tlgb.Dataset.init_streaming(
-        4, 2)),
-    "Dataset.push_rows": (18, lambda: _tiny().push_rows(np.zeros((1, 2)))),
-    "Dataset.mark_finished": (18, lambda: _tiny().mark_finished()),
     "Dataset.free_host_bins": (20, lambda: _tiny().free_host_bins()),
-    "Booster.compile": (19, lambda: _tiny_booster().compile()),
     "Booster.set_network": (20, lambda: _tiny_booster().set_network("a")),
     "Booster.free_network": (20, lambda: _tiny_booster().free_network()),
     "telemetry": (21, lambda: tlgb.telemetry("t.jsonl")),
@@ -431,9 +418,9 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
 
 @pytest.mark.parametrize("params", [
     {"tree_learner": "data"},
-    {"two_round": True},
-    {"forcedbins_filename": "bins.json"},
-    {"ingest_chunk_rows": 1000},
+    {"num_machines": 2},
+    {"shard_residency": "device"},
+    {"chunk_rows": 8192},
     {"hist_method": "pallas"},
     {"reg_sqrt": True},
     {"nonfinite_policy": "clamp"},
@@ -444,6 +431,21 @@ def test_unimplemented_parameters_raise(params):
     with pytest.raises(NotImplementedError, match="ROADMAP|TPU"):
         tlgb.train({"objective": "binary", **CPU, **params},
                    tlgb.Dataset(X, label=y), 1)
+
+
+@pytest.mark.parametrize("params", [
+    {"two_round": True}, {"ingest_chunk_rows": 1000},
+    {"forcedbins_filename": "bins.json"}])
+def test_streaming_parameters_are_accepted(params):
+    """Streaming ingest is in the port (item 18): on an in-memory matrix
+    these parameters change nothing, as in the JAX package."""
+    X = np.random.RandomState(0).randn(200, 3)
+    y = (X[:, 0] > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 4, "verbosity": -1, **CPU}
+    a = tlgb.train({**p, **params}, tlgb.Dataset(X, label=y), 2)
+    b = tlgb.train(p, tlgb.Dataset(X, label=y), 2)
+    assert a.model_to_string().split("parameters:")[0] == \
+        b.model_to_string().split("parameters:")[0]
 
 
 @pytest.mark.parametrize("params", [
