@@ -62,20 +62,49 @@ Phases, in order; any failure exits non-zero:
              every n_left equal to the tree's, final buffers equal to the
              plain replay's; device ms per tree by kernel, kernels
              counted, ms per window-size bucket, the root and a 100k
-             window; with --parent in turns); one profiled iteration;
-             AUC against the same training with the kernels' plain
-             versions forced;
+             window; with --parent in turns); one profiled iteration
+             (device events only); AUC against the same training with
+             the kernels' plain versions forced;
 6. train_quant — quantized-gradient training on the same data
              (use_quantized_grad, 4 bins, stochastic rounding, leaf
              renewal, seed 0): the same measurements but no profiled
              iteration, the int path's launch counter, and a plain-kernel twin with the same seed
              (first tree identical, AUC within 0.002); AUC not below the
              float path's less 0.01;
+6a. resilience — crash recovery, the guard, the OOM ladder and
+             telemetry on the same Dataset and parameters: 2 iterations
+             with the checkpoint and telemetry callbacks, then a resume
+             to 4 in a fresh Booster, whose trees must equal the first 4
+             of train_quant's (quantized) and train's (float) byte for
+             byte (float: else node for node, leaf values within 1e-6
+             relative, and whether two uninterrupted runs differ); the
+             snapshot's bytes, write and restore ms and the resume's
+             seconds; nan_grad@1 under skip_tree, float and quantized
+             (tree 1 constant, tree 0 equal to the uninterrupted run's,
+             finite predictions), nan_hess@1 under clamp (every leaf
+             finite, a fault line in the telemetry), the default policy
+             raising LightGBMError at iteration 1; oom@1 on train_quant's
+             parameters (one rung, 255 -> 127 slots, both trees byte-equal
+             to train_quant's; the pool misses after the rung); a
+             subprocess on 100,000 rows (63 leaves) with
+             LIGHTGBM_TPU_CHECKPOINT and kill@3 (running beside the
+             guard runs) ending by SIGKILL,
+             its snapshots whole, its resume in this process equal to an
+             uninterrupted run's model text; the telemetry's tree.leaves
+             equal to the trees', hbm.peak_bytes_in_use equal to
+             torch.cuda.max_memory_allocated, each iteration's phases in
+             ms and the recorder's host ms; ``stats`` in process, one
+             /metrics scrape on localhost, and one profiled iteration
+             with telemetry on, whose launch calls (the kernels, copies
+             and sets the host enqueues; a trace can lose a few of their
+             device-side records) must equal those of train's profiled
+             iteration, the same iteration on the same state (device
+             events printed beside);
 6b. train_valid — the main path with this slice's features on the same
              data: a 500k-row valid set binned with the train set's
              mappers, metric=[auc, binary_logloss], bagging 0.8 every
              iteration, feature_fraction 0.8, record_evaluation and
-             early_stopping(5); 1 warm-up + 3 timed iterations (iter_s,
+             early_stopping(5); 1 warm-up + 1 timed iteration (iter_s,
              eval_ms, the in-bag window sizes); every
              tree's root count equal to its iteration's in-bag count, the
              last recorded valid AUC equal to the AUC of predict, and
@@ -89,12 +118,12 @@ Phases, in order; any failure exits non-zero:
              0.002;
 6d. train_regression — regression_l1 with leaf renewal on the main
              path's X with a continuous label (the logits plus Student-t
-             noise), 1 warm-up + 3 timed iterations: renew_ms by CUDA
+             noise), 1 warm-up + 2 timed iterations: renew_ms by CUDA
              events, held-out L1; against the plain twin the same root
              splits and L1 within 0.002 relative;
 6e. train_constrained — this slice's path on the same Dataset:
              intermediate monotone constraints on features 0-3, float,
-             1 warm-up + 2 timed iterations (iter_s, leaves re-searched
+             1 warm-up + 1 timed iteration (iter_s, leaves re-searched
              per tree; the float64-sum twin's root splits and
              AUC within 0.002; one quantized tree equal to its twin's);
              advanced, quantized, one tree of 255 leaves equal to its
@@ -189,7 +218,7 @@ Phases, in order; any failure exits non-zero:
 8. train_rank — lambdarank at the MS LTR shape (2.27M training rows x
              137 features in queries of ~120 documents, at most 1,251;
              10% more queries held out; 255 leaves, 255 bins): 1 warm-up
-             + 3 timed iterations, the gradient function timed alone
+             + 2 timed iterations, the gradient function timed alone
              (grad_ms), held-out NDCG@10, launch counters; the card's
              gradients of the first 200 queries at
              the warm-up scores equal to the CPU's (rtol 1e-4); against
@@ -197,8 +226,8 @@ Phases, in order; any failure exits non-zero:
 9. train_multiclass — softmax multiclass at Covertype's shape (531,012 +
              50,000 held-out rows x 54 features, 7 classes, 255 leaves,
              EFB at its default: the one-hot indicators bundle; G, B and
-             the groups printed): 1 warm-up + 1 timed iteration of 7
-             trees, held-out multi_logloss and accuracy, every row's
+             the groups printed): 1 iteration of 7 trees (the warm-up,
+             timed), held-out multi_logloss and accuracy, every row's
              probabilities summing to 1, launch counters (no profiled
              iteration: its trace took 77.5 s); against the
              plain twin, whose float histograms
@@ -216,9 +245,9 @@ Phases, in order; any failure exits non-zero:
              timed iteration of 7 trees; every tree after drop and
              normalize identical to the float64-sum plain twin's, and the
              recorded multi_logloss equal;
-9c. predict_breadth — pred_contrib on 10,000 held-out rows of train's
+9c. predict_breadth — pred_contrib on 1,000 held-out rows of train's
              model and train_multiclass's (each row's contributions sum
-             to its raw score; 200 rows of the first iteration equal a
+             to its raw score; 50 rows of the first iteration equal a
              single-row TreeSHAP of the model text) and pred_early_stop
              (a margin no row passes equals the full walk; the share of
              rows stopped early and the time at the default margin);
@@ -237,10 +266,10 @@ Phases, in order; any failure exits non-zero:
 9e. train_airline — categorical splits at the airline benchmark's shape
              (10,000,000 + 500,000 rows x 8: six categoricals of 7 to
              ~300 categories, DepTime, Distance), binary, 255 leaves,
-             1 warm-up + 3 timed iterations: construct_s, the bins per
-             mapper, iter_s, the idle share and launches of one
-             profiled iteration, the share of categorical splits by
-             family, peak memory, AUC; against the float64-sum twin the
+             1 warm-up + 2 timed iterations: construct_s, the bins per
+             mapper, iter_s, the share of categorical splits by
+             family, peak memory, AUC (no profiled iteration, for the
+             smoke's time); against the float64-sum twin the
              same root splits and AUC within 0.002; a quantized
              iteration tree for tree; raw predict equal to a numpy walk
              of the model text (100,000 held-out rows); K1 and K2 (its
@@ -262,7 +291,8 @@ Phases, in order; any failure exits non-zero:
              to a numpy walk of the model text (1e-5) and quality above
              tests/test_examples.py's floors; LGBMRegressor, LGBMRanker
              with group, LGBMClassifier with string labels and
-             class_weight="balanced" on the same data;
+             class_weight="balanced" on the same data, in process while
+             the trainings run;
 10. report — the card's name and power limit, then one JSON line with
              every kernel's launches (by path), times, bound and library
              time.
@@ -296,6 +326,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -567,8 +598,26 @@ def events_ms(fn, reps, torch):
     return a.elapsed_time(b) / reps
 
 
+# the port's timed() phases (utils/timer.py): under a profile that
+# records host ops their record_function ranges also show as device-side
+# user annotations, which are no device work
+PHASE_LABELS = frozenset((
+    "boosting/gradients", "boosting/bagging", "tree_learner/grow",
+    "boosting/update_score", "engine/eval", "dataset/construct"))
+
+
+# CUDA runtime calls that enqueue device work (kernels, copies, sets)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel",
+                "cudaLaunchKernelExC", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def _is_annotation(e):
+    return e.key in PHASE_LABELS or getattr(e, "is_user_annotation", False)
+
+
 def _device_us(e, DeviceType):
-    if getattr(e, "device_type", None) != DeviceType.CUDA:
+    if getattr(e, "device_type", None) != DeviceType.CUDA \
+            or _is_annotation(e):
         return 0.0
     dt = getattr(e, "self_device_time_total", None)
     if dt is None:
@@ -1973,8 +2022,9 @@ def _drive(torch, lgb, dev, params, ds, Xv, yv, iters, tag, scorer=None,
                              f"predictions by {rt}")
     log(f"[{tag}] warmup_s={warm_s:.3f} "
         f"iter_s={[round(s, 4) for s in iter_s]} "
-        f"median_iter_s={statistics.median(iter_s):.4f} "
-        f"predict_s={predict_s:.4f} leaves={leaves} "
+        + (f"median_iter_s={statistics.median(iter_s):.4f} " if iter_s
+           else "median_iter_s=none (the warm-up alone) ")
+        + f"predict_s={predict_s:.4f} leaves={leaves} "
         f"launches={json.dumps(counts)} peak_mem_bytes={peak} "
         + " ".join(f"{k}={v:.6f}" for k, v in metrics.items())
         + f" roundtrip_max_abs={rt:.3g}")
@@ -2083,7 +2133,8 @@ def phase_train(torch, lgb, dev, n_train, iters, reps, parent):
     k2_turns = phase_k2_turns(torch, dev, ds.device_bins(), tree,
                               ds.used_feature_indices(), ds.feat_nan_bin(),
                               reps, parent and parent("ops.partition"))
-    prof = profile_iteration(torch, r["bst"])
+    # device events only, for the smoke's time (PERF.md §4)
+    prof = profile_iteration(torch, r["bst"], host=False)
 
     # the same 6 iterations with both kernels' plain versions forced
     bst_p, m_p = _plain_twin(torch, lgb, dev, params, ds, Xv, yv,
@@ -2099,7 +2150,7 @@ def phase_train(torch, lgb, dev, n_train, iters, reps, parent):
     model_str = r["bst"].model_to_string()
     del r["bst"], bst_p
     return dict(r, auc_plain=auc_p, construct_s=construct_s, profile=prof,
-                model_str=model_str,
+                model_str=model_str, params=params,
                 ds=ds, Xv=Xv, yv=yv, turns=turns, k2_turns=k2_turns,
                 Xt=Xt, target=target[:n_train],
                 target_valid=target[n_train:])
@@ -2147,6 +2198,362 @@ def phase_train_quant(torch, lgb, dev, tr, iters):
     del r["bst"], bst_p
     return dict(r, auc_plain=auc_p, profile=prof, same_trees=same,
                 params=params, model_str=model_str)
+
+
+# the kill run of the resilience phase: make_higgs_like rows, train's
+# parameters, killed by kill@KILL_AT in a subprocess
+KILL_ROWS = 100_000
+KILL_LEAVES = 63
+KILL_AT = 3
+KILL_ROUNDS = 5
+
+_KILL_WORKER = """
+import sys
+import lightgbm_tpu_torch as lgb
+from chip_smoke import kill_run
+kill_run(lgb, sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
+"""
+
+
+def kill_run(lgb, device_type, rows, rounds, resume_from=None):
+    """``rounds`` iterations of train's parameters at ``KILL_LEAVES``
+    leaves on ``rows`` rows of make_higgs_like (the resilience phase's
+    kill run: in a subprocess
+    under ``LIGHTGBM_TPU_CHECKPOINT`` and ``kill@3``, then resumed and
+    repeated uninterrupted in process)."""
+    X, y = make_higgs_like(rows, FEATURES)
+    params = {"objective": "binary", "num_leaves": KILL_LEAVES,
+              "max_bin": BINS, "learning_rate": 0.1, "verbosity": -1,
+              "device_type": device_type}
+    ds = lgb.Dataset(X, label=y, params={"max_bin": BINS,
+                                         "device_type": device_type})
+    return lgb.train(params, ds, rounds, resume_from=resume_from)
+
+
+def _faults(spec):
+    """``LIGHTGBM_TPU_FAULT_INJECT=spec`` for the enclosed runs."""
+    return mock.patch.dict(os.environ, {"LIGHTGBM_TPU_FAULT_INJECT": spec})
+
+
+class _Recorded:
+    """A booster whose ``update`` also records the iteration's telemetry
+    event, as the train loop does (for :func:`profile_iteration`)."""
+
+    def __init__(self, bst, rec):
+        self.bst, self.rec = bst, rec
+
+    def update(self):
+        self.bst.update()
+        self.rec.record_iteration(self.bst.current_iteration() - 1)
+
+
+def _held_trees(tag, text, ref_text, count, exact):
+    """The first ``count`` trees of ``text`` against ``ref_text``'s: byte
+    for byte (``exact``), else node for node with leaf values within
+    1e-6 relative (the CLI's standard). Returns True when byte-equal."""
+    got, want = _tree_blocks(text, count), _tree_blocks(ref_text, count)
+    if len(got) != count or len(want) != count:
+        raise AssertionError(f"{tag}: {len(got)} / {len(want)} trees")
+    if got == want:
+        return True
+    if exact:
+        raise AssertionError(f"{tag}: the trees differ from the reference "
+                             "run's byte for byte")
+    a = _parse_model(text)[:count]
+    b = _parse_model(ref_text)[:count]
+    for i, (ta, tb) in enumerate(zip(a, b)):
+        for key in ("split_feature", "threshold", "left_child",
+                    "right_child", "decision_type"):
+            if not np.array_equal(ta.get(key), tb.get(key)):
+                raise AssertionError(f"{tag}: tree {i} differs in {key}")
+        if not np.allclose(ta["leaf_value"], tb["leaf_value"], rtol=1e-6,
+                           atol=0):
+            raise AssertionError(f"{tag}: tree {i}'s leaf values differ "
+                                 "by more than 1e-6 relative")
+    return False
+
+
+def phase_resilience(torch, lgb, dev, tr, trq, iters):
+    """Crash recovery, the non-finite guard, the OOM ladder and run
+    telemetry on train's Dataset and parameters: a resume byte-equal to
+    the uninterrupted trees (quantized and float), skip_tree / clamp /
+    raise on injected NaN gradients or hessians, one ``oom@1`` rung, a
+    SIGKILLed subprocess resumed in process, and the telemetry stream,
+    ``stats``, ``/metrics`` and one profiled iteration with telemetry on.
+    K1 and K2 launch throughout; their counts are this path's. The
+    resumed runs train ``1 + iters`` iterations (at most 4; the first
+    half before the snapshot), train's and train_quant's count."""
+    from lightgbm_tpu_torch import cli
+    from lightgbm_tpu_torch.basic import LightGBMError
+    from lightgbm_tpu_torch.obs.export import (MetricsHTTPServer,
+                                               parse_openmetrics)
+    from lightgbm_tpu_torch.obs.recorder import TelemetryRecorder
+    from lightgbm_tpu_torch.resilience import (list_snapshots,
+                                               load_latest_snapshot,
+                                               restore_booster,
+                                               write_snapshot)
+    import signal
+    import urllib.request
+    ds, Xv = tr["ds"], tr["Xv"]
+    params, qparams = tr["params"], trq["params"]
+    tmp = tempfile.mkdtemp(prefix="resilience_")
+    out = {}
+    try:
+        _reset_counts()
+        # the kill run in a subprocess, while the guard runs below
+        ck_kill = os.path.join(tmp, "kill")
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("LIGHTGBM_TPU_")}
+        here = os.path.dirname(os.path.abspath(__file__))
+        env.update(LIGHTGBM_TPU_CHECKPOINT=ck_kill,
+                   LIGHTGBM_TPU_FAULT_INJECT=f"kill@{KILL_AT}",
+                   PYTHONPATH=here)
+        kill_log = open(os.path.join(tmp, "kill.log"), "w")
+        t_kill = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _KILL_WORKER, dev.type, str(KILL_ROWS),
+             str(KILL_ROUNDS)], cwd=here, env=env, stdout=kill_log,
+            stderr=subprocess.STDOUT)
+        try:
+            # -- the guard ---------------------------------------------
+            first = {"float": _tree_blocks(tr["model_str"], 1)[0],
+                     "quant": _tree_blocks(trq["model_str"], 1)[0]}
+            for tag, p in (("float", params), ("quant", qparams)):
+                with _faults("nan_grad@1"):
+                    b = lgb.train({**p, "nonfinite_policy": "skip_tree"},
+                                  ds, 2)
+                leaves = [t.num_leaves for t in b._models]
+                pred = b.predict(Xv, num_iteration=2)
+                ev = [(e["kind"], e["iteration"], e["action"], e["detail"])
+                      for e in b._engine.fault_log]
+                log(f"[resilience] skip_tree {tag}: nan_grad@1 leaves="
+                    f"{leaves} events={ev}")
+                if leaves[1] != 1 or b.current_iteration() != 2:
+                    raise AssertionError(f"skip_tree {tag}: tree 1 is not "
+                                         "constant")
+                if _tree_blocks(b.model_to_string(), 1)[0] != first[tag]:
+                    raise AssertionError(f"skip_tree {tag}: tree 0 differs "
+                                         "from the uninterrupted run's")
+                if not np.all(np.isfinite(pred)):
+                    raise AssertionError(f"skip_tree {tag}: predictions "
+                                         "are not finite")
+                del b
+            tpath_c = os.path.join(tmp, "clamp.jsonl")
+            with _faults("nan_hess@1"):
+                b = lgb.train({**params, "nonfinite_policy": "clamp"}, ds, 2,
+                              callbacks=[lgb.telemetry(tpath_c)])
+            lv_ok = all(np.all(np.isfinite(t.leaf_value)) for t in b._models)
+            faults = [json.loads(line) for line in open(tpath_c)
+                      if '"fault"' in line]
+            log(f"[resilience] clamp: nan_hess@1 leaves="
+                f"{[t.num_leaves for t in b._models]} finite={lv_ok} "
+                f"fault lines={[(f['iteration'], f['action'], f['detail']) for f in faults]}")
+            if not lv_ok or not any(f["action"] == "clamp" for f in faults):
+                raise AssertionError("clamp: a leaf value is not finite or "
+                                     "no fault event was recorded")
+            del b
+            with _faults("nan_grad@1"):
+                try:
+                    lgb.train(params, ds, 2)
+                    raise AssertionError("raise: no LightGBMError")
+                except LightGBMError as e:
+                    msg = str(e)
+            log(f"[resilience] raise: LightGBMError: {msg}")
+            if "at iteration 1" not in msg:
+                raise AssertionError(f"raise: wrong iteration in {msg!r}")
+            # -- the OOM ladder ----------------------------------------
+            with _faults("oom@1"):
+                b = lgb.train(qparams, ds, 2)
+            rungs = [(e["action"], e["detail"]) for e in b._engine.fault_log]
+            g = b._engine.grower
+            log(f"[resilience] oom@1: rungs={rungs} pool_slots="
+                f"{g.cfg.pool_slots} pool misses after the rung="
+                f"{g.pool_misses}")
+            slots = qparams["num_leaves"] // 2
+            if rungs != [(f"histogram pool -> {slots} slots",
+                          "RESOURCE_EXHAUSTED in grow; retrying after "
+                          "downgrade")] or g.cfg.pool_slots != slots:
+                raise AssertionError(f"oom@1: rungs {rungs}")
+            _held_trees("oom@1", b.model_to_string(), trq["model_str"], 2,
+                        exact=True)
+            out["oom_pool_misses"] = g.pool_misses
+            del b, g
+            t0 = time.perf_counter()
+            whole = kill_run(lgb, dev.type, KILL_ROWS, KILL_ROUNDS) \
+                .model_to_string()
+            whole_s = time.perf_counter() - t0
+        except BaseException:
+            proc.kill()
+            raise
+        finally:
+            try:
+                rc = proc.wait(timeout=600)
+            finally:
+                kill_log.close()
+        kill_s = time.perf_counter() - t_kill
+        # -- the kill and resume ---------------------------------------
+        rows = list_snapshots(ck_kill)
+        log(f"[resilience] kill@{KILL_AT}: subprocess rc={rc} in "
+            f"{kill_s:.1f} s, snapshots="
+            f"{[(r['iteration'], r['status']) for r in rows]}")
+        if rc != -signal.SIGKILL:
+            raise AssertionError(
+                f"kill: the worker ended with {rc}, not SIGKILL: "
+                + open(os.path.join(tmp, "kill.log")).read()[-2000:])
+        if [r["iteration"] for r in rows] != list(range(1, KILL_AT + 1)) \
+                or any(r["status"] != "ok" for r in rows):
+            raise AssertionError(f"kill: snapshots {rows}")
+        t0 = time.perf_counter()
+        resumed = kill_run(lgb, dev.type, KILL_ROWS, KILL_ROUNDS,
+                           resume_from=ck_kill).model_to_string()
+        log(f"[resilience] kill: the resume to {KILL_ROUNDS} in "
+            f"{time.perf_counter() - t0:.1f} s, the uninterrupted run in "
+            f"{whole_s:.1f} s, model texts equal: {resumed == whole}")
+        if resumed != whole:
+            raise AssertionError("kill: the resumed model differs from the "
+                                 "uninterrupted run's")
+        # -- resume at the full width ----------------------------------
+        total = min(4, 1 + iters)
+        half = total // 2
+        res = {}
+        for tag, p, ref in (("quant", qparams, trq["model_str"]),
+                            ("float", params, tr["model_str"])):
+            ck = os.path.join(tmp, f"ck_{tag}")
+            tpath = os.path.join(tmp, f"{tag}.jsonl")
+            rec_s = []
+            record = TelemetryRecorder.record_iteration
+
+            def timed_record(self, *a, **kw):
+                t = time.perf_counter()
+                try:
+                    return record(self, *a, **kw)
+                finally:
+                    rec_s.append(time.perf_counter() - t)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            TelemetryRecorder.record_iteration = timed_record
+            try:
+                t0 = time.perf_counter()
+                b2 = lgb.train(p, ds, half,
+                               callbacks=[lgb.checkpoint(ck),
+                                          lgb.telemetry(tpath)])
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+            finally:
+                TelemetryRecorder.record_iteration = record
+            peak = torch.cuda.max_memory_allocated()
+            events = [json.loads(line) for line in open(tpath)]
+            its = [e for e in events if e["event"] == "iteration"]
+            if [e["tree"]["leaves"] for e in its] != \
+                    [t.num_leaves for t in b2._models]:
+                raise AssertionError(f"telemetry {tag}: tree.leaves differ "
+                                     "from the trees'")
+            ev_peak = max(e["hbm"]["peak_bytes_in_use"] for e in its)
+            if ev_peak != peak:
+                raise AssertionError(
+                    f"telemetry {tag}: hbm.peak_bytes_in_use {ev_peak} != "
+                    f"max_memory_allocated {peak}")
+            for e in its:
+                log(f"[resilience] {tag} iteration {e['iteration']} phases "
+                    "ms: " + ", ".join(
+                        f"{k}={v['total'] * 1e3:.1f} ({v['count']}x)"
+                        for k, v in sorted(e["phases"].items())))
+            snap_path = sorted(r["path"] for r in list_snapshots(ck))[-1]
+            nbytes = os.path.getsize(snap_path)
+            t0 = time.perf_counter()
+            write_snapshot(os.path.join(tmp, f"again_{tag}"), b2)
+            write_ms = (time.perf_counter() - t0) * 1e3
+            del b2
+            fresh = lgb.Booster(params=p, train_set=ds)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restore_booster(fresh, load_latest_snapshot(ck))
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            del fresh
+            t0 = time.perf_counter()
+            b4 = lgb.train(p, ds, total, resume_from=ck)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            text = b4.model_to_string(num_iteration=total)
+            exact = _held_trees(f"resume {tag}", text, ref, total,
+                                exact=(tag == "quant"))
+            if not exact:
+                # is the float path itself not deterministic?
+                again = lgb.train(p, ds, total).model_to_string()
+                log("[resilience] float resume not byte-equal; two "
+                    "uninterrupted float runs byte-equal: "
+                    f"{_tree_blocks(again, total) == _tree_blocks(ref, total)}")
+            log(f"[resilience] resume {tag}: {half} + {total - half} "
+                "iterations, trees "
+                f"{'byte-equal' if exact else 'node for node'} to the "
+                f"uninterrupted run's; snapshot {nbytes} bytes, write "
+                f"{write_ms:.1f} ms, restore {restore_ms:.1f} ms; the first "
+                f"run {first_s:.3f} s, the resume (construct, restore, 2 "
+                f"iterations) {resume_s:.3f} s; recorder host ms per "
+                f"iteration {[round(s * 1e3, 3) for s in rec_s]}; peak "
+                f"{peak}")
+            res[tag] = dict(exact=exact, snapshot_bytes=nbytes,
+                            write_ms=write_ms, restore_ms=restore_ms,
+                            first_s=first_s, resume_s=resume_s,
+                            recorder_ms=[s * 1e3 for s in rec_s],
+                            tpath=tpath, bst=b4)
+            if tag == "quant":
+                del res[tag]["bst"], b4
+        out["resume"] = res
+        # -- telemetry: stats, /metrics, a profiled iteration ----------
+        rc = cli.main(["stats", res["float"]["tpath"]])
+        if rc != 0:
+            raise AssertionError(f"stats exited {rc}")
+        server = MetricsHTTPServer(0)
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{server.port}/metrics",
+                    timeout=30) as resp:
+                scraped = parse_openmetrics(resp.read().decode())
+        finally:
+            server.close()
+        n_it = scraped.get("lightgbm_tpu_iterations_total", {}).get((), 0)
+        log(f"[resilience] /metrics: {len(scraped)} samples, "
+            f"iterations_total={n_it}")
+        # the clamp run's 2 iterations and the two first halves
+        if n_it != 2 + 2 * half:
+            raise AssertionError("/metrics: the iterations are not counted")
+        b4 = res["float"].pop("bst")
+        rec = TelemetryRecorder(os.path.join(tmp, "profiled.jsonl"))
+        rec.attach(b4)
+        try:
+            prof = profile_iteration(torch, _Recorded(b4, rec), host=False)
+        finally:
+            rec.close()
+        want = tr["profile"]
+        log(f"[resilience] profiled iteration with telemetry on: "
+            f"{prof['launches']} device events, launch calls "
+            f"{json.dumps(prof['launch_calls'])}; train's same iteration "
+            f"without telemetry: {want['launches']} device events, "
+            f"launch calls {json.dumps(want['launch_calls'])}")
+        for name, p in (("with telemetry", prof), ("train's", want)):
+            if not p["launch_calls"].get("cudaLaunchKernel"):
+                raise AssertionError(f"the profiled iteration {name} "
+                                     "recorded no kernel launch calls")
+        if not res["float"]["exact"] or total != 1 + iters:
+            log("[resilience] launch calls not compared: the resumed "
+                "booster's next iteration is not train's profiled one ("
+                + ("the float resume is not byte-equal" if
+                   not res["float"]["exact"] else
+                   f"{total} iterations, train profiled its {1 + iters + 1}"
+                   "th") + ")")
+        elif prof["launch_calls"] != want["launch_calls"]:
+            raise AssertionError("telemetry changes the work an iteration "
+                                 "puts on the card")
+        out["profile"] = prof
+        del b4
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["counts"] = _read_counts()
+    log(f"[resilience] launches={json.dumps(out['counts'])}")
+    return out
 
 
 def _growth_run(torch, lgb, dev, params, ds, rounds, tag):
@@ -2421,13 +2828,16 @@ STREAM_CHUNK = 65_536
 def _host_peak(fn):
     """``fn()`` and a bound on the host memory it held at once, by
     tracemalloc (numpy's and Python's allocations; torch's CPU allocator
-    is not traced). Tracing pauses inside ``find_bin``, whose Python loop
-    runs ~14x slower traced: what is live at a pause is carried as a base
-    to the end (a block freed later still counts, so the figure is an
-    upper bound), and one column's temporaries inside find_bin are not
-    seen."""
+    is not traced). Tracing pauses inside the mapper loop
+    (``_find_chunk_mappers``: ``find_bin`` over every column, in threads
+    from 100,000 sampled rows), whose Python runs ~14x slower traced:
+    what is live at a pause is carried as a base to the end (a block
+    freed later still counts, so the figure is an upper bound), and the
+    loop's own temporaries (a block of up to 32 sampled columns, a
+    column's find_bin temporaries per thread) are not seen."""
     import tracemalloc
-    from lightgbm_tpu_torch.ops import binning
+    from lightgbm_tpu_torch import basic
+    from lightgbm_tpu_torch.data import ingest
     acc = {"base": 0, "peak": 0}
 
     def pause():
@@ -2436,7 +2846,7 @@ def _host_peak(fn):
         acc["base"] += cur
         tracemalloc.stop()
 
-    orig = binning.find_bin
+    orig = ingest._find_chunk_mappers
 
     def untraced(*args, **kwargs):
         pause()
@@ -2445,21 +2855,23 @@ def _host_peak(fn):
         finally:
             tracemalloc.start()
 
-    binning.find_bin = untraced
+    ingest._find_chunk_mappers = basic._find_chunk_mappers = untraced
     tracemalloc.start()
     try:
         out = fn()
     finally:
         pause()
-        binning.find_bin = orig
+        ingest._find_chunk_mappers = basic._find_chunk_mappers = orig
     return out, acc["peak"]
 
 
-def _find_bin_seconds(fn):
-    """``fn()`` and the wall seconds it spent inside ``find_bin`` (the
-    mapper loop's per-column calls, summed)."""
-    from lightgbm_tpu_torch.ops import binning
-    orig = binning.find_bin
+def _mapper_seconds(fn):
+    """``fn()`` and the wall seconds it spent in the mapper loop
+    (``data/ingest.py`` ``_find_chunk_mappers``: ``find_bin`` over every
+    column, in threads from 100,000 sampled rows)."""
+    from lightgbm_tpu_torch import basic
+    from lightgbm_tpu_torch.data import ingest
+    orig = ingest._find_chunk_mappers
     acc = [0.0]
 
     def timed(*args, **kwargs):
@@ -2469,11 +2881,11 @@ def _find_bin_seconds(fn):
         finally:
             acc[0] += time.perf_counter() - t0
 
-    binning.find_bin = timed
+    ingest._find_chunk_mappers = basic._find_chunk_mappers = timed
     try:
         out = fn()
     finally:
-        binning.find_bin = orig
+        ingest._find_chunk_mappers = basic._find_chunk_mappers = orig
     return out, acc[0]
 
 
@@ -2616,7 +3028,8 @@ def phase_ingest_text(torch, lgb, dev, csv, nbytes, rows):
     to the rows, so every mapper sees every row; both streamed
     constructs' device bins, mappers and labels equal to the eager
     one's. Prints MB/s of each (not traced: tracemalloc would slow the
-    per-line passes) and the seconds each spent in ``find_bin``.
+    per-line passes) and the wall seconds of each one's mapper loop
+    (``find_bin`` over every column).
     Reduced: rows 10.5M -> 500,000 (the text takes
     time to write)."""
     out = {}
@@ -2630,14 +3043,14 @@ def phase_ingest_text(torch, lgb, dev, csv, nbytes, rows):
                        ("chunked", {"ingest_chunk_rows": STREAM_CHUNK})):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ds, fb_s = _find_bin_seconds(lambda: lgb.Dataset(
+        ds, map_s = _mapper_seconds(lambda: lgb.Dataset(
             csv, params={**base, **extra}).construct())
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         log(f"[ingest_text] {tag}: construct_s={secs:.3f} "
-            f"{nbytes / 1e6 / secs:.1f} MB/s find_bin_s={fb_s:.3f}")
+            f"{nbytes / 1e6 / secs:.1f} MB/s mappers_s={map_s:.3f}")
         out[tag] = dict(construct_s=secs, mb_s=nbytes / 1e6 / secs,
-                        find_bin_s=fb_s)
+                        mappers_s=map_s)
         if eager is None:
             eager = ds
             continue
@@ -2848,7 +3261,8 @@ def profile_iteration(torch, bst, host=True):
     do not overlap) against the iteration's wall time, the kernels that
     take most of it, and the host ops that take most of the host's.
     Runs after the model above was scored, so it does not change what
-    was checked. ``host=False`` records the device's events only (no
+    was checked. Sleep kernels before and after the iteration (left out
+    of the sums) keep the trace's ends from dropping its launches. ``host=False`` records the device's events only (no
     host ops): the trace of an iteration of ~270k launches takes minutes
     of host time to read back with them."""
     from torch.profiler import ProfilerActivity, profile
@@ -2856,17 +3270,28 @@ def profile_iteration(torch, bst, host=True):
     t_all = time.perf_counter()
     acts = [ProfilerActivity.CPU] if host else []
     with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
+        # short sleep kernels before and after take the launches a trace
+        # may drop at its ends (left out of every sum below)
+        for _ in range(TRACE_PAD):
+            torch.cuda._sleep(1000)
         t0 = time.perf_counter()
         bst.update()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        for _ in range(TRACE_PAD):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
     from torch.autograd import DeviceType
     rows, host = [], []
     for e in prof.key_averages():
+        if "spin_kernel" in e.key:
+            continue
         # device-side events only (kernels, memcpy, memset): the CPU ops
         # that launched them carry the same time as "self device time"
         if getattr(e, "device_type", None) != DeviceType.CUDA:
             host.append((e.self_cpu_time_total / 1e3, e.count, e.key))
+            continue
+        if _is_annotation(e):
             continue
         dt = getattr(e, "self_device_time_total", None)
         if dt is None:
@@ -2894,6 +3319,10 @@ def profile_iteration(torch, bst, host=True):
                host_top=[dict(name=k[:60], calls=c, ms=ms)
                          for ms, c, k in host[:8]])
     out["launches"] = sum(c for _, c, _ in rows)
+    # the host's calls that put work on the card, one device event each:
+    # unlike the device-side records, which a trace can lose a few of,
+    # they are recorded whole
+    out["launch_calls"] = {k: c for _, c, k in host if k in LAUNCH_CALLS}
     log("[profile] one iteration under torch.profiler: wall_ms="
         f"{out['wall_ms']:.1f} device_busy_ms={busy_ms:.1f} device events="
         f"{out['launches']} profile_s={time.perf_counter() - t_all:.1f} "
@@ -3255,7 +3684,8 @@ def phase_train_multiclass(torch, lgb, dev, iters, reps):
     held-out rows x 54 features, 7 classes, 255 leaves, 255 bins, EFB at
     its default, so the sparse one-hot indicators bundle): the bundles
     (G, B, group sizes); 1 warm-up + ``iters`` timed iterations of 7
-    trees, held-out multi_logloss and accuracy (no profiled iteration:
+    trees (none in the smoke: the warm-up is timed too), held-out
+    multi_logloss and accuracy (no profiled iteration:
     its trace took 77.5 s of the smoke);
     against the plain twin, the first iteration's 7 root splits and
     multi_logloss within 0.002. The plain twin's float histograms are
@@ -4085,7 +4515,8 @@ def phase_train_airline(torch, lgb, dev, n_train, iters, reps):
     shares = tally.shares()
     log(f"[train_airline] splits by family: {json.dumps(shares)} "
         f"membership launches={r['counts']['partition_member']}")
-    prof = profile_iteration(torch, r["bst"], host=False)
+    # no profiled iteration, for the smoke's time (PERF.md §4)
+    prof = None
     bst = r["bst"]
     # raw predictions against a numpy walk of the saved model text
     n_walk = 100_000
@@ -4716,14 +5147,14 @@ def _shap_oracle(tree, x):
     return phi
 
 
-CONTRIB_ROWS = 2_000
-ORACLE_ROWS = 200
+CONTRIB_ROWS = 1_000
+ORACLE_ROWS = 50
 
 
 def phase_predict_breadth(torch, lgb, dev, models):
     """``pred_contrib`` and ``pred_early_stop`` on the boosters of
-    ``train`` (4 trees of 255 leaves) and ``train_multiclass`` (2
-    iterations of 7 trees), loaded from their model texts; ``models``:
+    ``train`` (4 trees of 255 leaves) and ``train_multiclass`` (1
+    iteration of 7 trees), loaded from their model texts; ``models``:
     ``{tag: (model text, held-out rows)}``. Contributions on
     ``CONTRIB_ROWS`` held-out rows sum per row to the raw prediction
     (1e-4 relative), and the first iteration's contributions of
@@ -5064,6 +5495,12 @@ def run_clis(jobs, timeout=600):
     ``{tag: (seconds from the start to its exit, the launch counts of its
     kernels, its seconds by part: see _CLI_RUNNER)}``. A non-zero exit
     fails the phase."""
+    return wait_clis(start_clis(jobs), timeout)
+
+
+def start_clis(jobs):
+    """:func:`run_clis`'s processes, started (their output to temporary
+    files, so none waits on a full pipe); :func:`wait_clis` waits."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + (os.pathsep + env["PYTHONPATH"]
                                 if env.get("PYTHONPATH") else "")
@@ -5071,24 +5508,48 @@ def run_clis(jobs, timeout=600):
     procs = {}
     for tag, (args, cwd) in jobs.items():
         env["CHIP_SMOKE_SPAWNED"] = repr(time.time())
-        procs[tag] = subprocess.Popen(
+        so, se = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        procs[tag] = (subprocess.Popen(
             [sys.executable, "-c", _CLI_RUNNER, *args], cwd=cwd,
-            env=dict(env), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True)
+            env=dict(env), stdout=so, stderr=se), so, se)
+    return t0, procs
+
+
+def wait_clis(started, timeout=600):
+    """The results of :func:`start_clis`'s processes, as
+    :func:`run_clis` gives them; none is left running."""
+    t0, procs = started
     out = {}
-    for tag, proc in procs.items():
-        so, se = proc.communicate(timeout=timeout)
-        secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"{tag}: the CLI exited {proc.returncode}:"
-                                 f"\n{so[-3000:]}\n{se[-3000:]}")
-        found = {}
-        for ln in so.splitlines():
-            if ln.startswith(("[cli_counts] ", "[cli_times] ")):
-                key, val = ln.split(" ", 1)
-                found[key] = json.loads(val)
-        out[tag] = (secs, found["[cli_counts]"], found["[cli_times]"])
+    try:
+        for tag, (proc, fo, fe) in procs.items():
+            proc.wait(timeout=timeout)
+            secs = time.perf_counter() - t0
+            fo.seek(0)
+            fe.seek(0)
+            so, se = fo.read(), fe.read()
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"{tag}: the CLI exited {proc.returncode}:\n"
+                    f"{so[-3000:]}\n{se[-3000:]}")
+            found = {}
+            for ln in so.splitlines():
+                if ln.startswith(("[cli_counts] ", "[cli_times] ")):
+                    key, val = ln.split(" ", 1)
+                    found[key] = json.loads(val)
+            out[tag] = (secs, found["[cli_counts]"], found["[cli_times]"])
+    finally:
+        stop_clis(started)
     return out
+
+
+def stop_clis(started):
+    """Ends :func:`start_clis`'s processes that still run."""
+    for proc, fo, fe in started[1].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        fo.close()
+        fe.close()
 
 
 def _cli_times(times):
@@ -5480,16 +5941,63 @@ def _example_quality(name, preds, y, test_path):
                           for a, c in zip(b[:-1], b[1:])]))
 
 
+def _examples_sklearn(lgb, dev, dirs, out):
+    """``LGBMRegressor``, ``LGBMRanker`` (with ``group``) and
+    ``LGBMClassifier`` (string labels, ``class_weight="balanced"``)
+    on the examples' data in ``dirs``; their counts and scores go to
+    ``out``."""
+    def data(name, split):
+        stem = EXAMPLES[name][0]
+        raw = np.loadtxt(os.path.join(dirs[name], f"{stem}.{split}"),
+                         delimiter=",")
+        return raw[:, 1:], raw[:, 0]
+    kw = dict(n_estimators=20, device_type=dev.type)
+    _reset_counts()
+    Xr, yr = data("regression", "train")
+    Xe, ye = data("regression", "test")
+    reg = lgb.LGBMRegressor(**kw).fit(Xr, yr)
+    r2 = 1 - np.sum((ye - reg.predict(Xe)) ** 2) \
+        / np.sum((ye - ye.mean()) ** 2)
+    Xq, yq = data("lambdarank", "train")
+    gq = np.loadtxt(os.path.join(dirs["lambdarank"], "rank.train.query"),
+                    dtype=int)
+    rank = lgb.LGBMRanker(**kw).fit(Xq, yq, group=gq)
+    Xk, yk = data("lambdarank", "test")
+    top = _example_quality("lambdarank", rank.predict(Xk), yk,
+                           os.path.join(dirs["lambdarank"], "rank.test"))
+    Xm, ym = data("multiclass_classification", "train")
+    Xn, yn = data("multiclass_classification", "test")
+    names = np.array(["c0", "c1", "c2", "c3", "c4"])
+    clf = lgb.LGBMClassifier(class_weight="balanced", **kw).fit(
+        Xm, names[ym.astype(int)])
+    lab = clf.predict(Xn)
+    acc = float(np.mean(lab == names[yn.astype(int)]))
+    sk_counts = _read_counts()
+    leaves = [t.num_leaves for m in (reg, rank, clf)
+              for t in m.booster_._models]
+    _check_counts("surface_examples sklearn", sk_counts, leaves, "hist")
+    out["counts"]["sklearn"] = sk_counts
+    out.update(sk_r2=float(r2), sk_rank_top=top, sk_acc=acc)
+    log(f"[surface_examples] LGBMRegressor R2 {r2:.4f}; LGBMRanker "
+        f"top-1 share {top:.4f}; LGBMClassifier (string labels, "
+        f"balanced) accuracy {acc:.4f}, classes "
+        f"{[str(c) for c in clf.classes_]}; "
+        f"launches={json.dumps(sk_counts)}")
+    if not (r2 > 0.5 and top > 0.6 and acc > 0.8
+            and set(lab) <= set(names)):
+        raise AssertionError("surface_examples: an sklearn wrapper is "
+                             "wrong")
+
+
 def phase_surface_examples(torch, lgb, dev):
     """The four ``examples/*/train.conf`` through ``python3 -m
     lightgbm_tpu_torch config=train.conf num_trees=25`` (as
     ``tests/test_examples.py`` trains them) on ``examples/
     generate_data.py``'s data (the four trainings at once, then the four
     predictions), predictions held to a numpy walk of the model text and
-    accuracy to ``tests/test_examples.py``'s floors; then
-    ``LGBMRegressor``, ``LGBMRanker`` (with ``group``) and
-    ``LGBMClassifier`` (string labels, ``class_weight="balanced"``) on
-    the same data."""
+    accuracy to ``tests/test_examples.py``'s floors; while the trainings
+    run, the sklearn wrappers on the same data
+    (:func:`_examples_sklearn`)."""
     import importlib.util
     import shutil
     spec = importlib.util.spec_from_file_location(
@@ -5509,12 +6017,19 @@ def phase_surface_examples(torch, lgb, dev):
             gen.GENERATORS[name](d)
             dirs[name] = d
 
-        # num_trees=25, as tests/test_examples.py trains them
+        # num_trees=25, as tests/test_examples.py trains them; the
+        # sklearn wrappers run in this process meanwhile
         dt = f"device_type={dev.type}"
         t0 = time.perf_counter()
-        counts = {n: c for n, (_, c, _t) in run_clis({
+        started = start_clis({
             n: (["config=train.conf", "num_trees=25", dt], dirs[n])
-            for n in EXAMPLES}).items()}
+            for n in EXAMPLES})
+        try:
+            _examples_sklearn(lgb, dev, dirs, out)
+        except BaseException:
+            stop_clis(started)
+            raise
+        counts = {n: c for n, (_, c, _t) in wait_clis(started).items()}
         train_s = time.perf_counter() - t0
         pred_args = {}
         for n, (stem, _) in EXAMPLES.items():
@@ -5555,51 +6070,10 @@ def phase_surface_examples(torch, lgb, dev):
             if err > 1e-5 or not q > floor:
                 raise AssertionError(f"surface_examples {n}: predictions "
                                      "or quality wrong")
-        log(f"[surface_examples] the four CLI trainings at once "
-            f"{train_s:.2f} s, the four predictions {pred_s:.2f} s")
+        log(f"[surface_examples] the four CLI trainings at once (the "
+            f"sklearn wrappers in process meanwhile) {train_s:.2f} s, the "
+            f"four predictions {pred_s:.2f} s")
 
-        # the sklearn wrappers on the same data
-        def data(name, split):
-            stem = EXAMPLES[name][0]
-            raw = np.loadtxt(os.path.join(dirs[name], f"{stem}.{split}"),
-                             delimiter=",")
-            return raw[:, 1:], raw[:, 0]
-        kw = dict(n_estimators=20, device_type=dev.type)
-        _reset_counts()
-        Xr, yr = data("regression", "train")
-        Xe, ye = data("regression", "test")
-        reg = lgb.LGBMRegressor(**kw).fit(Xr, yr)
-        r2 = 1 - np.sum((ye - reg.predict(Xe)) ** 2) \
-            / np.sum((ye - ye.mean()) ** 2)
-        Xq, yq = data("lambdarank", "train")
-        gq = np.loadtxt(os.path.join(dirs["lambdarank"], "rank.train.query"),
-                        dtype=int)
-        rank = lgb.LGBMRanker(**kw).fit(Xq, yq, group=gq)
-        Xk, yk = data("lambdarank", "test")
-        top = _example_quality("lambdarank", rank.predict(Xk), yk,
-                               os.path.join(dirs["lambdarank"], "rank.test"))
-        Xm, ym = data("multiclass_classification", "train")
-        Xn, yn = data("multiclass_classification", "test")
-        names = np.array(["c0", "c1", "c2", "c3", "c4"])
-        clf = lgb.LGBMClassifier(class_weight="balanced", **kw).fit(
-            Xm, names[ym.astype(int)])
-        lab = clf.predict(Xn)
-        acc = float(np.mean(lab == names[yn.astype(int)]))
-        sk_counts = _read_counts()
-        leaves = [t.num_leaves for m in (reg, rank, clf)
-                  for t in m.booster_._models]
-        _check_counts("surface_examples sklearn", sk_counts, leaves, "hist")
-        out["counts"]["sklearn"] = sk_counts
-        out.update(sk_r2=float(r2), sk_rank_top=top, sk_acc=acc)
-        log(f"[surface_examples] LGBMRegressor R2 {r2:.4f}; LGBMRanker "
-            f"top-1 share {top:.4f}; LGBMClassifier (string labels, "
-            f"balanced) accuracy {acc:.4f}, classes "
-            f"{[str(c) for c in clf.classes_]}; "
-            f"launches={json.dumps(sk_counts)}")
-        if not (r2 > 0.5 and top > 0.6 and acc > 0.8
-                and set(lab) <= set(names)):
-            raise AssertionError("surface_examples: an sklearn wrapper is "
-                                 "wrong")
     return out
 
 
@@ -5609,16 +6083,18 @@ def main(argv=None):
                     help="training rows (default: the Higgs 10.5M)")
     ap.add_argument("--iters", type=int, default=3,
                     help="timed iterations after the warm-up one (at most "
-                         "3 in train_goss, train_regression, train_rank "
-                         "and train_airline, 1 in train_multiclass, "
-                         "train_multiclass_dart and train_allstate; at "
-                         "least 3 for train_goss to sample twice)")
+                         "3 in train_goss, 2 in train_regression, "
+                         "train_rank and train_airline, 1 in train_valid, "
+                         "train_constrained, train_multiclass_dart and "
+                         "train_allstate, none in train_multiclass; at "
+                         "least 3 for train_goss to sample twice and for "
+                         "resilience's 2 + 2)")
     ap.add_argument("--allstate-rows", type=int, default=ALLSTATE_ROWS,
                     help="train_allstate's training rows (default 500,000)")
     ap.add_argument("--airline-rows", type=int, default=AIRLINE_ROWS,
                     help="train_airline's training rows (default "
                          "10,000,000)")
-    ap.add_argument("--reps", type=int, default=20,
+    ap.add_argument("--reps", type=int, default=10,
                     help="launches per kernel timing")
     ap.add_argument("--stream-allstate", type=int, default=0,
                     metavar="ROWS",
@@ -5689,13 +6165,15 @@ def main(argv=None):
     done("train")
     trq = phase_train_quant(torch, lgb, dev, tr, args.iters)
     done("train_quant")
-    tv = phase_train_valid(torch, lgb, dev, tr, min(args.iters, 2))
+    trs = phase_resilience(torch, lgb, dev, tr, trq, args.iters)
+    done("resilience")
+    tv = phase_train_valid(torch, lgb, dev, tr, min(args.iters, 1))
     done("train_valid")
     tg = phase_train_goss(torch, lgb, dev, tr, min(args.iters, 3))
     done("train_goss")
-    trg = phase_train_regression(torch, lgb, dev, tr, min(args.iters, 3))
+    trg = phase_train_regression(torch, lgb, dev, tr, min(args.iters, 2))
     done("train_regression")
-    tc = phase_train_constrained(torch, lgb, dev, tr, min(args.iters, 2))
+    tc = phase_train_constrained(torch, lgb, dev, tr, min(args.iters, 1))
     done("train_constrained")
     tgr = phase_train_growth(torch, lgb, dev, tr, trq)
     done("train_growth")
@@ -5713,10 +6191,9 @@ def main(argv=None):
     done("small runs")
     scons = phase_small_constraints(torch, lgb, dev)
     done("small constraint runs")
-    trr = phase_train_rank(torch, lgb, dev, min(args.iters, 3))
+    trr = phase_train_rank(torch, lgb, dev, min(args.iters, 2))
     done("train_rank")
-    trm = phase_train_multiclass(torch, lgb, dev, min(args.iters, 1),
-                                 args.reps)
+    trm = phase_train_multiclass(torch, lgb, dev, 0, args.reps)
     done("train_multiclass")
     trd = phase_train_multiclass_dart(torch, lgb, dev, trm,
                                       min(args.iters, 1))
@@ -5730,7 +6207,7 @@ def main(argv=None):
                                min(args.iters, 1), args.reps)
     done("train_allstate")
     ta = phase_train_airline(torch, lgb, dev, args.airline_rows,
-                             min(args.iters, 3), args.reps)
+                             min(args.iters, 2), args.reps)
     done("train_airline")
     sc = phase_small_categorical(torch, lgb, dev)
     done("small categorical and monotone runs")
@@ -5780,6 +6257,7 @@ def main(argv=None):
                 "train_multiclass_unbundled":
                     trm["unbundled"]["counts"][key],
                 "train_regression": trg["counts"][key],
+                "resilience": trs["counts"][key],
                 "train_allstate": tas["counts"][key],
                 "train_airline": ta["counts"][key],
                 "train_airline_quant": ta["quant_counts"][key],

@@ -13,7 +13,11 @@ conversion and the command line (``python -m lightgbm_tpu_torch
 config=train.conf``). Large data streams in chunk by chunk (``data/``:
 chunk sources, ``Sequence``, ``two_round``, ``ingest_chunk_rows``), and
 ``Booster.compile()`` gives a forest stacked on the device once for
-serving (``serve/``, with a micro-batcher). Its two kernels —
+serving (``serve/``, with a micro-batcher). Long runs checkpoint and
+resume (``checkpoint``, ``train(resume_from=)``), train through
+non-finite values (``nonfinite_policy``) and device OOMs (the
+histogram pool steps down), and stream per-iteration telemetry
+(``telemetry``; ``resilience/``, ``obs/``). Its two kernels —
 the gradient histogram (K1, ``csrc/hist.cu``) and the stable row
 partition (K2, ``csrc/partition.cu``) — are CUDA C++ for ``sm_90a``,
 built by ``nvcc`` at first use. It imports neither ``jax`` nor

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -61,6 +62,9 @@ from .ops.binning import BinMapper, BinType, MissingType, bin_matrix
 
 __all__ = ["Dataset", "Booster", "LightGBMError", "Sequence",
            "resolve_device"]
+
+# the nesting depth of Dataset.construct on this thread
+_CONSTRUCT_TL = threading.local()
 
 
 class LightGBMError(Exception):
@@ -407,6 +411,20 @@ class Dataset:
     def construct(self) -> "Dataset":
         if self._bins is not None:
             return self
+        # a valid set constructs its reference inside its own construct:
+        # time the outermost one only, so no second counts under one label
+        tl = _CONSTRUCT_TL
+        if getattr(tl, "depth", 0):
+            return self._construct()
+        from .utils.timer import timed
+        tl.depth = 1
+        try:
+            with timed("dataset/construct"):
+                return self._construct()
+        finally:
+            tl.depth = 0
+
+    def _construct(self) -> "Dataset":
         cfg = Config.from_params(self.params)
         # a valid set lives where its reference does
         self.device = self.reference.construct().device \
@@ -1368,10 +1386,12 @@ class Booster:
     def save_model(self, filename, num_iteration: Optional[int] = None,
                    start_iteration: int = 0,
                    importance_type: str = "split") -> "Booster":
-        s = self.model_to_string(num_iteration, start_iteration,
-                                 importance_type)
-        with open(filename, "w") as f:
-            f.write(s)
+        """Write the model text atomically (``utils/atomic.py``): a
+        crash mid-save leaves the previous file or none, never a
+        truncated one."""
+        from .utils.atomic import atomic_write_text
+        atomic_write_text(filename, self.model_to_string(
+            num_iteration, start_iteration, importance_type))
         return self
 
     def feature_importance(self, importance_type: str = "split",
@@ -1518,9 +1538,13 @@ class Booster:
         model's objective at the refitted trees' running score. Leaf
         indices come from the device walk of ``predict(pred_leaf=True)``;
         the gradients are the objective's float32 ones, the leaf sums
-        ``index_add_`` in float64 on the device. A non-finite fit raises
-        (``nonfinite_policy="raise"``; the other policies are ROADMAP.md
-        Queue 1 item 21)."""
+        ``index_add_`` in float64 on the device. A non-finite fit is
+        handled by ``nonfinite_policy``: ``raise`` raises, ``skip_tree``
+        keeps the tree's leaf values, ``clamp`` rewrites the fit (NaN ->
+        0, +-Inf -> +-1e30); the last two record ``refit_nan`` fault
+        events (``new_booster._refit_fault_log``). ``refit_nan@T``
+        (``LIGHTGBM_TPU_FAULT_INJECT``) poisons every seventh row's
+        gradient of tree ``T``."""
         if not self._models:
             raise LightGBMError("Cannot refit an empty model")
         if any(t.is_linear and t.leaf_coeff and any(
@@ -1554,26 +1578,51 @@ class Booster:
         wt = None if w is None else torch.as_tensor(
             w, dtype=torch.float32, device=dev)
         score = torch.zeros((K, n), dtype=f64, device=dev)
+        from .resilience.faults import (NF_CLAMP, FaultPlan,
+                                        append_fault_event)
+        fault_plan = FaultPlan.from_env()
+        policy = cfg.nonfinite_policy
+        fault_log: List[Dict] = []
         for ti, tree in enumerate(trees):
             k = ti % K
             s32 = score.float()
             g, h = objective.grad_hess(s32[0] if K == 1 else s32, yt, wt)
             g = g.to(f64).reshape(K, n)[k]
             h = h.to(f64).reshape(K, n)[k]
+            if fault_plan.take("refit_nan", ti):
+                g = torch.where(torch.arange(n, device=dev) % 7 == 0,
+                                float("nan"), g)
             lv = leaves[ti]
             L = tree.num_leaves
             sg = torch.zeros(L, dtype=f64, device=dev).index_add_(0, lv, g)
             sh = torch.zeros(L, dtype=f64, device=dev).index_add_(0, lv, h)
             fit = -sg / (sh + cfg.lambda_l2) * cfg.learning_rate
             if not bool(torch.isfinite(fit).all()):
-                raise LightGBMError(
-                    f"refit: non-finite leaf values fitted for tree {ti} "
-                    "(nonfinite_policy=raise)")
+                if policy == "raise":
+                    raise LightGBMError(
+                        f"refit: non-finite leaf values fitted for tree "
+                        f"{ti} (nonfinite_policy=raise)")
+                if policy == "skip_tree":
+                    append_fault_event(
+                        fault_log, "refit_nan", ti, "skip_tree",
+                        f"non-finite refit values for tree {ti}; "
+                        "keeping its existing leaf values")
+                    score[k] += torch.as_tensor(
+                        tree.leaf_value, dtype=f64, device=dev)[lv]
+                    continue
+                append_fault_event(
+                    fault_log, "refit_nan", ti, "clamp",
+                    f"non-finite refit values for tree {ti} clamped")
+                # only the non-finite values, as the JAX package's
+                # refit does: a finite fit beyond 1e30 stays
+                fit = torch.nan_to_num(fit, nan=0.0, posinf=NF_CLAMP,
+                                       neginf=-NF_CLAMP)
             new = decay_rate * torch.as_tensor(
                 tree.leaf_value, dtype=f64, device=dev) \
                 + (1.0 - decay_rate) * fit
             tree.leaf_value = new.cpu().numpy()
             score[k] += new[lv]
+        new_bst._refit_fault_log = fault_log
         return new_bst
 
     def free_dataset(self) -> "Booster":

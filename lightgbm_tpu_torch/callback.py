@@ -7,8 +7,9 @@ and ``log_evaluation`` (the same text), ``record_evaluation``,
 shrinkage) and ``early_stopping`` (``first_metric_only``, ``min_delta``;
 the train set's own slots never stop training). Evaluation tuples are
 ``(dataset_name, metric_name, value, higher_is_better)``, with ``,
-stdv`` appended for cv aggregates. ``telemetry`` and ``checkpoint`` are
-ROADMAP.md Queue 1 item 21.
+stdv`` appended for cv aggregates. ``telemetry`` streams one JSONL event
+per iteration (``obs/recorder.py``) and ``checkpoint`` writes atomic
+snapshots to resume from (``resilience/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -255,14 +256,48 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
                           verbose=verbose, min_delta=min_delta)
 
 
+@dataclass(eq=False)
+class _Telemetry:
+    """Stream one JSONL telemetry event per iteration (obs/recorder.py).
+
+    Runs after evaluation/logging (order 40) so the event carries the
+    iteration's eval results. The train loop calls ``attach`` before the
+    first iteration and ``finish`` on exit (including the early-stop
+    unwind and a raise).
+    """
+    recorder: Any
+    order: int = 40
+    before_iteration: bool = False
+
+    def attach(self, model) -> None:
+        self.recorder.attach(model)
+
+    def finish(self) -> None:
+        self.recorder.close()
+
+    def __call__(self, env: CallbackEnv) -> None:
+        if env.model is not None:
+            self.recorder.attach(env.model)
+        self.recorder.record_iteration(env.iteration,
+                                       env.evaluation_result_list)
+
+
 def telemetry(path: str, registry=None) -> Callable:
-    raise NotImplementedError(
-        "the telemetry callback is not in the port yet (ROADMAP.md Queue 1 "
-        "item 21)")
+    """Record per-iteration run telemetry to ``path`` (JSONL).
+
+    Equivalent to setting ``LIGHTGBM_TPU_TELEMETRY=<path>``; summarize
+    the output with ``python -m lightgbm_tpu_torch stats <path>``.
+    """
+    from .obs import TelemetryRecorder
+    return _Telemetry(TelemetryRecorder(path, registry=registry))
 
 
 def checkpoint(directory: str, every_n_iters: int = 1,
                keep: int = 3) -> Callable:
-    raise NotImplementedError(
-        "the checkpoint callback is not in the port yet (ROADMAP.md Queue 1 "
-        "item 21)")
+    """Atomic periodic training snapshots into ``directory``, to resume
+    from with ``train(..., resume_from=directory)``
+    (resilience/checkpoint.py). Equivalent to setting
+    ``LIGHTGBM_TPU_CHECKPOINT=<directory>``; list snapshots with
+    ``python -m lightgbm_tpu_torch checkpoints <directory>``."""
+    from .resilience.checkpoint import checkpoint as _checkpoint
+    return _checkpoint(directory, every_n_iters=every_n_iters, keep=keep)

@@ -15,13 +15,20 @@ Usage:
     python -m lightgbm_tpu_torch task=predict data=test.csv \
         input_model=LightGBM_model.txt
 
-The JAX package's other subcommands (``stats``, ``trace``,
-``checkpoints``, ``lint``, ``launch``, ``serve``, ``pipeline``) raise,
-naming the ROADMAP.md item that brings each.
+Subcommands: ``stats <file.jsonl | dir> [--fleet]`` (the telemetry
+summary), ``trace <dir> [--out FILE]`` (Chrome trace JSON and critical
+paths from the span events) and ``checkpoints <dir>`` (the snapshots and
+whether a run can resume from them); they read the JAX package's files
+too. The JAX package's ``lint``, ``launch``, ``serve`` and ``pipeline``
+raise, naming the ROADMAP.md item that brings each.
+
+    python -m lightgbm_tpu_torch stats telemetry.jsonl
+    python -m lightgbm_tpu_torch checkpoints ckpt/
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from typing import Any, Dict, List, Optional
 
@@ -37,7 +44,6 @@ __all__ = ["main", "parse_args", "load_config_file"]
 
 # the JAX package's subcommands that the port does not have yet
 _SUBCOMMANDS = {
-    "stats": 21, "trace": 21, "checkpoints": 21,
     "lint": "21 (its last entry)", "launch": 20, "serve": 19,
     "pipeline": 19,
 }
@@ -183,6 +189,166 @@ def _task_save_binary(cfg: Config, params: Dict[str, Any]) -> None:
     log_info(f"Binned dataset saved to {out}")
 
 
+_STATS_HELP = """\
+usage: python -m lightgbm_tpu_torch stats <file.jsonl | dir> [--fleet]
+
+Fold a telemetry event stream (lightgbm_tpu_torch.telemetry(path)
+callback / LIGHTGBM_TPU_TELEMETRY=<path>; either package's) into the
+sorted per-phase summary table: wall time, recompiles, peak device
+memory, fault events, final evals, the JAX package's serve and xla cost
+rows when the file carries them, and a per-phase
+total/count/mean/percent/skew breakdown.
+
+A DIRECTORY summarizes every *.jsonl file inside (recursively, .rankN
+suffixes included) with per-file provenance headers — the fleet's
+telemetry/ directory is the expected shape. --fleet appends the
+merged cross-process view: trainer iteration/compile totals, summed
+serve traffic with worst-case p99, shed and restart totals.
+
+exit codes:
+  0  summary printed
+  1  unreadable/malformed input, or no known events in it
+"""
+
+_CHECKPOINTS_HELP = """\
+usage: python -m lightgbm_tpu_torch checkpoints <dir>
+
+List every snapshot the checkpoint callback (of either package) wrote
+into a directory, with validation status — the operator view for "can
+this run resume, and from which iteration?".
+
+exit codes:
+  0  at least one valid (resumable) snapshot listed
+  1  not a directory, no snapshots, or no valid snapshot
+"""
+
+
+def _summary_has_events(summary: Dict[str, Any]) -> bool:
+    return bool(summary["iterations"] or summary.get("serve")
+                or summary.get("publishes")
+                or summary.get("compiles")
+                or summary.get("fleet_events"))
+
+
+def _task_stats(argv: List[str]) -> int:
+    """``stats <file.jsonl | dir> [--fleet]``: fold one
+    telemetry event stream — or a directory of them, one per fleet
+    process — into the sorted summary tables; ``--fleet`` appends the
+    merged cross-process view."""
+    if argv and argv[0] in ("-h", "--help"):
+        print(_STATS_HELP)
+        return 0
+    fleet = "--fleet" in argv
+    argv = [a for a in argv if a != "--fleet"]
+    if not argv:
+        print("usage: python -m lightgbm_tpu_torch stats "
+              "<file.jsonl | dir> [--fleet]", file=sys.stderr)
+        return 1
+    from .obs import render_stats_table, summarize_events
+    path = argv[0]
+    if os.path.isdir(path):
+        from .obs import (merge_fleet_summaries, render_fleet_table,
+                          summarize_directory)
+        try:
+            entries = summarize_directory(path)
+        except OSError as e:
+            print(f"[LightGBM-TPU] [Fatal] cannot read {path}: {e}",
+                  file=sys.stderr)
+            return 1
+        except (ValueError, TypeError, AttributeError, KeyError) as e:
+            print(f"[LightGBM-TPU] [Fatal] malformed telemetry under "
+                  f"{path}: {e}", file=sys.stderr)
+            return 1
+        useful = [(rel, s) for rel, s in entries
+                  if _summary_has_events(s)]
+        if not useful:
+            print(f"no telemetry events in any *.jsonl under {path}",
+                  file=sys.stderr)
+            return 1
+        blocks = []
+        for rel, summary in useful:
+            blocks.append(f"== {rel} ==\n"
+                          + render_stats_table(summary))
+        if fleet:
+            blocks.append(render_fleet_table(
+                merge_fleet_summaries(useful)))
+        print("\n\n".join(blocks))
+        return 0
+    try:
+        summary = summarize_events(path)
+    except OSError as e:
+        print(f"[LightGBM-TPU] [Fatal] cannot read {path}: {e}",
+              file=sys.stderr)
+        return 1
+    except (ValueError, TypeError, AttributeError, KeyError) as e:
+        # malformed JSON line or structurally-wrong event object
+        print(f"[LightGBM-TPU] [Fatal] malformed telemetry in {path}: "
+              f"{e}", file=sys.stderr)
+        return 1
+    if not _summary_has_events(summary):
+        print(f"no iteration, serve or publish events in {path}",
+              file=sys.stderr)
+        return 1
+    print(render_stats_table(summary))
+    if fleet:
+        # --fleet on a single stream: the one-entry merged view (so
+        # the flag is never silently ignored in scripts)
+        from .obs import merge_fleet_summaries, render_fleet_table
+        print()
+        print(render_fleet_table(merge_fleet_summaries(
+            [(os.path.basename(path), summary)])))
+    return 0
+
+
+def _task_checkpoints(argv: List[str]) -> int:
+    """``checkpoints <dir>``: list every snapshot the
+    resilience checkpoint callback wrote into a directory, with
+    validation status — the operator view for "can this run resume,
+    and from which iteration?"."""
+    if argv and argv[0] in ("-h", "--help"):
+        print(_CHECKPOINTS_HELP)
+        return 0
+    if not argv:
+        print("usage: python -m lightgbm_tpu_torch checkpoints <dir>",
+              file=sys.stderr)
+        return 1
+    directory = argv[0]
+    if not os.path.isdir(directory):
+        print(f"[LightGBM-TPU] [Fatal] not a directory: {directory}",
+              file=sys.stderr)
+        return 1
+    from .resilience.checkpoint import list_snapshots
+    rows = list_snapshots(directory)
+    if not rows:
+        print(f"no checkpoint snapshots in {directory}", file=sys.stderr)
+        return 1
+    import datetime as _dt
+    print(f"{'iteration':>9s}  {'status':8s} {'trees':>6s} "
+          f"{'size':>10s}  {'written':19s}  file")
+    resumable = None
+    for row in rows:
+        when = _dt.datetime.fromtimestamp(
+            row["mtime"]).strftime("%Y-%m-%d %H:%M:%S")
+        if row["status"] == "ok":
+            trees = str(row["num_trees"])
+            resumable = row
+        else:
+            trees = "-"
+        print(f"{row['iteration']:9d}  {row['status']:8s} {trees:>6s} "
+              f"{row['bytes']:10d}  {when}  "
+              f"{os.path.basename(row['path'])}")
+        if row["status"] != "ok":
+            print(f"           ^ {row['error']}")
+    if resumable is not None:
+        print(f"\nresume target: iteration {resumable['iteration']} "
+              f"({os.path.basename(resumable['path'])})")
+    else:
+        print("\nno valid snapshot: this directory cannot be resumed "
+              "from", file=sys.stderr)
+        return 1
+    return 0
+
+
 _TASKS = {
     "train": _task_train,
     "refit": _task_refit,
@@ -200,6 +366,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not argv or argv in (["-h"], ["--help"]):
         print(__doc__)
         return 0
+    if argv[0] == "stats":
+        return _task_stats(argv[1:])
+    if argv[0] == "checkpoints":
+        return _task_checkpoints(argv[1:])
+    if argv[0] == "trace":
+        from .obs.trace import main as trace_main
+        return trace_main(argv[1:])
     if argv[0] in _SUBCOMMANDS:
         raise NotImplementedError(
             f"the {argv[0]!r} subcommand is not in the port yet (ROADMAP.md "

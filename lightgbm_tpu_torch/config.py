@@ -220,7 +220,6 @@ NOT_IMPLEMENTED: Dict[str, tuple] = {
     "tree_learner": ("serial", _Q1.format(20)),
     "num_devices": (0, _Q1.format(20)),
     "num_machines": (1, _Q1.format(20)),
-    "nonfinite_policy": ("raise", _Q1.format(21)),
     # the JAX package fits raw labels under reg_sqrt (it never calls
     # transform_label) while LightGBM fits transformed ones
     "reg_sqrt": (False, "ROADMAP.md Queue 3, reg_sqrt"),
@@ -384,6 +383,14 @@ class Config:
     early_stopping_min_delta: float = 0.0
     first_metric_only: bool = False
     verbosity: int = 1
+    # the non-finite guard on gradients, hessians and fitted leaf values
+    # (models/gbdt.py): "raise" fails with a LightGBMError, "skip_tree"
+    # keeps the iteration's trees as constants and trains on, "clamp"
+    # rewrites NaN -> 0 and +-Inf -> +-1e30 and keeps the trees
+    nonfinite_policy: str = "raise"
+    # the OpenMetrics /metrics endpoint's port (obs/export.py; 0: off;
+    # LIGHTGBM_TPU_METRICS_PORT overrides; rank r binds port + r)
+    metrics_port: int = 0
     max_bin: int = 255
     max_bin_by_feature: List[int] = field(default_factory=list)
     min_data_in_bin: int = 3
@@ -528,6 +535,7 @@ class Config:
         "num_class": (1, None),
         "multi_error_top_k": (1, None),
         "refit_decay_rate": (0.0, 1.0),
+        "metrics_port": (0, 65535),
     }
 
     def __post_init__(self) -> None:
@@ -560,6 +568,10 @@ class Config:
                 raise ValueError(f"{name} = {v} should be {op} {lo}")
             if hi is not None and v > hi:
                 raise ValueError(f"{name} = {v} should be <= {hi}")
+        if self.nonfinite_policy not in ("raise", "skip_tree", "clamp"):
+            raise ValueError(
+                f"Unknown nonfinite_policy: {self.nonfinite_policy} "
+                "(expected raise, skip_tree or clamp)")
         if self.objective in ("multiclass", "multiclassova"):
             if self.num_class < 2:
                 raise ValueError(

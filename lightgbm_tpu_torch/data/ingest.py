@@ -26,13 +26,16 @@ Peak host memory is one chunk plus the sample (kept in the chunks'
 dtype) plus the label and weight vectors, never the float matrix.
 
 Not ported here: the JAX package's mapper broadcast across processes
-(ROADMAP.md Queue 1 item 20) and its fault-injection hook before it
-(item 21); a run of the port is one process.
+and the ``rank_kill@-1`` fault hook before it (ROADMAP.md Queue 1 item
+20); a run of the port is one process. Chunks and rows are counted in
+the metrics registry (``obs/registry.py``) as the JAX package counts
+them.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import time
 from typing import Any, Dict, List, NamedTuple, Optional
 
@@ -184,26 +187,45 @@ def _stream_count(source: RowChunkSource,
     return n, int(F), chunks
 
 
+# sampled rows from which the mapper loop runs in threads
+_THREADED_ROWS = 100_000
+
+
 def _find_chunk_mappers(sample: np.ndarray, cfg, cat_idx_set,
                         rows=slice(None)) -> List:
     """The mapper loop of every construct: one ``find_bin`` per column
-    of ``sample[rows]`` (``rows`` picks the eager construct's sample
-    column by column, so the sampled matrix is never gathered whole),
-    with the per-feature budget and missing handling."""
-    from ..ops.binning import BinType, find_bin
+    of ``sample[rows]``, with the per-feature budget and missing
+    handling. ``rows`` picks the eager construct's sample a block of
+    columns at a time, so the sampled matrix is never gathered whole.
+    From ``_THREADED_ROWS`` sampled rows, the columns of a block go to a
+    thread per core: ``find_bin`` is then mostly numpy work on its own
+    column (below, mostly Python, and threads only contend for the
+    interpreter)."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    full_mappers = []
-    for j in range(sample.shape[1]):
+    from ..ops.binning import BinType, column_blocks, find_bin
+
+    def one(j, values):
         mb = cfg.max_bin
         if cfg.max_bin_by_feature and j < len(cfg.max_bin_by_feature):
             mb = cfg.max_bin_by_feature[j]
-        full_mappers.append(find_bin(
-            sample[rows, j], mb,
-            min_data_in_bin=cfg.min_data_in_bin,
-            bin_type=(BinType.CATEGORICAL if j in cat_idx_set
-                      else BinType.NUMERICAL),
-            use_missing=cfg.use_missing,
-            zero_as_missing=cfg.zero_as_missing))
+        return find_bin(values, mb,
+                        min_data_in_bin=cfg.min_data_in_bin,
+                        bin_type=(BinType.CATEGORICAL if j in cat_idx_set
+                                  else BinType.NUMERICAL),
+                        use_missing=cfg.use_missing,
+                        zero_as_missing=cfg.zero_as_missing)
+
+    nr = sample.shape[0] if isinstance(rows, slice) else len(rows)
+    workers = (os.cpu_count() or 1) if nr >= _THREADED_ROWS else 1
+    full_mappers = []
+    with ThreadPoolExecutor(workers) as pool:
+        # find_bin reads its values in any order: the sampled rows go in
+        # ascending order, a block of columns at a time
+        for blk in column_blocks(sample, np.arange(sample.shape[1]),
+                                 None if isinstance(rows, slice) else rows):
+            j = len(full_mappers)
+            full_mappers.extend(pool.map(one, range(j, j + len(blk)), blk))
     return full_mappers
 
 
@@ -372,7 +394,9 @@ def ingest_dataset(source: RowChunkSource, cfg, cat_idx_set,
         "source": type(source).__name__,
         "world": 1,
     }
-    # (the JAX package also counts chunks and rows in its metrics
-    # registry: ROADMAP.md Queue 1 item 21)
+    from ..obs.registry import registry
+    registry.counter("ingest_chunks").inc(chunks)
+    registry.counter("ingest_rows").inc(n)
+    registry.gauge("host_binned_bytes").set(0.0)
     return IngestResult(bins, mappers, used, full_mappers, n, F,
                         label, weight, digest, raw, stats)

@@ -1,8 +1,8 @@
 """``train`` and ``cv``: the training entry points of the port.
 
-Counterpart of ``train`` and ``cv`` in ``lightgbm_tpu/engine.py``
-without the resilience, telemetry, fault-plan and watchdog parts
-(ROADMAP.md Queue 1 items 20-21):
+Counterpart of ``train`` and ``cv`` in ``lightgbm_tpu/engine.py`` for one
+process (the collective watchdog is ROADMAP.md Queue 1 item 21's rest,
+the distributed parts item 20):
 
 - ``train`` runs ``num_boost_round`` iterations (or ``num_iterations``
   from the params) on top of an ``init_model``'s, scores the
@@ -13,6 +13,22 @@ without the resilience, telemetry, fault-plan and watchdog parts
   by ``order`` (registration order breaks ties), adds
   ``early_stopping_round`` as a callback, and stops when a callback
   raises ``EarlyStopException`` or no tree can grow;
+- crash recovery (``resilience/checkpoint.py``): ``resume_from=dir`` —
+  or ``LIGHTGBM_TPU_CHECKPOINT=dir``, which also installs the checkpoint
+  callback every ``LIGHTGBM_TPU_CHECKPOINT_EVERY`` iterations — restores
+  the newest valid snapshot and trains on to the uninterrupted run's end
+  iteration (``init_model``'s offset included); ``kill@N``
+  (``LIGHTGBM_TPU_FAULT_INJECT``) kills the process at the start of
+  iteration N;
+- telemetry: ``LIGHTGBM_TPU_TELEMETRY=path`` adds the ``telemetry``
+  callback, which is attached before the first iteration and closed on
+  exit; ``metrics_port`` (or ``LIGHTGBM_TPU_METRICS_PORT``, plus
+  ``LIGHTGBM_TPU_RANK``) starts the ``/metrics`` endpoint;
+  ``LIGHTGBM_TPU_TRACE_TO`` / ``LIGHTGBM_TPU_XPROF`` capture the loop with
+  ``torch.profiler`` (``utils/timer.py`` ``EnvCapture``); evaluation is
+  timed as ``engine/eval``. The non-finite guard resolves inside each
+  iteration (``models/gbdt.py``), so nothing is left to drain at the
+  end;
 - ``cv`` trains one booster per fold (stratified and shuffled folds as
   the JAX package draws them, for the same seed), evaluates each on its
   held-out rows and reports the per-round means and standard
@@ -22,8 +38,9 @@ without the resilience, telemetry, fault-plan and watchdog parts
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -31,8 +48,12 @@ import torch
 from . import callback as callback_mod
 from .basic import Booster, Dataset, LightGBMError
 from .config import Config, resolve_params
-from .log import log_info, scoped_verbosity
+from .log import log_info, log_warning, scoped_verbosity
 from .ops.grow import _take_rows
+from .resilience.checkpoint import (Checkpoint, checkpoint,
+                                    load_latest_snapshot, restore_booster)
+from .resilience.faults import FaultPlan
+from .utils.timer import EnvCapture, Timer, timed
 
 __all__ = ["train", "cv", "CVBooster"]
 
@@ -45,11 +66,14 @@ def train(params: Dict[str, Any], train_set: Dataset,
     (``Booster.update(fobj=)`` every iteration); ``objective="none"``
     needs one. ``keep_training_booster`` is accepted and changes
     nothing, as in the JAX package (the returned booster can always
-    train on)."""
-    if resume_from is not None:
-        raise NotImplementedError(
-            "train(resume_from=...) is not in the port yet (ROADMAP.md "
-            "Queue 1 item 21)")
+    train on).
+
+    ``resume_from``: a checkpoint directory (``checkpoint`` callback):
+    the newest valid snapshot is restored and training continues from
+    its iteration toward ``num_boost_round`` total iterations, or
+    ``init_iteration + num_boost_round`` when the snapshot's run
+    continued an ``init_model`` (a directory without usable snapshots
+    trains from scratch)."""
     params = resolve_params(params)
     if "num_iterations" in params:
         num_boost_round = int(params["num_iterations"])
@@ -58,7 +82,62 @@ def train(params: Dict[str, Any], train_set: Dataset,
     with scoped_verbosity(cfg.verbosity):
         return _train_impl(params, cfg, train_set, num_boost_round,
                            valid_sets, valid_names, feval, init_model,
-                           callbacks, fobj)
+                           callbacks, fobj, resume_from)
+
+
+def _setup_metrics_endpoint(cfg: Config) -> None:
+    """Start the process's OpenMetrics ``/metrics`` endpoint when
+    ``metrics_port`` is set; ``LIGHTGBM_TPU_METRICS_PORT`` overrides the
+    parameter, and ``LIGHTGBM_TPU_RANK`` r binds port + r (the JAX
+    package's precedence). Idempotent per process."""
+    port = cfg.metrics_port
+    env_port = os.environ.get("LIGHTGBM_TPU_METRICS_PORT")
+    if env_port:
+        try:
+            port = int(env_port)
+        except ValueError:
+            pass
+    if not port:
+        return
+    rank = 0
+    rank_env = os.environ.get("LIGHTGBM_TPU_RANK")
+    if rank_env:
+        try:
+            rank = int(rank_env)
+        except ValueError:
+            rank = 0
+    from .obs.export import ensure_metrics_server
+    ensure_metrics_server(port + rank)
+
+
+def _setup_telemetry(callbacks: List[Callable], model) -> None:
+    """Honour ``LIGHTGBM_TPU_TELEMETRY=<path>`` unless a telemetry
+    callback is already present, then attach every recorder to the model
+    before the first iteration."""
+    telem_path = os.environ.get("LIGHTGBM_TPU_TELEMETRY")
+    if telem_path and not any(isinstance(cb, callback_mod._Telemetry)
+                              for cb in callbacks):
+        callbacks.append(callback_mod.telemetry(telem_path))
+    for cb in callbacks:
+        if isinstance(cb, callback_mod._Telemetry):
+            cb.attach(model)
+
+
+def _finish_callbacks(callbacks: List[Callable]) -> None:
+    for cb in callbacks:
+        if isinstance(cb, callback_mod._Telemetry):
+            cb.finish()
+
+
+def _checkpoint_every() -> int:
+    """``LIGHTGBM_TPU_CHECKPOINT_EVERY`` (default 1)."""
+    raw = os.environ.get("LIGHTGBM_TPU_CHECKPOINT_EVERY", "1")
+    try:
+        return max(1, int(raw or 1))
+    except ValueError:
+        log_warning(f"LIGHTGBM_TPU_CHECKPOINT_EVERY={raw!r} is not an "
+                    "integer; checkpointing every iteration")
+        return 1
 
 
 def _sorted_callbacks(callbacks) -> Tuple[list, list]:
@@ -86,14 +165,28 @@ def _with_early_stopping(callbacks, cfg: Config, min_delta=0.0) -> list:
 
 def _train_impl(params, cfg: Config, train_set, num_boost_round: int,
                 valid_sets, valid_names, feval, init_model,
-                callbacks, fobj=None) -> Booster:
+                callbacks, fobj=None, resume_from=None) -> Booster:
     if cfg.objective == "custom" and fobj is None:
         raise LightGBMError(
             "objective=none requires a custom objective function (fobj)")
     if not isinstance(train_set, Dataset):
         raise TypeError("train() only accepts Dataset object(s)")
+    _setup_metrics_endpoint(cfg)
     booster = Booster(params=params, train_set=train_set)
-    if init_model is not None:
+    # crash recovery: an explicit resume_from wins; LIGHTGBM_TPU_CHECKPOINT
+    # both resumes from and checkpoints into one directory
+    ckpt_env = os.environ.get("LIGHTGBM_TPU_CHECKPOINT")
+    resume_dir = resume_from or ckpt_env
+    snap = load_latest_snapshot(resume_dir) if resume_dir else None
+    resumed_iteration = 0
+    if snap is not None:
+        if init_model is not None:
+            log_warning("resume_from checkpoint takes precedence over "
+                        "init_model")
+        resumed_iteration = restore_booster(booster, snap)
+        log_info(f"Resumed from checkpoint {snap['path']} at iteration "
+                 f"{resumed_iteration}")
+    elif init_model is not None:
         if isinstance(init_model, (str, Path)):
             base = Booster(model_file=str(init_model),
                            params={"device_type": cfg.device_type})
@@ -118,46 +211,71 @@ def _train_impl(params, cfg: Config, train_set, num_boost_round: int,
 
     callbacks = _with_early_stopping(callbacks, cfg,
                                      cfg.early_stopping_min_delta)
+    if ckpt_env and not any(isinstance(cb, Checkpoint)
+                            for cb in callbacks):
+        callbacks.append(checkpoint(ckpt_env,
+                                    every_n_iters=_checkpoint_every()))
+    _setup_telemetry(callbacks, booster)
     cbs_before, cbs_after = _sorted_callbacks(callbacks)
+    fault_plan = FaultPlan.from_env()
     # continued training adds num_boost_round iterations on top of the
-    # adopted ones; the loop index is the engine's absolute iteration
-    begin_iteration = booster._engine.init_iteration
-    end_iteration = begin_iteration + num_boost_round
+    # adopted ones; a resume trains on toward the same end; the loop
+    # index is the engine's absolute iteration
+    init_iteration = booster._engine.init_iteration
+    begin_iteration = resumed_iteration if snap is not None \
+        else init_iteration
+    end_iteration = max(begin_iteration, init_iteration + num_boost_round)
     evaluation_result_list: List[Tuple] = []
-    for i in range(begin_iteration, end_iteration):
-        for cb in cbs_before:
-            cb(callback_mod.CallbackEnv(
-                model=booster, params=params, iteration=i,
-                begin_iteration=begin_iteration,
-                end_iteration=end_iteration,
-                evaluation_result_list=None))
-        finished = booster.update(fobj=fobj)
-        evaluation_result_list = []
-        if ((i + 1) % max(1, cfg.metric_freq) == 0
-                or i == end_iteration - 1) \
-                and (valid_sets or is_valid_contain_train):
-            if is_valid_contain_train:
-                evaluation_result_list.extend(booster.eval_train(feval))
-            evaluation_result_list.extend(booster.eval_valid(feval))
-        try:
-            for cb in cbs_after:
+    env_capture = EnvCapture.from_env()
+    try:
+        for i in range(begin_iteration, end_iteration):
+            fault_plan.maybe_kill(i)
+            if env_capture is not None:
+                env_capture.before_iteration(i)
+            for cb in cbs_before:
                 cb(callback_mod.CallbackEnv(
                     model=booster, params=params, iteration=i,
                     begin_iteration=begin_iteration,
                     end_iteration=end_iteration,
-                    evaluation_result_list=evaluation_result_list))
-        except callback_mod.EarlyStopException as es:
-            booster.best_iteration = es.best_iteration + 1
-            evaluation_result_list = es.best_score
-            break
-        if finished:
-            log_info("Stopped training because there are no more leaves "
-                     "that meet the split requirements")
-            break
+                    evaluation_result_list=None))
+            finished = booster.update(fobj=fobj)
+            evaluation_result_list = []
+            if ((i + 1) % max(1, cfg.metric_freq) == 0
+                    or i == end_iteration - 1) \
+                    and (valid_sets or is_valid_contain_train):
+                with timed("engine/eval"):
+                    if is_valid_contain_train:
+                        evaluation_result_list.extend(
+                            booster.eval_train(feval))
+                    evaluation_result_list.extend(
+                        booster.eval_valid(feval))
+            try:
+                for cb in cbs_after:
+                    cb(callback_mod.CallbackEnv(
+                        model=booster, params=params, iteration=i,
+                        begin_iteration=begin_iteration,
+                        end_iteration=end_iteration,
+                        evaluation_result_list=evaluation_result_list))
+            except callback_mod.EarlyStopException as es:
+                booster.best_iteration = es.best_iteration + 1
+                evaluation_result_list = es.best_score
+                break
+            if env_capture is not None:
+                env_capture.after_iteration(i)
+            if finished:
+                log_info("Stopped training because there are no more "
+                         "leaves that meet the split requirements")
+                break
+    finally:
+        if env_capture is not None:
+            env_capture.close()
+        _finish_callbacks(callbacks)
     if booster.best_iteration <= 0:
         booster.best_iteration = booster.current_iteration()
     for item in (evaluation_result_list or []):
         booster.best_score.setdefault(item[0], {})[item[1]] = item[2]
+    if Timer.enabled():
+        Timer.log_summary()
     return booster
 
 
@@ -301,40 +419,45 @@ def _cv_impl(params, cfg: Config, train_set: Dataset, num_boost_round: int,
         boosters.append(booster)
         cvbooster._append(booster)
 
-    cbs_before, cbs_after = _sorted_callbacks(
-        _with_early_stopping(callbacks, cfg))
-    for i in range(num_boost_round):
-        for cb in cbs_before:
-            cb(callback_mod.CallbackEnv(
-                model=cvbooster, params=params, iteration=i,
-                begin_iteration=0, end_iteration=num_boost_round,
-                evaluation_result_list=None))
-        for booster in boosters:
-            booster.update()
-        raw = []
-        for booster in boosters:
-            one = []
-            if eval_train_metric:
-                one.extend(booster.eval_train(feval))
-            one.extend(booster.eval_valid(feval))
-            raw.append(one)
-        res = _agg_cv_result(raw)
-        for (_, key, mean, _, std) in res:
-            results.setdefault(f"{key}-mean", []).append(mean)
-            results.setdefault(f"{key}-stdv", []).append(std)
-        try:
-            for cb in cbs_after:
+    callbacks = _with_early_stopping(callbacks, cfg)
+    _setup_telemetry(callbacks, cvbooster)
+    cbs_before, cbs_after = _sorted_callbacks(callbacks)
+    try:
+        for i in range(num_boost_round):
+            for cb in cbs_before:
                 cb(callback_mod.CallbackEnv(
                     model=cvbooster, params=params, iteration=i,
                     begin_iteration=0, end_iteration=num_boost_round,
-                    evaluation_result_list=res))
-        except callback_mod.EarlyStopException as es:
-            cvbooster.best_iteration = es.best_iteration + 1
-            for bst in boosters:
-                bst.best_iteration = cvbooster.best_iteration
-            for k in results:
-                results[k] = results[k][: cvbooster.best_iteration]
-            break
+                    evaluation_result_list=None))
+            for booster in boosters:
+                booster.update()
+            raw = []
+            with timed("engine/eval"):
+                for booster in boosters:
+                    one = []
+                    if eval_train_metric:
+                        one.extend(booster.eval_train(feval))
+                    one.extend(booster.eval_valid(feval))
+                    raw.append(one)
+            res = _agg_cv_result(raw)
+            for (_, key, mean, _, std) in res:
+                results.setdefault(f"{key}-mean", []).append(mean)
+                results.setdefault(f"{key}-stdv", []).append(std)
+            try:
+                for cb in cbs_after:
+                    cb(callback_mod.CallbackEnv(
+                        model=cvbooster, params=params, iteration=i,
+                        begin_iteration=0, end_iteration=num_boost_round,
+                        evaluation_result_list=res))
+            except callback_mod.EarlyStopException as es:
+                cvbooster.best_iteration = es.best_iteration + 1
+                for bst in boosters:
+                    bst.best_iteration = cvbooster.best_iteration
+                for k in results:
+                    results[k] = results[k][: cvbooster.best_iteration]
+                break
+    finally:
+        _finish_callbacks(callbacks)
     if return_cvbooster:
         results["cvbooster"] = cvbooster
     return dict(results)

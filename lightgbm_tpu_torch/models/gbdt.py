@@ -14,10 +14,8 @@ step (``_fused_iter_step``) and of its eager path for ranking:
   as in the JAX package);
 - each iteration: gradients ``[K, n]`` from the current score, then K
   trees (:class:`ops.grow.Grower`, one grower for all of them), the
-  non-finite guard of the default ``nonfinite_policy="raise"`` over the
-  gradients, the hessians and every tree's fitted leaf values (as the
-  JAX package's ``_leaf_value_guard``; it raises naming what was not
-  finite, before any tree of the iteration is kept), for the L1 family
+  non-finite guard over the gradients, the hessians and every tree's
+  fitted leaf values (below), for the L1 family
   the leaf values renewed as percentiles of the residuals
   (``ops/renew.py``, after the quantized path's own renewal), shrinkage by
   ``learning_rate``, and the score update ``score[k] += learning_rate *
@@ -105,8 +103,32 @@ at most 1e-35 are dropped. Valid sets, DART, random forests and
 rollback score a linear tree on the set's raw values (the Dataset keeps
 them when its reference does).
 
-There is no fused/scan program, OOM ladder or resilience machinery: the
-loop is plain PyTorch on the device, driven from the host.
+Resilience (the JAX booster's ``_gh_flag_clamp``, ``_leaf_value_guard``,
+``_apply_guard_flag``, ``_run_with_oom_degrade``; ``resilience/``):
+
+- the non-finite guard: ``nan_grad@N`` / ``nan_hess@N``
+  (``LIGHTGBM_TPU_FAULT_INJECT``) poison the iteration's gradients or
+  hessians; a flag of non-finite gradients, hessians and (per tree)
+  fitted leaf values is read back once per iteration, after growing and
+  before any tree is kept. ``nonfinite_policy`` ``raise`` records a
+  ``nonfinite`` fault event and raises ``LightGBMError``; ``skip_tree``
+  keeps each flagged tree as a constant tree and trains on; ``clamp``
+  rewrites the gradients and hessians before growth (NaN -> 0, +-Inf ->
+  +-1e30, hessians at least 0; no read-back) and the leaf values after
+  it. A guarded iteration never counts as "no more leaves";
+- the OOM ladder: a device OOM (``torch.OutOfMemoryError``, or
+  ``oom@N``) in a grow halves the histogram pool (``num_leaves`` or
+  ``histogram_pool_size``'s slots, down to 2), frees the old grower's
+  buffers, rebuilds it, restores the rounding and per-node generators to
+  their state before the failed grow and retries, so the retry draws the
+  same randomness; with no rung left it raises ``LightGBMError``. No rung
+  swaps a kernel for its plain version;
+- fault events go to ``fault_log`` (drained by the telemetry recorder);
+  the phases ``boosting/gradients``, ``boosting/bagging``,
+  ``tree_learner/grow`` and ``boosting/update_score`` are ``timed``
+  (``utils/timer.py``).
+
+The loop is plain PyTorch on the device, driven from the host.
 """
 
 from __future__ import annotations
@@ -118,6 +140,9 @@ import torch
 
 from ..config import Config
 from ..log import log_warning
+from ..resilience.faults import (FaultPlan, append_fault_event,
+                                 is_resource_exhausted, nf_clamp)
+from ..utils.timer import timed
 from ..ops.binning import BinType
 from ..ops.grow import CegbConfig, CegbState, GrowConfig, Grower
 from ..ops.linear import (branch_features_per_leaf, fit_leaf_linear,
@@ -130,12 +155,10 @@ from .tree import Tree, tree_from_arrays
 
 __all__ = ["GBDTBooster", "bagging_uniform", "bynode_uniform"]
 
-# the non-finite guard's flag bits (the JAX package's _NF_* bits)
+# the non-finite guard's flag bits (the JAX package's _NF_* constants)
 _NF_GRAD, _NF_HESS, _NF_LEAF = 1, 2, 4
 _NF_KINDS = ((_NF_GRAD, "gradients"), (_NF_HESS, "hessians"),
              (_NF_LEAF, "leaf values"))
-
-
 
 
 def bagging_uniform(gen: torch.Generator, it: int, n: int) -> torch.Tensor:
@@ -345,6 +368,14 @@ class GBDTBooster:
                                // (ncols * num_bins * 2 * 4)))
             if slots < cfg.num_leaves:
                 pool = slots
+        # kept to rebuild the grower with fewer pool slots (OOM ladder)
+        self._grower_args = (
+            None if self.bundle is not None else train_set.device_bins(),
+            train_set.feat_num_bins(), train_set.feat_nan_bin())
+        self._grower_kw = dict(
+            bundle=self.bundle, feat_is_cat=train_set.feat_is_cat(),
+            monotone=self.monotone, interaction_groups=groups,
+            forced=forced, cegb=cegb)
         self.grower = Grower(
             GrowConfig(
                 num_leaves=cfg.num_leaves,
@@ -369,11 +400,7 @@ class GBDTBooster:
                 bynode=cfg.feature_fraction_bynode,
                 monotone_method=cfg.monotone_constraints_method,
                 grower=grower, pool_slots=pool),
-            None if self.bundle is not None else train_set.device_bins(),
-            train_set.feat_num_bins(), train_set.feat_nan_bin(),
-            bundle=self.bundle, feat_is_cat=train_set.feat_is_cat(),
-            monotone=self.monotone, interaction_groups=groups,
-            forced=forced, cegb=cegb)
+            *self._grower_args, **self._grower_kw)
         self.cegb_state = None
         if self.grower.cegb is not None:
             self.cegb_state = CegbState(
@@ -387,6 +414,15 @@ class GBDTBooster:
         self._cached_bag: Optional[torch.Tensor] = None
         self._feature_rng = np.random.RandomState(cfg.feature_fraction_seed)
         self._dart_rng = np.random.RandomState(cfg.drop_seed)
+        # resilience: the guard's policy, the injected faults, the fault
+        # events (drained by obs/recorder.py), the last iteration grew
+        # nothing (a checkpoint's "stalled"), and a restored snapshot's
+        # stall still to honour
+        self._nf_policy = cfg.nonfinite_policy
+        self._fault_plan = FaultPlan.from_env()
+        self.fault_log: List[dict] = []
+        self._finished_natural = False
+        self._resume_stalled = False
 
     # -- split constraints ----------------------------------------------
     def _interaction_groups(self, cfg: Config) -> Optional[np.ndarray]:
@@ -514,12 +550,17 @@ class GBDTBooster:
             score = score / self.iter_
         return score
 
-    def preload_models(self, trees: List[Tree]) -> None:
+    def preload_models(self, trees: List[Tree],
+                       score: Optional[np.ndarray] = None) -> None:
         """Adopt a model's trees (init_model) and rebuild the train score
-        from them; the init score is not folded again."""
+        from them (the init score is not folded again), or install
+        ``score`` (``[K, n]`` float32, a checkpoint's) verbatim."""
         self.models = list(trees)
         self.iter_ = len(self.models) // self.K
-        self.score = self._score_dataset_binned(self.train_set)
+        self._finished_natural = False
+        self.score = self._score_dataset_binned(self.train_set) \
+            if score is None else torch.tensor(
+                np.asarray(score, np.float32), device=self.device)
 
     # -- sampling --------------------------------------------------------
     def _row_weights(self, it: int, grad: torch.Tensor,
@@ -581,51 +622,57 @@ class GBDTBooster:
         class-major) take the place of the objective's gradients; each
         is copied to the device once."""
         cfg, K, it = self.cfg, self.K, self.iter_
+        # a restored snapshot whose last iteration grew nothing: the
+        # uninterrupted run stopped here without growing again
+        if self._resume_stalled:
+            self._resume_stalled = False
+            if custom_grad is None:
+                self._finished_natural = True
+                return True
         is_rf = cfg.boosting == "rf"
         drop_idx: List[int] = []
         if cfg.boosting == "dart" and self.models:
             drop_idx = self._dart_select_drop()
             if drop_idx:
                 self._dart_apply_drop(drop_idx)
-        if custom_grad is not None:
-            g, h = (torch.as_tensor(
-                np.asarray(a, np.float32).reshape(K, self.n),
-                device=self.device) for a in (custom_grad, custom_hess))
-        else:
-            # rf's trees are independent: gradients from the init score
-            base = self._base_score(self.n, None, True) if is_rf \
-                else self.score
-            g, h = self.objective.grad_hess(
-                base if K > 1 else base[0], self.label, self.weight)
-            if K == 1:
-                g, h = g[None, :], h[None, :]
-        gh_flag = torch.where(torch.isfinite(g).all(), 0, _NF_GRAD) \
-            | torch.where(torch.isfinite(h).all(), 0, _NF_HESS)
-        row_w = self._row_weights(it, g, h)
-        fmask = self._feature_mask()
+        with timed("boosting/gradients"):
+            if custom_grad is not None:
+                g, h = (torch.as_tensor(
+                    np.asarray(a, np.float32).reshape(K, self.n),
+                    device=self.device) for a in (custom_grad, custom_hess))
+            else:
+                # rf's trees are independent: gradients from the init
+                # score
+                base = self._base_score(self.n, None, True) if is_rf \
+                    else self.score
+                g, h = self.objective.grad_hess(
+                    base if K > 1 else base[0], self.label, self.weight)
+                if K == 1:
+                    g, h = g[None, :], h[None, :]
+        g, h, gh_flag = self._gh_guard(it, g, h)
+        with timed("boosting/bagging"):
+            row_w = self._row_weights(it, g, h)
+            fmask = self._feature_mask()
         shrinkage = 1.0 if is_rf else self._shrinkage
         F = fmask.shape[0]
         grown = []
         for k in range(K):
-            noise = None
-            if self._rounding_gen is not None:
-                noise = torch.rand((self.n, 2), generator=self._rounding_gen,
-                                   device=self.device)
-            node_u = None
-            if cfg.feature_fraction_bynode < 1.0:
-                def node_u(node, k=k):
-                    return bynode_uniform(self._bynode_gen, it, k, node, F)
-            grown.append(self.grower.grow(g[k], h[k], noise, row_w, fmask,
-                                          node_u, self.cegb_state))
-        # the iteration's one read-back of the guard
-        flag = int(gh_flag.item())
-        if not all(np.isfinite(a.leaf_value).all() for a, _ in grown):
-            flag |= _NF_LEAF
-        if flag:
-            kinds = ", ".join(name for bit, name in _NF_KINDS if flag & bit)
-            raise FloatingPointError(
-                f"non-finite {kinds} detected at iteration {it} "
-                "(nonfinite_policy='raise')")
+            def grow_k(k=k):
+                noise = None
+                if self._rounding_gen is not None:
+                    noise = torch.rand((self.n, 2),
+                                       generator=self._rounding_gen,
+                                       device=self.device)
+                node_u = None
+                if cfg.feature_fraction_bynode < 1.0:
+                    def node_u(node):
+                        return bynode_uniform(self._bynode_gen, it, k, node,
+                                              F)
+                return self.grower.grow(g[k], h[k], noise, row_w, fmask,
+                                        node_u, self.cegb_state)
+            with timed("tree_learner/grow"):
+                grown.append(self._run_with_oom_degrade(grow_k))
+        grown, flag = self._leaf_guard(it, gh_flag, grown)
         grew_any = False
         for k, (arrays, row_leaf) in enumerate(grown):
             if arrays.num_leaves > 1 and self.objective is not None \
@@ -675,13 +722,139 @@ class GBDTBooster:
                 self._average_in(k, it, contrib + float(self.init_score[k]),
                                  lambda v, t=tree: tree_values(t, v.dataset))
             else:
-                self.score[k] += contrib * shrinkage
+                with timed("boosting/update_score"):
+                    self.score[k] += contrib * shrinkage
                 for v in self.valid_sets:
                     v.score[k] += tree_values(tree, v.dataset)
         if cfg.boosting == "dart" and drop_idx and grew_any:
             self._dart_normalize(drop_idx)
         self.iter_ += 1
-        return not grew_any
+        # a guarded iteration's constant trees are not "no more leaves"
+        finished = not grew_any and not flag
+        if finished:
+            self._finished_natural = True
+        return finished
+
+    # -- resilience: the non-finite guard and the OOM ladder -------------
+    def _gh_guard(self, it: int, g: torch.Tensor, h: torch.Tensor):
+        """Fault injection, the gradients' and hessians' flag bits as a
+        device scalar (no read-back here), and the clamp policy."""
+        if self._fault_plan.fires("nan_grad", it):
+            g = torch.full_like(g, float("nan"))
+        if self._fault_plan.fires("nan_hess", it):
+            h = torch.full_like(h, float("nan"))
+        flag = torch.where(torch.isfinite(g).all(), 0, _NF_GRAD) \
+            | torch.where(torch.isfinite(h).all(), 0, _NF_HESS)
+        if self._nf_policy == "clamp":
+            g = nf_clamp(g)
+            h = nf_clamp(h, lo=0.0)
+        return g, h, flag
+
+    def _leaf_guard(self, it: int, gh_flag: torch.Tensor, grown: list):
+        """The iteration's one read-back of the guard: each tree's flag is
+        the gradients' and hessians' bits plus its own leaf bit. Records
+        and enforces the policy (clamp rewrites the leaf values, skip_tree
+        demotes a flagged tree to a constant) and returns the trees and
+        the iteration's flag."""
+        gh = int(gh_flag.item())
+        flags = [gh | (0 if np.isfinite(a.leaf_value).all() else _NF_LEAF)
+                 for a, _ in grown]
+        flag = int(np.bitwise_or.reduce(flags)) if flags else 0
+        if not flag:
+            return grown, 0
+        self._apply_guard_flag(it, flag)
+        out = []
+        for (arrays, row_leaf), fl in zip(grown, flags):
+            if self._nf_policy == "clamp":
+                arrays = arrays._replace(
+                    leaf_value=nf_clamp(torch.as_tensor(
+                        arrays.leaf_value)).numpy())
+            elif fl:
+                arrays = arrays._replace(
+                    num_leaves=1,
+                    leaf_value=np.zeros_like(arrays.leaf_value))
+            out.append((arrays, row_leaf))
+        return out, flag
+
+    def _apply_guard_flag(self, it: int, flag: int) -> None:
+        """Record the policy for one iteration's flag; raise under
+        ``raise``."""
+        kinds = [name for bit, name in _NF_KINDS if flag & bit]
+        detail = "non-finite " + ", ".join(kinds)
+        append_fault_event(self.fault_log, "nonfinite", it,
+                           self._nf_policy, detail)
+        if self._nf_policy == "raise":
+            from ..basic import LightGBMError
+            raise LightGBMError(
+                f"{detail} detected at iteration {it} "
+                "(nonfinite_policy=raise; use skip_tree or clamp to "
+                "train through transient numerical faults)")
+
+    def _next_pool_slots(self) -> Optional[int]:
+        """The ladder's next histogram pool (half the current one, at
+        least 2), or None when no rung is left (the pool is the compact
+        grower's)."""
+        cfg = self.grower.cfg
+        if cfg.grower != "compact":
+            return None
+        cur = cfg.pool_slots if cfg.pool_slots > 0 else cfg.num_leaves
+        slots = max(2, cur // 2)
+        return slots if slots < cur else None
+
+    def _run_with_oom_degrade(self, thunk):
+        """Run a grow with graceful OOM degradation: on a device OOM
+        (or an injected one), halve the histogram pool, rebuild the
+        grower and retry from the generators' states before the failed
+        grow; raise ``LightGBMError`` once no rung is left."""
+        gens = [gen for gen in (self._rounding_gen, self._bynode_gen)
+                if gen is not None]
+        states = [gen.get_state() for gen in gens]
+        while True:
+            try:
+                self._fault_plan.maybe_oom(self.iter_)
+                return thunk()
+            except Exception as e:
+                if not is_resource_exhausted(e):
+                    raise
+                if self._next_pool_slots() is None:
+                    from ..basic import LightGBMError
+                    raise LightGBMError(
+                        f"device RESOURCE_EXHAUSTED in grow at "
+                        f"iteration {self.iter_} and no degradation "
+                        f"left to try: {e}") from e
+            # outside the handler: the failed grow's frames (and the
+            # tensors they hold) are released by now
+            self._degrade_after_oom()
+            for gen, state in zip(gens, states):
+                gen.set_state(state)
+
+    def _degrade_after_oom(self) -> None:
+        """One rung: a grower with half the pool slots, built after the
+        old one's buffers are freed."""
+        slots = self._next_pool_slots()
+        gcfg = self.grower.cfg._replace(pool_slots=slots)
+        self.grower = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        self.grower = Grower(gcfg, *self._grower_args, **self._grower_kw)
+        append_fault_event(
+            self.fault_log, "oom", self.iter_,
+            f"histogram pool -> {slots} slots",
+            "RESOURCE_EXHAUSTED in grow; retrying after downgrade")
+
+    def telemetry_tree_stats(self) -> Optional[Dict[str, float]]:
+        """Leaves grown and split-gain sum of the last iteration's K
+        trees (host trees: no device read), for obs/recorder.py; None
+        before the first iteration."""
+        if self.iter_ <= 0 or len(self.models) < self.K:
+            return None
+        leaves, gain = 0, 0.0
+        for tree in self.models[-self.K:]:
+            nl = int(tree.num_leaves)
+            leaves += nl
+            gain += float(np.sum(
+                np.asarray(tree.split_gain)[: max(nl - 1, 0)]))
+        return {"trees": self.K, "leaves": leaves, "split_gain_sum": gain}
 
     # -- linear leaves (LinearTreeLearner::CalculateLinear) ---------------
     def _fit_linear(self, arrays, row_leaf: torch.Tensor,
@@ -858,6 +1031,7 @@ class GBDTBooster:
                 for v in self.valid_sets:
                     v.score[k] -= self._tree_values(tree, v.dataset)
         self.iter_ -= 1
+        self._finished_natural = False
 
     # -- evaluation ------------------------------------------------------
     def eval_metrics(self, metrics, data_idx: int) -> Dict[str, float]:

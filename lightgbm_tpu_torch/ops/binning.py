@@ -14,11 +14,17 @@ sorted category values (the values cast to int64 after NaN and
 infinities become -1; NaN, negative, cut and unseen values all land in
 bin 0). The bins are identical (tests/test_torch_train.py and
 tests/test_torch_categorical.py hold them against the JAX package).
+The greedy bin search finds each bin's end from prefix sums of the
+counts instead of stepping through the distinct values one by one: the
+same rule, the same bounds. The mapper loop reads a host matrix a block
+of columns at a time (:func:`column_blocks`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import warnings
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -28,6 +34,45 @@ __all__ = ["BinMapper", "BinType", "MissingType", "find_bin", "bin_values"]
 # Matches LightGBM's kZeroThreshold (bin.h): |v| <= kZero is "zero".
 K_ZERO_THRESHOLD = 1e-35
 K_SPARSE_THRESHOLD = 0.8
+
+
+# bytes of the row blocks that bin_matrix sends to a GPU at a time, and
+# the elements of one batch of numerical columns it bins at once there
+_ROW_BLOCK_BYTES = 1 << 30
+_BATCH_ELEMS = 1 << 24
+
+
+def _host_tensor(X: np.ndarray):
+    """A CPU tensor over the host array ``X``, without a copy unless its
+    strides are negative (torch takes none). A read-only ``X`` is only
+    read."""
+    import torch
+    if min(X.strides, default=0) < 0:
+        X = np.ascontiguousarray(X)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(X)
+
+
+def column_blocks(X: np.ndarray, cols, rows=None):
+    """The columns ``cols`` of a row-major host matrix ``X`` (at the rows
+    ``rows``, in ascending order, when given) as contiguous ``[k, n]``
+    numpy blocks of up to 32 columns and 64 MiB, in order. One column
+    read alone is one element per row, a page apart at Allstate's width;
+    a block is read a few lines per row (torch's threaded gather and
+    transpose: the values are copied, never converted)."""
+    import torch
+    cols = np.asarray(cols, np.int64)
+    Xt = _host_tensor(X)
+    rt = None if rows is None else torch.from_numpy(
+        np.sort(np.asarray(rows, np.int64)))
+    n = X.shape[0] if rt is None else len(rt)
+    span = int(min(32, max(1, (64 << 20) // max(1, n * X.itemsize))))
+    for s in range(0, len(cols), span):
+        blk = Xt.index_select(1, torch.from_numpy(cols[s:s + span]))
+        if rt is not None:
+            blk = blk.index_select(0, rt)
+        yield blk.t().contiguous().numpy()
 
 
 class BinType:
@@ -158,9 +203,12 @@ def _greedy_find_bin(distinct: np.ndarray, counts: np.ndarray,
     bounds: List[float] = []
     if num_distinct == 0:
         return bounds
-    distinct = distinct[:num_distinct]
-    counts = counts[:num_distinct]
+    # the loops read one value at a time: Python scalars, not numpy ones
+    # (the same doubles and integers, a fraction of the per-item cost)
+    distinct = distinct[:num_distinct].tolist()
+    counts = np.asarray(counts[:num_distinct])
     if num_distinct <= max_bin:
+        counts = counts.tolist()
         cur = 0
         for i in range(num_distinct - 1):
             cur += counts[i]
@@ -174,32 +222,54 @@ def _greedy_find_bin(distinct: np.ndarray, counts: np.ndarray,
     mean_bin_size = total_cnt / max_bin
     # values that alone exceed the mean bin size get private bins
     is_big = counts >= mean_bin_size
-    rest_cnt = total_cnt - counts[is_big].sum()
+    rest_total = int(total_cnt - counts[is_big].sum())
     rest_bins = max_bin - int(is_big.sum())
     if rest_bins > 0:
-        mean_bin_size = rest_cnt / rest_bins
+        mean_bin_size = rest_total / rest_bins
+
+    # A walk over i = 0 .. num_distinct - 2 that adds counts[i] to the
+    # open bin and closes it after i when: value i is big, the bin holds
+    # >= mean_bin_size, or value i + 1 is big and the bin holds >=
+    # max(1, mean_bin_size / 2). Between two closings the thresholds stay
+    # put and the counts are integers, so each closing is found from the
+    # prefix sums in a few searches, not one step per distinct value.
+    pre = np.concatenate([[0], np.cumsum(counts)])           # sum [0, k)
+    small_pre = np.concatenate(
+        [[0], np.cumsum(np.where(is_big, 0, counts))])
+    big_pre = np.concatenate([[0], np.cumsum(is_big)])
+    big_at = np.flatnonzero(is_big)
+    last = num_distinct - 2
+    none = num_distinct                 # past every closing index
+
+    def first_big(at_least):
+        k = int(np.searchsorted(big_at, at_least, side="left"))
+        return int(big_at[k]) if k < len(big_at) else none
 
     bin_cnt = 0
-    cur = 0
-    for i in range(num_distinct - 1):
-        if not is_big[i]:
-            rest_cnt -= counts[i]
-        cur += counts[i]
-        # close the current bin if: value is big, bin is full, or the next
-        # value is big (so it must start its own bin)
-        if (is_big[i] or cur >= mean_bin_size or
-                (is_big[i + 1] and cur >= max(1.0, mean_bin_size * 0.5))):
-            bounds.append((distinct[i] + distinct[i + 1]) / 2.0)
-            bin_cnt += 1
-            cur = 0
-            if bin_cnt >= max_bin - 1:
-                break
-            if not is_big[i] and rest_bins > bin_cnt:
-                # re-balance remaining budget over remaining small values
-                remaining_small_bins = rest_bins - (
-                    bin_cnt - int(is_big[: i + 1].sum()))
-                if remaining_small_bins > 0:
-                    mean_bin_size = rest_cnt / remaining_small_bins
+    s = 0                               # first value of the open bin
+    while s <= last:
+        base = int(pre[s])
+        # bin full: first i >= s with pre[i + 1] - base >= mean
+        full = int(np.searchsorted(pre, base + math.ceil(mean_bin_size),
+                                   side="left")) - 1
+        # next value big: first big b >= s + 1 with pre[b] - base >= half
+        half = math.ceil(max(1.0, mean_bin_size * 0.5))
+        b = first_big(max(s + 1, int(np.searchsorted(
+            pre, base + half, side="left"))))
+        i = min(max(full, s), first_big(s), b - 1)
+        if i > last:
+            break
+        bounds.append((distinct[i] + distinct[i + 1]) / 2.0)
+        bin_cnt += 1
+        if bin_cnt >= max_bin - 1:
+            break
+        if not is_big[i] and rest_bins > bin_cnt:
+            # re-balance remaining budget over remaining small values
+            remaining_small_bins = rest_bins - (bin_cnt - int(big_pre[i + 1]))
+            if remaining_small_bins > 0:
+                mean_bin_size = (rest_total - int(small_pre[i + 1])) \
+                    / remaining_small_bins
+        s = i + 1
     bounds.append(float("inf"))
     return bounds
 
@@ -373,10 +443,11 @@ def bin_matrix(X, col_indices, mappers: Sequence[BinMapper],
     """Bin selected columns of a row-major ``[n, F]`` values matrix into
     a dense row-major ``[n, C]`` bin tensor on ``device``.
 
-    ``X`` is a host array, whose columns go to the device one at a time,
-    or a tensor already on the device (a streamed chunk, in one copy).
-    Numerical columns are mapped on the device, one column at a time,
-    with ``torch.searchsorted`` in float64 — the rule of
+    ``X`` is a host array or a tensor already on the device (a streamed
+    chunk, in one copy); a host array goes to a GPU a block of rows at a
+    time, as a chunk does. Numerical columns are mapped on the device
+    with ``torch.searchsorted`` in float64, a batch of columns at a time
+    (:func:`_numerical_bins`) — the rule of
     ``BinMapper.value_to_bin``: ``side="left"``, clamped to the last
     bound, NaN to the last bin for ``MissingType.NAN`` and to the bin of
     0.0 otherwise. Categorical columns by :func:`_categorical_bins`. The
@@ -392,27 +463,65 @@ def bin_matrix(X, col_indices, mappers: Sequence[BinMapper],
             dtype = torch.uint8 if max_bins <= 256 else torch.uint16
         out = torch.empty((n, len(mappers)), dtype=dtype, device=device)
     dtype, device = out.dtype, out.device
+    if not isinstance(X, torch.Tensor):
+        # a view for the CPU; for a GPU a block of rows at a time, in one
+        # copy each, as a streamed chunk goes
+        Xt = _host_tensor(X)
+        step = n if device.type == "cpu" else \
+            max(1, _ROW_BLOCK_BYTES // max(1, Xt[:1].nbytes))
+        for lo in range(0, n, step):
+            bin_matrix(Xt[lo:lo + step].to(device), col_indices, mappers,
+                       out=out[lo:lo + step])
+        return out
+    # the numerical columns a batch at a time, by one searchsorted over
+    # their stacked bounds; categorical ones alone
+    num = [i for i, m in enumerate(mappers)
+           if m.bin_type == BinType.NUMERICAL]
+    step = max(1, _BATCH_ELEMS // max(1, n))
+    for lo in range(0, len(num), step):
+        part = num[lo:lo + step]
+        b = _numerical_bins(X, col_indices[part],
+                            [mappers[i] for i in part]).t().to(dtype)
+        # each run of adjacent columns in one slice copy (no indexed
+        # writes: uint16 has none)
+        k = 0
+        while k < len(part):
+            e = k + 1
+            while e < len(part) and part[e] == part[k] + e - k:
+                e += 1
+            out[:, part[k]:part[e - 1] + 1] = b[:, k:e]
+            k = e
     for i, m in enumerate(mappers):
-        if isinstance(X, torch.Tensor):
-            v = X[:, int(col_indices[i])].to(torch.float64).contiguous()
-        else:
-            v = torch.from_numpy(np.ascontiguousarray(
-                X[:, col_indices[i]])).to(device=device,
-                                          dtype=torch.float64)
         if m.bin_type != BinType.NUMERICAL:
+            v = X[:, int(col_indices[i])].to(torch.float64)
             out[:, i] = _categorical_bins(v, m).to(dtype)
-            continue
-        nan = torch.isnan(v)
-        ub = torch.from_numpy(m.upper_bounds).to(device=device,
-                                                 dtype=torch.float64)
-        if m.missing_type != MissingType.NAN:
-            v = torch.where(nan, torch.zeros_like(v), v)
-        b = torch.searchsorted(ub, v, side="left")
-        b = torch.clamp_max_(b, len(m.upper_bounds) - 1)
-        if m.missing_type == MissingType.NAN:
-            b = torch.where(nan, torch.full_like(b, m.num_bins - 1), b)
-        out[:, i] = b.to(dtype)
     return out
+
+
+def _numerical_bins(X, cols, mappers: Sequence[BinMapper]):
+    """``[C, n]`` int64 bins of the numerical columns ``cols`` of the
+    tensor ``X`` under ``mappers``, by ``value_to_bin``'s rule, in one
+    ``searchsorted`` over their upper bounds stacked and padded with
+    +inf (no finite value passes a pad, and +inf stops at the column's
+    own last bound before the clamp to it)."""
+    import torch
+    dev = X.device
+    ub = np.full((len(mappers), max(len(m.upper_bounds) for m in mappers)),
+                 np.inf)
+    for k, m in enumerate(mappers):
+        ub[k, :len(m.upper_bounds)] = m.upper_bounds
+    last = torch.as_tensor([len(m.upper_bounds) - 1 for m in mappers],
+                           device=dev)[:, None]
+    nan_bin = torch.as_tensor(
+        [m.num_bins - 1 if m.missing_type == MissingType.NAN else -1
+         for m in mappers], device=dev)[:, None]
+    v = X[:, torch.as_tensor(cols, device=dev)].to(torch.float64).t() \
+        .contiguous()
+    nan = torch.isnan(v)
+    v.masked_fill_(nan, 0.0)        # NaN is 0.0 unless its bin is its own
+    b = torch.searchsorted(torch.as_tensor(ub, device=dev), v, side="left")
+    b = torch.minimum(b, last)
+    return torch.where(nan & (nan_bin >= 0), nan_bin, b)
 
 
 def _categorical_bins(v, m: BinMapper):

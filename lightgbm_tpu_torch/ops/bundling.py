@@ -4,8 +4,11 @@ bin matrix on the device.
 A copy of ``lightgbm_tpu/ops/bundling.py`` (``BundleInfo``,
 ``_eligible``, ``build_bundles``), which the port may not import. The
 greedy first-fit, the group consolidation, the ``RandomState(seed)``
-sample of ``sample_rows`` rows and the conflict budget are the same
-code, so the groups and every table equal the JAX package's.
+sample of ``sample_rows`` rows and the conflict budget follow the same
+rules, so the groups and every table equal the JAX package's; only the
+first-fit search counts conflicts for a block of bundles at once, over
+64-bit words (``_Masks``), where the JAX module counts one bundle at a
+time over bytes.
 
 Bundle layout (the JAX package's):
 
@@ -89,14 +92,67 @@ def _eligible(mappers, F: int, max_cat_onehot: int = 4) -> np.ndarray:
     return ok
 
 
-def _host_rows(bins: torch.Tensor, idx: np.ndarray) -> np.ndarray:
-    """``bins[idx]`` as a host numpy array (uint16 moved as its int16
-    bits: CUDA gathers and numpy conversion of uint16 are missing)."""
-    wide = bins.dtype == torch.uint16
+def _sample_masks(bins: torch.Tensor, idx: np.ndarray):
+    """The nonzero masks of the rows ``idx`` of ``bins``, feature-major
+    and bit-packed as ``np.packbits(mask, axis=1)`` packs them
+    (``[F, ceil(S/8)]`` u8, the first row in a byte's high bit), and
+    each feature's count of nonzero rows; built on the bins' device,
+    so only the packed bits come to the host."""
+    wide = bins.dtype == torch.uint16       # no CUDA gather of uint16
     src = bins.view(torch.int16) if wide else bins
-    rows = src.index_select(0, torch.as_tensor(idx, device=bins.device))
-    out = rows.cpu().numpy()
-    return out.view(np.uint16) if wide else out
+    nz = src.index_select(0, torch.as_tensor(idx, device=bins.device)) != 0
+    counts = nz.sum(0).cpu().numpy()
+    S, F = nz.shape
+    byte = torch.zeros((F, S + (-S % 8)), dtype=torch.uint8,
+                       device=bins.device)
+    byte[:, :S] = nz.t()
+    weight = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.uint8,
+                          device=bins.device)
+    packed = (byte.view(F, -1, 8) * weight).sum(-1, dtype=torch.uint8)
+    return packed.cpu().numpy(), counts
+
+
+class _Masks:
+    """The growing ``[G, W]`` u64 nonzero masks of the bundles, and the
+    first-fit search over them: conflict counts for a block of bundles
+    per numpy call, blocks in order until one holds the answer."""
+
+    _BLOCK = 64
+
+    def __init__(self, words: int):
+        self.rows = np.zeros((16, words), np.uint64)
+        self.count = 0
+
+    def add(self, nz: np.ndarray) -> None:
+        if self.count == len(self.rows):
+            self.rows = np.concatenate([self.rows, np.zeros_like(self.rows)])
+        self.rows[self.count] = nz
+        self.count += 1
+
+    def merge(self, gi: int, nz: np.ndarray) -> None:
+        self.rows[gi] |= nz
+
+    def first_fit(self, nz, room, conf, budget, zero_in_budget=False):
+        """``(index, conflicts)`` of the first bundle with ``room`` and no
+        conflict with ``nz`` (and ``conf`` within ``budget`` too, with
+        ``zero_in_budget``), else of the first with room whose ``conf``
+        plus conflicts stays within ``budget``, else ``(None, 0)``."""
+        fallback = None
+        for lo in range(0, self.count, self._BLOCK):
+            hi = min(self.count, lo + self._BLOCK)
+            cnt = np.bitwise_count(self.rows[lo:hi] & nz).sum(axis=1)
+            ok = room[lo:hi]
+            zero = ok & (cnt == 0)
+            if zero_in_budget:
+                zero &= conf[lo:hi] <= budget
+            hit = np.flatnonzero(zero)
+            if len(hit):
+                return lo + int(hit[0]), 0
+            if fallback is None:
+                hit = np.flatnonzero(ok & (conf[lo:hi] + cnt <= budget))
+                if len(hit):
+                    fallback = (lo + int(hit[0]), int(cnt[hit[0]]))
+        return fallback if fallback is not None else (None, 0)
 
 
 def build_bundles(bins, mappers, max_positions: int = 255,
@@ -122,13 +178,14 @@ def build_bundles(bins, mappers, max_positions: int = 255,
         if n > sample_rows else np.arange(n)
     # feature-major, bit-packed nonzero masks of the sampled rows (the
     # greedy loop reads per-feature vectors thousands of times)
-    nzT = np.ascontiguousarray((_host_rows(bins, idx) != 0).T)  # [F, S]
-    density = nzT.mean(axis=1)
+    nzP, nnz = _sample_masks(bins, idx)             # [F, ceil(S/8)] u8
+    S = len(idx)
+    density = nnz / S
     eligible = _eligible(mappers, F, max_cat_onehot) \
         & (density <= 1 - sparse_threshold)
-    S = nzT.shape[1]
-    nzP = np.packbits(nzT, axis=1)                   # [F, ceil(S/8)] u8
-    del nzT
+    # in 64-bit words (zero padded): a conflict count is the popcount of
+    # an AND over S / 64 words
+    nzP = np.pad(nzP, ((0, 0), (0, -nzP.shape[1] % 8))).view(np.uint64)
 
     nbins = np.array([m.num_bins for m in mappers], np.int64)
     is_cat = np.array([m.bin_type == BinType.CATEGORICAL
@@ -139,77 +196,53 @@ def build_bundles(bins, mappers, max_positions: int = 255,
     conflict_budget = int(S * MAX_CONFLICT_FRACTION)
     popcounts = np.bitwise_count(nzP).sum(axis=1)
     order = np.argsort(-popcounts)          # dense first
+
+    # greedy first fit of each eligible feature, densest first: the
+    # first group with room and no conflict, else the first with room
+    # whose conflicts stay in budget, else a new group
     groups: List[List[int]] = []
-    group_nz: List[np.ndarray] = []         # aggregated nonzero masks
+    group_nz = _Masks(nzP.shape[1])         # aggregated nonzero masks
     group_pos: List[int] = []               # occupied positions (1 + ...)
     group_conf: List[int] = []              # conflicts spent so far
     for j in order:
         if not eligible[j]:
             continue
-        placed = False
         width = int(member_width[j])
-        nz_j = nzP[j]
-        # first fit over all groups, zero-conflict placements first
-        cnts = []
-        for gi in range(len(groups)):
-            if group_pos[gi] + width > max_positions:
-                cnts.append(None)
-                continue
-            cnt = int(np.bitwise_count(group_nz[gi] & nz_j).sum())
-            cnts.append(cnt)
-            if cnt == 0:
-                placed = True
-                break
-        if not placed:
-            for gi, cnt in enumerate(cnts):
-                if cnt is not None and \
-                        group_conf[gi] + cnt <= conflict_budget:
-                    placed = True
-                    break
-        if placed:
+        gi, cnt = group_nz.first_fit(
+            nzP[j], np.asarray(group_pos) + width <= max_positions,
+            np.asarray(group_conf, np.int64), conflict_budget)
+        if gi is not None:
             groups[gi].append(int(j))
-            group_nz[gi] |= nz_j
+            group_nz.merge(gi, nzP[j])
             group_pos[gi] += width
-            group_conf[gi] += (cnt if cnt else 0)
-        if not placed and width + 1 <= max_positions:
+            group_conf[gi] += cnt
+        elif width + 1 <= max_positions:
             groups.append([int(j)])
-            group_nz.append(nz_j.copy())
+            group_nz.add(nzP[j])
             group_pos.append(1 + width)
             group_conf.append(0)
 
     # consolidation: merge whole groups by their aggregated masks, again
-    # zero-conflict placements first; merged groups share position 0
+    # zero-conflict placements first (and the merged budget kept even
+    # then); merged groups share position 0
     cons: List[List[int]] = []
-    cons_nz: List[np.ndarray] = []
+    cons_nz = _Masks(nzP.shape[1])
     cons_pos: List[int] = []
     cons_conf: List[int] = []
-    for g, gnz, gpos, gconf in zip(groups, group_nz, group_pos,
-                                   group_conf):
-        placed = False
-        cnts2 = []
-        for ci in range(len(cons)):
-            if cons_pos[ci] + gpos - 1 > max_positions:
-                cnts2.append(None)
-                continue
-            cnt = int(np.bitwise_count(cons_nz[ci] & gnz).sum())
-            cnts2.append(cnt)
-            if cnt == 0 and cons_conf[ci] + gconf <= conflict_budget:
-                placed = True
-                break
-        if not placed:
-            for ci, cnt in enumerate(cnts2):
-                if cnt is not None and \
-                        cons_conf[ci] + gconf + cnt <= conflict_budget:
-                    placed = True
-                    break
-        if placed:
+    for gi, g in enumerate(groups):
+        gnz, gpos, gconf = group_nz.rows[gi], group_pos[gi], group_conf[gi]
+        conf = np.asarray(cons_conf, np.int64) + gconf
+        ci, cnt = cons_nz.first_fit(
+            gnz, np.asarray(cons_pos) + gpos - 1 <= max_positions, conf,
+            conflict_budget, zero_in_budget=True)
+        if ci is not None:
             cons[ci].extend(g)
-            cons_nz[ci] |= gnz
+            cons_nz.merge(ci, gnz)
             cons_pos[ci] += gpos - 1
-            cons_conf[ci] += gconf + (cnt if cnt else 0)
+            cons_conf[ci] += gconf + cnt
         else:
             cons.append(list(g))
-            cons_nz.append(gnz.copy())
+            cons_nz.add(gnz)
             cons_pos.append(gpos)
             cons_conf.append(gconf)
     groups = cons

@@ -1,0 +1,196 @@
+"""Deterministic fault injection and device-error classification: the
+counterpart of ``lightgbm_tpu/resilience/faults.py``.
+
+``LIGHTGBM_TPU_FAULT_INJECT`` carries a comma-separated list of
+``kind@iteration`` tokens, e.g. ``nan_grad@7,oom@3,kill@12``, parsed as
+the JAX package parses them. The kinds of one training process:
+
+- ``nan_grad@N`` / ``nan_hess@N`` — poison iteration ``N``'s gradients /
+  hessians with NaN before the trees are grown (the non-finite guard,
+  ``nonfinite_policy``);
+- ``oom@N`` — raise a synthetic ``RESOURCE_EXHAUSTED`` error at
+  iteration ``N``'s grow; consumed on firing, so the OOM ladder's retry
+  succeeds (repeat the token for back-to-back exhaustion);
+- ``kill@N`` — ``SIGKILL`` this process at the start of iteration
+  ``N`` (checkpoint and auto-resume);
+- ``refit_nan@T`` — poison tree ``T``'s gradients during
+  ``Booster.refit``.
+
+The distributed kinds (``rank_kill``, ``stall_rank``, ``init_refuse``)
+are ROADMAP.md Queue 1 item 20 and the lifecycle kinds
+(``publish_torn``, ``publish_poison``, ``store_outage``,
+``serve_kill``) item 19: a plan naming one raises
+``NotImplementedError`` when it is built.
+
+The fault-event log (:data:`FAULT_EVENTS` and each engine's
+``fault_log``) keeps the JAX package's event schema, its cap of 512 and
+one lock for every append and drain. A missing or empty variable parses
+to an inert plan: every query is a dict lookup.
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import threading
+import time
+from typing import Dict, List, Tuple
+
+import torch
+
+from ..obs.schemas import injectable_fault_kinds
+
+__all__ = ["FaultPlan", "InjectedResourceExhausted",
+           "is_resource_exhausted", "append_fault_event",
+           "record_fault_event", "drain_events", "FAULT_EVENTS",
+           "NF_CLAMP", "nf_clamp"]
+
+_KNOWN_KINDS = injectable_fault_kinds()
+
+#: the kinds of a later ROADMAP.md Queue 1 item, by item
+_LATER_KINDS = {"rank_kill": 20, "stall_rank": 20, "init_refuse": 20,
+                "publish_torn": 19, "publish_poison": 19,
+                "store_outage": 19, "serve_kill": 19}
+
+#: the finite ceiling of ``nonfinite_policy=clamp`` (the JAX package's
+#: ``_NF_CLAMP``)
+NF_CLAMP = 1e30
+
+
+def nf_clamp(a: torch.Tensor, lo: float = -NF_CLAMP,
+             hi: float = NF_CLAMP) -> torch.Tensor:
+    """NaN -> 0 and +-Inf -> ``lo``/``hi``, then clipped to them: the
+    rule of ``nonfinite_policy=clamp`` for gradients, hessians and leaf
+    values."""
+    return torch.clamp(torch.nan_to_num(a, nan=0.0, posinf=hi, neginf=lo),
+                       lo, hi)
+
+
+#: process-level fault event log for faults that have no engine to hang
+#: off; the telemetry recorder drains it with the engines' logs. Capped
+#: like them.
+FAULT_EVENTS: List[dict] = []
+
+#: one lock for every fault-event log (the global one and the
+#: engines'): appends and the recorder's snapshot-and-clear may come
+#: from different threads
+_EVENTS_LOCK = threading.Lock()
+
+
+def append_fault_event(log: List[dict], kind: str, iteration: int,
+                       action: str, detail: str) -> None:
+    """Append one ``{"event": "fault"}`` event to ``log`` (capped at
+    512), count it in the ``fault_events{kind}`` registry counter, and
+    warn."""
+    with _EVENTS_LOCK:
+        if len(log) >= 512:
+            del log[0]
+        log.append({
+            "event": "fault", "kind": kind, "iteration": int(iteration),
+            "action": action, "detail": detail, "time": time.time()})
+    from ..obs.registry import registry
+    registry.counter("fault_events", kind=kind).inc()
+    from ..log import log_warning
+    log_warning(f"fault[{kind}] at iteration {iteration}: {detail}"
+                + (f" -> {action}" if action else ""))
+
+
+def record_fault_event(kind: str, iteration: int = -1, action: str = "",
+                       detail: str = "") -> None:
+    """Process-level fault event (no engine in scope): goes to
+    :data:`FAULT_EVENTS`."""
+    append_fault_event(FAULT_EVENTS, kind, iteration, action, detail)
+
+
+def drain_events(log: List[dict]) -> List[dict]:
+    """Atomically snapshot-and-clear a fault-event log, under the lock
+    :func:`append_fault_event` takes: an event appended concurrently
+    lands either in this drain or in the next."""
+    with _EVENTS_LOCK:
+        events, log[:] = list(log), []
+    return events
+
+
+class InjectedResourceExhausted(RuntimeError):
+    """Synthetic stand-in for a device OOM: carries the
+    ``RESOURCE_EXHAUSTED`` marker the classifier keys on."""
+
+
+def is_resource_exhausted(exc: BaseException) -> bool:
+    """True for the caching allocator's ``torch.OutOfMemoryError``, for
+    device allocation failures by message (``RESOURCE_EXHAUSTED``, "out
+    of memory"), and for the injected stand-in."""
+    if isinstance(exc, torch.OutOfMemoryError):
+        return True
+    msg = str(exc)
+    return ("RESOURCE_EXHAUSTED" in msg
+            or "Out of memory" in msg
+            or "out of memory" in msg)
+
+
+class FaultPlan:
+    """Parsed ``kind@iteration`` schedule with consume-on-fire
+    semantics for ``oom`` (so a retry after degradation succeeds)."""
+
+    def __init__(self, spec: str = ""):
+        self._events: Dict[str, List[int]] = {}
+        for token in (spec or "").split(","):
+            token = token.strip()
+            if not token:
+                continue
+            if "@" not in token:
+                raise ValueError(
+                    f"bad fault-injection token {token!r} "
+                    "(expected kind@iteration)")
+            kind, it = token.split("@", 1)
+            kind = kind.strip()
+            if kind not in _KNOWN_KINDS:
+                raise ValueError(
+                    f"unknown fault-injection kind {kind!r} "
+                    f"(known: {', '.join(_KNOWN_KINDS)})")
+            if kind in _LATER_KINDS:
+                raise NotImplementedError(
+                    f"fault-injection kind {kind!r} is not in the port "
+                    f"yet (ROADMAP.md Queue 1 item {_LATER_KINDS[kind]})")
+            self._events.setdefault(kind, []).append(int(it))
+        for lst in self._events.values():
+            lst.sort()
+
+    @classmethod
+    def from_env(cls) -> "FaultPlan":
+        return cls(os.environ.get("LIGHTGBM_TPU_FAULT_INJECT", ""))
+
+    @property
+    def active(self) -> bool:
+        return bool(self._events)
+
+    def iters(self, kind: str) -> Tuple[int, ...]:
+        """All scheduled iterations for ``kind`` (non-consuming)."""
+        return tuple(self._events.get(kind, ()))
+
+    def fires(self, kind: str, iteration: int) -> bool:
+        """Non-consuming membership test (nan_grad / nan_hess)."""
+        return iteration in self._events.get(kind, ())
+
+    def take(self, kind: str, iteration: int) -> bool:
+        """Consuming test: True once per scheduled token."""
+        lst = self._events.get(kind)
+        if lst and iteration in lst:
+            lst.remove(iteration)
+            return True
+        return False
+
+    def maybe_oom(self, iteration: int) -> None:
+        """Raise one synthetic RESOURCE_EXHAUSTED if armed for this
+        iteration (consumed, so the caller's retry proceeds)."""
+        if self.take("oom", iteration):
+            raise InjectedResourceExhausted(
+                f"RESOURCE_EXHAUSTED: injected device OOM at iteration "
+                f"{iteration} (LIGHTGBM_TPU_FAULT_INJECT)")
+
+    def maybe_kill(self, iteration: int) -> None:
+        """SIGKILL this process if armed for this iteration — no
+        cleanup, no atexit: the hard crash the checkpoints must
+        survive."""
+        if self.take("kill", iteration):
+            os.kill(os.getpid(), signal.SIGKILL)

@@ -155,11 +155,28 @@ def _allstate_256():
     return make_allstate_like(4000, 256, seed=0)
 
 
+def _conflicts():
+    """Blocks of members with up to 40 bins and a few rows where members
+    collide: at 30,000 rows each bundle may spend 3 conflicting rows,
+    and bundles fill to their 255 positions."""
+    rs = np.random.RandomState(31)
+    n, per, blocks = 30_000, 6, 8
+    X = np.zeros((n, per * blocks))
+    for g in range(blocks):
+        pick = rs.randint(0, per * 3, n)
+        hit = np.flatnonzero(pick < per)
+        X[hit, g * per + pick[hit]] = rs.randint(1, 40, len(hit))
+    noise = rs.rand(*X.shape) < 3e-4
+    X[noise] = rs.randint(1, 5, noise.sum())
+    return X, (X[:, :per].sum(axis=1) > X[:, per:2 * per].sum(axis=1)) * 1.0
+
+
 FIXTURES = {"onehot_blocks": _onehot_blocks,
             "nan_feature": _with_nan_feature,
             "nan_members": _nan_members,
             "boundary_slot": _boundary_slot,
-            "allstate_256": _allstate_256}
+            "allstate_256": _allstate_256,
+            "conflicts": _conflicts}
 
 
 def _datasets(X, y, params=None):

@@ -246,7 +246,6 @@ def test_refit_save_binary_and_snapshots_match_jax(binary_files):
 
 
 @pytest.mark.parametrize("sub,item", [
-    ("stats", "21"), ("trace", "21"), ("checkpoints", "21"),
     ("lint", "21"), ("launch", "20"), ("serve", "19"), ("pipeline", "19")])
 def test_jax_subcommands_name_their_items(sub, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):

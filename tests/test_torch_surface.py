@@ -528,7 +528,7 @@ def test_streaming_apis_construct(call):
     assert isinstance(call(), tlgb.Dataset)
 
 
-def test_booster_refusals_name_their_items(pair):
+def test_booster_refusals_name_their_items(pair, tmp_path):
     X, y, _, tb = pair
     # compile is in the port (item 19, first part); the network is not
     eager = tb.predict(X)
@@ -539,11 +539,13 @@ def test_booster_refusals_name_their_items(pair):
         tb.set_network("127.0.0.1:1")
     with pytest.raises(NotImplementedError, match="item 20"):
         tb.free_network()
-    with pytest.raises(NotImplementedError, match="item 21"):
-        tlgb.train({**P, **CPU}, tlgb.Dataset(X, label=y, params=CPU), 1,
-                   resume_from="ckpt")
     # keep_training_booster is accepted and changes nothing
     a = tlgb.train({**P, **CPU}, tlgb.Dataset(X, label=y, params=CPU), 1,
                    keep_training_booster=True)
     b = tlgb.train({**P, **CPU}, tlgb.Dataset(X, label=y, params=CPU), 1)
     assert _trees(a) == _trees(b)
+    # resume_from is in the port (item 21): a directory without
+    # snapshots trains from scratch
+    r = tlgb.train({**P, **CPU}, tlgb.Dataset(X, label=y, params=CPU), 1,
+                   resume_from=str(tmp_path / "ckpt"))
+    assert _trees(r) == _trees(b)

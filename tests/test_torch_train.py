@@ -243,6 +243,56 @@ def test_reference_model_file_predicts_like_jax():
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_greedy_find_bin_is_the_jax_walk(seed):
+    """The port's greedy bin search, which finds each bin's end from
+    prefix sums of the counts, gives the JAX package's bounds on random
+    count vectors: few and many distinct values, values big enough for
+    a bin of their own, budgets from 2 to 1024 bins."""
+    from lightgbm_tpu.ops.binning import _greedy_find_bin as jax_walk
+    from lightgbm_tpu_torch.ops.binning import _greedy_find_bin
+    rs = np.random.RandomState(seed)
+    for _ in range(150):
+        nd = rs.randint(1, 3000)
+        counts = rs.randint(1, 5, nd).astype(np.int64)
+        kind = rs.randint(3)
+        if kind == 1:           # a few values that fill a bin alone
+            big = rs.rand(nd) < 0.02
+            counts[big] = rs.randint(50, 2000, big.sum())
+        elif kind == 2:
+            counts = rs.geometric(0.05, nd).astype(np.int64)
+        distinct = np.sort(rs.choice(100_000, nd, replace=False)) / 7.0
+        max_bin = int(rs.choice([2, 3, 16, 63, 255, 1024]))
+        total = int(counts.sum()) + int(rs.randint(0, 50))
+        min_data = int(rs.choice([1, 3, 10]))
+        want = jax_walk(distinct, counts, nd, max_bin, total, min_data)
+        got = _greedy_find_bin(distinct, counts, nd, max_bin, total,
+                               min_data)
+        assert [float(b) for b in got] == [float(b) for b in want]
+
+
+def test_threaded_mappers_of_a_large_sample_equal_jax():
+    """From 100,000 sampled rows the port finds its mappers in threads,
+    reading the sampled rows in ascending order a block of columns at a
+    time; the mappers and bins equal the JAX package's (a row sample
+    drawn from 120,000 rows; NaNs, negatives, a sparse and a
+    categorical column)."""
+    rs = np.random.RandomState(11)
+    n = 120_000
+    X = rs.randn(n, 5).astype(np.float32)
+    X[rs.rand(n) < 0.1, 0] = np.nan
+    X[:, 1] = np.where(rs.rand(n) < 0.01, rs.rand(n) * 3, 0.0)
+    X[:, 2] = rs.randint(0, 9, n)
+    X[:, 3] = np.round(X[:, 3], 1)
+    y = (X[:, 4] > 0) * 1.0
+    p = {"bin_construct_sample_cnt": 100_000, "categorical_feature": [2]}
+    jd = jlgb.Dataset(X, label=y, params=p).construct()
+    td = tlgb.Dataset(X, label=y, params={**p, **CPU}).construct()
+    assert [m.to_dict() for m in td.mappers] == \
+        [m.to_dict() for m in jd.mappers]
+    assert np.array_equal(td.device_bins().numpy(), jd.host_bins())
+
+
 def test_interop_round_trip():
     """The JAX state, handed over as numpy arrays and plain dicts, gives
     the same bins and the same trees in the port."""
@@ -289,7 +339,11 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
         "__main__.py", "cli.py", "sklearn.py", "plotting.py", "convert.py",
         "utils/native.py", "ops/linear.py", "data/__init__.py",
         "data/sources.py", "data/ingest.py", "serve/__init__.py",
-        "serve/compile.py", "serve/batcher.py")} <= scanned
+        "serve/compile.py", "serve/batcher.py", "utils/atomic.py",
+        "utils/timer.py", "obs/__init__.py", "obs/schemas.py",
+        "obs/registry.py", "obs/export.py", "obs/memory.py",
+        "obs/recorder.py", "obs/trace.py", "resilience/__init__.py",
+        "resilience/faults.py", "resilience/checkpoint.py")} <= scanned
     for path in _py_files():
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
@@ -359,8 +413,6 @@ REFUSED = {
     "Dataset.free_host_bins": (20, lambda: _tiny().free_host_bins()),
     "Booster.set_network": (20, lambda: _tiny_booster().set_network("a")),
     "Booster.free_network": (20, lambda: _tiny_booster().free_network()),
-    "telemetry": (21, lambda: tlgb.telemetry("t.jsonl")),
-    "checkpoint": (21, lambda: tlgb.checkpoint("ckpt")),
 }
 
 
@@ -423,7 +475,6 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
     {"chunk_rows": 8192},
     {"hist_method": "pallas"},
     {"reg_sqrt": True},
-    {"nonfinite_policy": "clamp"},
 ])
 def test_unimplemented_parameters_raise(params):
     X = np.random.RandomState(0).randn(200, 3)
@@ -454,20 +505,23 @@ def test_nonfinite_leaf_values_raise_like_jax(params):
     """L2 without boost_from_average on labels near +-1e38: every
     gradient (score - label) is finite, but a leaf's float32 sum of them
     overflows, so its fitted value is not. Both packages' guards flag
-    the leaf values (with renewal, the renewed ones)."""
+    the leaf values (with renewal, the renewed ones) and raise
+    ``LightGBMError`` with the same message."""
     rs = np.random.RandomState(0)
     X = rs.randn(500, 4)
     y = np.where(X[:, 0] > 0, 1e38, -1e38) * (0.5 + rs.rand(500))
     p = {"objective": "regression", "boost_from_average": False,
          "num_leaves": 4, "min_data_in_leaf": 5, "verbosity": -1,
          **params}
-    with pytest.raises(jlgb.basic.LightGBMError, match="leaf values"):
+    with pytest.raises(jlgb.basic.LightGBMError,
+                       match="leaf values") as je:
         jlgb.train({**p, "hist_method": "scatter"},
                    jlgb.Dataset(X, label=y), 2)
-    with pytest.raises(FloatingPointError,
+    with pytest.raises(tlgb.LightGBMError,
                        match="non-finite leaf values detected at "
-                             "iteration 0"):
+                             "iteration 0") as te:
         tlgb.train({**p, **CPU}, tlgb.Dataset(X, label=y), 2)
+    assert str(te.value) == str(je.value)
 
 
 @jax.jit
