@@ -200,6 +200,26 @@ Phases, in order; any failure exits non-zero:
              the direct result; p50/p99); a same-layout swap written in
              place (extra device memory at most one field + 1 MiB, the
              old forest raising);
+6k. serve_daemon — `python -m lightgbm_tpu_torch serve` on the card,
+             over a watch directory where train's first 4 trees were
+             published (resilience/publisher.py, a canary of 256
+             held-out rows), beside a second daemon started with it under
+             serve_kill@5: the ready seconds split into import torch, the
+             CUDA context and load + compile + warmup; socket predictions
+             of 1, 64, 1,024 and 10,000 rows within 1e-6 of the
+             in-process Booster.predict, raw within 1e-6 of the numpy
+             walk, recompile delta 0 after warmup, socket p50/p99 beside
+             serve's in-process p50 and the request spans' ms; a hot swap
+             to the 100-tree forest under a client's traffic (no error
+             reply, every reply equal to the model it names; seconds from
+             publish to the first reply naming it); publish_torn@3 (the
+             publisher retries, the torn bytes never serve),
+             publish_poison@4 (canary_refused, the model keeps serving);
+             stats and metrics parse; `stats` folds the telemetry; SIGTERM
+             during 200 pipelined requests (every reply a prediction or
+             draining, every request the batcher took answered, exit 0
+             inside --grace); the serve_kill@5 daemon dies by SIGKILL
+             after 4 answers; no swap_failure that was not injected;
 7. small runs — uint16 bins (max_bin=400) held to the float standard,
              a deterministic quantized run (200k x 28, no stochastic
              rounding) whose every tree equals its plain twin's, and
@@ -3255,6 +3275,421 @@ def phase_serve(torch, lgb, dev, tr):
     return out
 
 
+DAEMON_GRACE_S = 30
+DAEMON_WAIT_S = 120
+
+
+def _daemon_start(model, workdir, *flags, env=None):
+    """``python -m lightgbm_tpu_torch serve model ...`` on the card, its
+    output to a file; returns ``(proc, out_path, t_spawn)``."""
+    e = dict(os.environ)
+    e["PYTHONPATH"] = REPO + (os.pathsep + e["PYTHONPATH"]
+                              if e.get("PYTHONPATH") else "")
+    for k in ("LIGHTGBM_TPU_FAULT_INJECT", "LIGHTGBM_TPU_TELEMETRY",
+              "LIGHTGBM_TPU_RANK", "LIGHTGBM_TPU_METRICS_PORT"):
+        e.pop(k, None)
+    e.update(env or {})
+    out = os.path.join(workdir, f"daemon{len(os.listdir(workdir))}.out")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "lightgbm_tpu_torch", "serve", model,
+         "--port", "0", "--grace", str(DAEMON_GRACE_S), *flags],
+        stdout=open(out, "w"), stderr=subprocess.STDOUT, cwd=REPO, env=e,
+        start_new_session=True)
+    return proc, out, t0
+
+
+def _daemon_ready(proc, out, t0):
+    """The serve_ready line, the seconds from spawn to it, and the
+    daemon's startup seconds by part (its ``startup seconds`` line)."""
+    ready = startup = None
+    while time.perf_counter() - t0 < DAEMON_WAIT_S:
+        with open(out) as fh:
+            text = fh.read()
+        for ln in text.splitlines():
+            if ready is None and ln.startswith('{"event": "serve_ready"'):
+                ready = json.loads(ln)
+                ready_s = time.perf_counter() - t0
+            if "startup seconds " in ln:
+                startup = json.loads(ln.split("startup seconds ", 1)[1])
+        if ready is not None and startup is not None:
+            return ready, ready_s, startup
+        if proc.poll() is not None:
+            break
+        time.sleep(0.02)
+    raise AssertionError(f"serve_daemon: no serve_ready line:\n"
+                         f"{open(out).read()[-3000:]}")
+
+
+class _Conn:
+    """One JSON-lines connection to a daemon."""
+
+    def __init__(self, port):
+        import socket
+        self.sock = socket.create_connection(("127.0.0.1", port),
+                                             timeout=DAEMON_WAIT_S)
+        self.fh = self.sock.makefile("rwb")
+
+    def send(self, line):
+        self.fh.write(line)
+        self.fh.flush()
+
+    def recv(self):
+        line = self.fh.readline()
+        return json.loads(line) if line else None
+
+    def rpc(self, obj):
+        self.send((json.dumps(obj) + "\n").encode())
+        rep = self.recv()
+        if rep is None:
+            raise AssertionError(f"serve_daemon: connection closed on "
+                                 f"{str(obj)[:80]}")
+        return rep
+
+    def close(self):
+        self.sock.close()
+
+
+def _daemon_stop(procs):
+    for proc in procs:
+        if proc.poll() is None:
+            import signal
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=60)
+
+
+def phase_serve_daemon(torch, lgb, dev, tr, serve_lat):
+    """The serving daemon in subprocesses on the card (docstring 6k).
+    ``serve_lat``: phase_serve's in-process latency, printed beside the
+    socket's."""
+    import signal
+    import threading
+    from lightgbm_tpu_torch import cli
+    from lightgbm_tpu_torch.obs import parse_openmetrics, summarize_events
+    from lightgbm_tpu_torch.resilience import faults as port_faults
+    from lightgbm_tpu_torch.resilience.publisher import publish_model
+    from lightgbm_tpu_torch.serve.compile import compile_forest
+    t_phase = time.perf_counter()
+    Xv = tr["Xv"]
+    dp = {"device_type": dev.type}
+    texts = {"m4": _repeat_trees(tr["model_str"], 1, keep=4)}
+    texts["m100"] = _repeat_trees(texts["m4"], 25)
+    texts["m8"] = _repeat_trees(texts["m4"], 2)
+    boosters = {k: lgb.Booster(model_str=t, params=dp)
+                for k, t in texts.items()}
+    ids = {compile_forest(b).model_id: k for k, b in boosters.items()}
+    by_name = {v: k for k, v in ids.items()}
+    canary_rows = Xv[-256:]
+
+    def publish(key, name, it=-1, spec=""):
+        os.environ["LIGHTGBM_TPU_FAULT_INJECT"] = spec
+        try:
+            raw = boosters[key].predict(canary_rows, raw_score=True)
+            return publish_model(
+                texts[key], watch, name, fault_iteration=it,
+                backoff_base_sec=0.05,
+                canary={"rows": canary_rows.tolist(),
+                        "scores": raw.tolist(), "tol": 1e-4})
+        finally:
+            os.environ.pop("LIGHTGBM_TPU_FAULT_INJECT", None)
+
+    work = tempfile.mkdtemp(prefix="serve_daemon_")
+    watch = os.path.join(work, "watch")
+    os.makedirs(watch)
+    kill_dir = os.path.join(work, "kill")
+    os.makedirs(kill_dir)
+    telem = os.path.join(work, "serve.jsonl")
+    publish("m4", "m0004.txt")
+    with open(os.path.join(kill_dir, "m.txt"), "w") as fh:
+        fh.write(texts["m4"])
+    out = {}
+    procs = []
+    conns = []
+    predicted = [0]
+    lock = threading.Lock()
+    try:
+        a = _daemon_start(watch, work, "--device-type", dev.type,
+                          "--telemetry", telem, "--stats-interval", "1",
+                          "--watch-interval", "0.2")
+        b = _daemon_start(os.path.join(kill_dir, "m.txt"), work,
+                          "--device-type", dev.type,
+                          env={"LIGHTGBM_TPU_FAULT_INJECT": "serve_kill@5"})
+        procs = [a[0], b[0]]
+        (ready, ready_s, startup), (ready_b, ready_b_s, startup_b) = \
+            _daemon_ready(*a), _daemon_ready(*b)
+        for tag, rs_, st in (("A", ready_s, startup),
+                             ("serve_kill", ready_b_s, startup_b)):
+            rest = rs_ - sum(st.values())
+            log(f"[serve_daemon] daemon {tag}: ready {rs_:.3f} s after "
+                f"spawn = import torch {st['import_torch_s']:.3f} + CUDA "
+                f"context {st['device_s']:.3f} + load "
+                f"{st['load_s']:.3f} + compile {st['compile_s']:.3f} + "
+                f"warmup {st['warmup_s']:.3f} + the interpreter, imports "
+                f"and the rest {rest:.3f}")
+        if ids.get(ready["model"]) != "m4":
+            raise AssertionError(f"serve_daemon: serving {ready} at start")
+        out.update(ready_s=ready_s, startup=startup, ready_kill_s=ready_b_s,
+                   startup_kill=startup_b)
+        c = _Conn(ready["port"])
+        conns.append(c)
+        first = c.rpc({"cmd": "stats"})
+        if first["recompiles"]["delta"] != 0:
+            raise AssertionError(f"serve_daemon: recompiles after warmup "
+                                 f"{first['recompiles']}")
+
+        def predict_rpc(conn, X, **extra):
+            rep = conn.rpc({"rows": X.tolist(), **extra})
+            if "predictions" not in rep:
+                raise AssertionError(f"serve_daemon: {rep}")
+            with lock:
+                predicted[0] += 1
+            return rep
+
+        # answers at four sizes, and raw against the numpy walk
+        errs = {}
+        for rows in (1, 64, 1024, 10_000):
+            X = Xv[:rows]
+            rep = predict_rpc(c, X)
+            raw = predict_rpc(c, X, raw=True)
+            e1 = float(np.abs(np.asarray(rep["predictions"])
+                              - boosters["m4"].predict(X)).max())
+            e2 = float(np.abs(np.asarray(raw["predictions"])
+                              - numpy_predict_raw(texts["m4"], X)).max())
+            errs[rows] = (e1, e2)
+            if e1 > 1e-6 or e2 > 1e-6 or rep["n"] != rows:
+                raise AssertionError(f"serve_daemon: {rows} rows off by "
+                                     f"{e1:.3g} / raw {e2:.3g}")
+        log("[serve_daemon] max abs err against Booster.predict / raw "
+            "against the numpy walk, by rows: " + "; ".join(
+                f"{r}: {e1:.3g} / {e2:.3g}" for r, (e1, e2) in
+                errs.items()))
+        # socket latency by rows (lines encoded beforehand), spans
+        lat = {}
+        for rows, reps in ((1, 40), (64, 40), (1024, 20), (10_000, 8)):
+            line = (json.dumps({"rows": Xv[:rows].tolist()}) + "\n"
+                    ).encode()
+            ts = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                c.send(line)
+                rep = c.recv()
+                ts.append(time.perf_counter() - t0)
+                if rep is None or rep.get("n") != rows:
+                    raise AssertionError(f"serve_daemon: {rep}")
+            with lock:
+                predicted[0] += reps
+            q = np.percentile(np.asarray(ts) * 1e3, [50.0, 99.0])
+            lat[rows] = (float(q[0]), float(q[1]))
+            for k in range(3):
+                predict_rpc(c, Xv[:rows], trace={
+                    "trace_id": f"smoke{rows:08d}{k:03d}",
+                    "span_id": f"client{rows:010d}"})
+        stats = c.rpc({"cmd": "stats"})
+        if stats["recompiles"]["delta"] != 0:
+            raise AssertionError(f"serve_daemon: a request size brought "
+                                 f"a new shape: {stats['recompiles']}")
+        n4 = boosters["m4"].num_trees()
+        inproc = {r: serve_lat.get(f"{n4}_trees_{r}", {}).get("p50_ms")
+                  for r in (1, 16, 256, 4096, 16384)}
+        # the host's share of a 10,000-row request: the daemon's JSON
+        # parse and float32 matrix, timed here on the same line
+        line = (json.dumps({"rows": Xv[:10_000].tolist()}) + "\n").encode()
+        t0 = time.perf_counter()
+        obj = json.loads(line.decode())
+        t1 = time.perf_counter()
+        np.asarray(obj["rows"], np.float32)
+        t2 = time.perf_counter()
+        parse_ms = ((t1 - t0) * 1e3, (t2 - t1) * 1e3)
+        log("[serve_daemon] socket latency ms (p50/p99) by rows: "
+            + "; ".join(f"{r}: {p50:.3f}/{p99:.3f}"
+                        for r, (p50, p99) in lat.items())
+            + f"; rows/s at 10,000 {10_000 / (lat[10_000][0] / 1e3):.0f}"
+            + "; serve's in-process p50 ms by rows: " + json.dumps(inproc)
+            + f"; recompile delta after warmup "
+              f"{stats['recompiles']['delta']}; the 10,000-row line "
+              f"({len(line)} bytes) parsed in this process: json.loads "
+              f"{parse_ms[0]:.3f} ms, float32 matrix {parse_ms[1]:.3f} ms")
+        out.update(latency=lat, rows_per_s_10000=10_000 / (
+            lat[10_000][0] / 1e3), parse_ms=parse_ms)
+        # the serve_kill daemon: 4 answers, then SIGKILL at the 5th
+        kc = _Conn(ready_b["port"])
+        conns.append(kc)
+        for _ in range(4):
+            if kc.rpc({"rows": Xv[:2].tolist()}).get("n") != 2:
+                raise AssertionError("serve_daemon: serve_kill daemon")
+        kc.send((json.dumps({"rows": Xv[:2].tolist()}) + "\n").encode())
+        dead = kc.recv() is None
+        rc_b = b[0].wait(timeout=60)
+        log(f"[serve_daemon] serve_kill@5: 4 answers, the 5th request "
+            f"closed the connection {dead}, exit {rc_b}")
+        if not dead or rc_b != -signal.SIGKILL:
+            raise AssertionError("serve_daemon: serve_kill@5 did not kill")
+        # hot swap to the 100-tree forest under traffic
+        slices = [Xv[64 * k:64 * (k + 1)] for k in range(8)]
+        want = {key: [bst.predict(x) for x in slices]
+                for key, bst in boosters.items()}
+        seen, bad = [], []
+        stop = threading.Event()
+
+        def client():
+            cc = _Conn(ready["port"])
+            k = 0
+            try:
+                while not stop.is_set():
+                    rep = cc.rpc({"rows": slices[k % 8].tolist()})
+                    t = time.perf_counter()
+                    key = ids.get(rep.get("model"))
+                    if "predictions" not in rep or key is None or \
+                            np.abs(np.asarray(rep["predictions"])
+                                   - want[key][k % 8]).max() > 1e-6:
+                        bad.append(rep if "predictions" not in rep
+                                   else rep.get("model"))
+                    else:
+                        with lock:
+                            predicted[0] += 1
+                    seen.append((t, key))
+                    k += 1
+            finally:
+                cc.close()
+
+        th = threading.Thread(target=client)
+        th.start()
+
+        def wait_for(key, t_pub, what):
+            deadline = time.perf_counter() + 30
+            while time.perf_counter() < deadline:
+                hit = [t for t, k in list(seen) if k == key and t > t_pub]
+                if hit:
+                    return hit[0] - t_pub
+                time.sleep(0.01)
+            raise AssertionError(f"serve_daemon: no reply named {what}")
+
+        time.sleep(0.3)
+        t_pub = time.perf_counter()
+        publish("m100", "m0100.txt")
+        swap_s = wait_for("m100", t_pub, "the 100-tree forest")
+        time.sleep(0.5)
+        # publish_torn@3: the publisher retries; the torn bytes never serve
+        n_ev = len(port_faults.FAULT_EVENTS)
+        t_pub = time.perf_counter()
+        m8 = publish("m8", "m0200.txt", it=3, spec="publish_torn@3")
+        torn_events = [e["kind"] for e in port_faults.FAULT_EVENTS[n_ev:]]
+        torn_s = wait_for("m8", t_pub, "the 8-tree forest")
+        time.sleep(0.5)
+        # publish_poison@4: refused by the canary, m8 keeps serving
+        n_ev = len(port_faults.FAULT_EVENTS)
+        publish("m4", "m0300.txt", it=4, spec="publish_poison@4")
+        poison_events = [e["kind"] for e in port_faults.FAULT_EVENTS[n_ev:]]
+        time.sleep(1.5)
+        stop.set()
+        th.join(timeout=60)
+        keys = [k for _, k in seen]
+        # once m8 serves, nothing else does: not the torn bytes, not the
+        # poisoned publication
+        after = keys[keys.index("m8"):] if "m8" in keys else []
+        log(f"[serve_daemon] swap under traffic: {len(seen)} replies, "
+            f"{len(bad)} bad; publish -> first reply naming the 100-tree "
+            f"forest {swap_s:.3f} s; publish_torn@3: publisher events "
+            f"{torn_events}, version {m8['sha256'][:12]} served after "
+            f"{torn_s:.3f} s; publish_poison@4: publisher events "
+            f"{poison_events}, replies after m8 naming another model "
+            f"{len(after) - after.count('m8')}; models in reply order "
+            f"{[k for i, k in enumerate(keys) if i == 0 or keys[i - 1] != k]}")
+        if bad or "m100" not in keys or not after or \
+                after.count("m8") != len(after) or \
+                torn_events != ["publish_torn"] or \
+                poison_events != ["publish_poison"]:
+            raise AssertionError(f"serve_daemon: swaps off ({bad[:3]})")
+        out.update(swap_s=swap_s, torn_swap_s=torn_s, swap_replies=len(seen))
+        # stats, metrics
+        st = c.rpc({"cmd": "stats"})
+        mt = c.rpc({"cmd": "metrics"})
+        fams = parse_openmetrics(mt["metrics"])
+        info = list(fams["lightgbm_tpu_serve_model_info"])
+        if st["model"] != by_name["m8"] or st["swaps_total"] != 2 or \
+                dict(info[0]).get("model") != by_name["m8"] or \
+                dict(info[0]).get("sha") != m8["sha256"]:
+            raise AssertionError(f"serve_daemon: stats {st} / {info}")
+        log(f"[serve_daemon] stats: swaps {st['swaps_total']}, swap "
+            f"failures {st['swap_failures']}, requests "
+            f"{st['requests_total']}, p50/p99 {st['p50_ms']}/"
+            f"{st['p99_ms']} ms, device bytes {st['hbm']}; metrics: "
+            f"{len(fams)} samples parse")
+        # SIGTERM during 200 pipelined requests on 4 connections
+        pipes = [_Conn(ready["port"]) for _ in range(4)]
+        conns.extend(pipes)
+        for i, pc in enumerate(pipes):
+            pc.send(b"".join((json.dumps({"rows": slices[k % 8].tolist()})
+                              + "\n").encode() for k in range(50)))
+        time.sleep(0.02)
+        t_term = time.perf_counter()
+        os.kill(a[0].pid, signal.SIGTERM)
+        got = {"predictions": 0, "draining": 0, "bad": 0}
+        for pc in pipes:
+            k = 0
+            while True:
+                rep = pc.recv()
+                if rep is None:
+                    break
+                if "predictions" in rep and ids.get(rep["model"]) and \
+                        np.abs(np.asarray(rep["predictions"]) - want[
+                            ids[rep["model"]]][k % 8]).max() <= 1e-6:
+                    got["predictions"] += 1
+                elif rep.get("draining"):
+                    got["draining"] += 1
+                else:
+                    got["bad"] += 1
+                k += 1
+        rc_a = a[0].wait(timeout=DAEMON_GRACE_S + 30)
+        exit_s = time.perf_counter() - t_term
+        predicted[0] += got["predictions"]
+        events = [json.loads(ln) for ln in open(telem) if ln.strip()]
+        serve = [e for e in events if e.get("event") == "serve"]
+        faults = [e for e in events if e.get("event") == "fault"]
+        took = max(e["requests_total"] for e in serve)
+        uninjected = [e for e in faults if e["kind"] == "swap_failure"
+                      and "m0200.txt" not in e["detail"]
+                      and "m0300.txt" not in e["detail"]]
+        log(f"[serve_daemon] SIGTERM during 200 pipelined requests: "
+            f"{got}, exit {rc_a} after {exit_s:.3f} s (grace "
+            f"{DAEMON_GRACE_S}); requests the batcher took "
+            f"{took}, predictions received "
+            f"{predicted[0]}; fault events "
+            f"{[(e['kind'], e['action']) for e in faults]}")
+        if rc_a != 0 or got["bad"] or exit_s > DAEMON_GRACE_S or \
+                took != predicted[0] or uninjected \
+                or not any(e["kind"] == "canary_refused" for e in faults):
+            raise AssertionError("serve_daemon: the drain or the events "
+                                 "are off")
+        # the request spans, and `stats` over the telemetry
+        spans = {}
+        for e in events:
+            if e.get("event") == "span" and \
+                    e.get("trace_id", "").startswith("smoke"):
+                rows = int(e["trace_id"][5:13])
+                spans.setdefault(rows, {}).setdefault(
+                    e["name"], []).append(e["dur"] * 1e3)
+        log("[serve_daemon] request spans, median ms by rows: "
+            + json.dumps({r: {n.split("/")[1]: round(
+                statistics.median(v), 4) for n, v in sorted(d.items())}
+                for r, d in sorted(spans.items())}))
+        summ = summarize_events(telem)
+        rc_stats = cli.main(["stats", telem])
+        log(f"[serve_daemon] stats over the telemetry: exit {rc_stats}, "
+            f"{summ['serve_events']} serve events, model "
+            f"{summ['serve']['model']}")
+        if rc_stats != 0 or summ["serve"]["model"] != by_name["m8"] or \
+                len(spans) != 4:
+            raise AssertionError("serve_daemon: telemetry is off")
+        out.update(spans=spans, drain=got, exit_s=exit_s)
+    finally:
+        for cc in conns:
+            cc.close()
+        _daemon_stop(procs)
+    log(f"[serve_daemon] seconds {time.perf_counter() - t_phase:.1f}")
+    return out
+
+
 def profile_iteration(torch, bst, host=True):
     """One more boosting iteration under torch.profiler: the card's busy
     time (the sum of the device-side events' times; one stream, so they
@@ -6179,8 +6614,10 @@ def main(argv=None):
     done("train_growth")
     ih = phase_ingest_higgs(torch, lgb, dev, tr)
     done("ingest_higgs")
-    phase_serve(torch, lgb, dev, tr)
+    sv = phase_serve(torch, lgb, dev, tr)
     done("serve")
+    phase_serve_daemon(torch, lgb, dev, tr, sv["latency"])
+    done("serve_daemon")
     sh = phase_surface_higgs(torch, lgb, dev, tr, min(args.iters, 3))
     for key in ("ds", "Xt", "target", "target_valid"):
         del tr[key]

@@ -29,14 +29,6 @@ built by ``nvcc`` at first use. It imports neither ``jax`` nor
     p = bst.predict(X_valid); bst.save_model("m.txt")
 """
 
-from .basic import Booster, Dataset, LightGBMError, Sequence
-from .callback import (CallbackEnv, EarlyStopException, checkpoint,
-                       early_stopping, log_evaluation, record_evaluation,
-                       reset_parameter, telemetry)
-from .config import Config
-from .engine import CVBooster, cv, train
-from .log import register_logger
-
 __all__ = ["Dataset", "Booster", "CVBooster", "LightGBMError",
            "train", "cv",
            "early_stopping", "log_evaluation", "record_evaluation",
@@ -48,10 +40,21 @@ __all__ = ["Dataset", "Booster", "CVBooster", "LightGBMError",
            "plot_tree", "create_tree_digraph"]
 __version__ = "0.1.0"
 
-# names whose modules import optional extras (scikit-learn; matplotlib
-# and graphviz when called): loaded on first access, so importing the
-# package never imports them
+# every public name is loaded on first access (PEP 562), so importing
+# the package imports neither torch nor the optional extras
+# (scikit-learn; matplotlib and graphviz when called): `python -m
+# lightgbm_tpu_torch serve --help` and the daemon's parse path stay
+# torch-free
 _LAZY = {
+    "Booster": "basic", "Dataset": "basic", "LightGBMError": "basic",
+    "Sequence": "basic",
+    "CallbackEnv": "callback", "EarlyStopException": "callback",
+    "checkpoint": "callback", "early_stopping": "callback",
+    "log_evaluation": "callback", "record_evaluation": "callback",
+    "reset_parameter": "callback", "telemetry": "callback",
+    "Config": "config",
+    "CVBooster": "engine", "cv": "engine", "train": "engine",
+    "register_logger": "log",
     "LGBMModel": "sklearn", "LGBMClassifier": "sklearn",
     "LGBMRegressor": "sklearn", "LGBMRanker": "sklearn",
     "plot_importance": "plotting", "plot_metric": "plotting",
@@ -60,13 +63,23 @@ _LAZY = {
 }
 
 
+# submodules reachable as attributes (`lightgbm_tpu_torch.basic`, ...)
+_SUBMODULES = {
+    "basic", "callback", "cli", "config", "convert", "data", "engine",
+    "interop", "log", "metrics", "models", "objectives", "obs", "ops",
+    "plotting", "prediction", "ranking", "resilience", "serve", "shap",
+    "sklearn", "utils",
+}
+
+
 def __getattr__(name):
     target = _LAZY.get(name)
-    if target is None:
+    if target is None and name not in _SUBMODULES:
         raise AttributeError(
             f"module {__name__!r} has no attribute {name!r}")
     import importlib
-    value = getattr(importlib.import_module(f".{target}", __name__), name)
+    mod = importlib.import_module(f".{target or name}", __name__)
+    value = getattr(mod, name) if target is not None else mod
     globals()[name] = value
     return value
 

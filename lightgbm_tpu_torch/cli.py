@@ -19,7 +19,10 @@ Subcommands: ``stats <file.jsonl | dir> [--fleet]`` (the telemetry
 summary), ``trace <dir> [--out FILE]`` (Chrome trace JSON and critical
 paths from the span events) and ``checkpoints <dir>`` (the snapshots and
 whether a run can resume from them); they read the JAX package's files
-too. The JAX package's ``lint``, ``launch``, ``serve`` and ``pipeline``
+too. ``serve <model | dir> [--device-type cuda|cpu] ...`` is the
+JSON-lines inference daemon (``serve/daemon.py``; ``python -m
+lightgbm_tpu_torch serve`` reaches it without importing torch until a
+model loads). The JAX package's ``lint``, ``launch`` and ``pipeline``
 raise, naming the ROADMAP.md item that brings each.
 
     python -m lightgbm_tpu_torch stats telemetry.jsonl
@@ -44,8 +47,7 @@ __all__ = ["main", "parse_args", "load_config_file"]
 
 # the JAX package's subcommands that the port does not have yet
 _SUBCOMMANDS = {
-    "lint": "21 (its last entry)", "launch": 20, "serve": 19,
-    "pipeline": 19,
+    "lint": "21 (its last entry)", "launch": 20, "pipeline": 19,
 }
 
 
@@ -373,6 +375,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     if argv[0] == "trace":
         from .obs.trace import main as trace_main
         return trace_main(argv[1:])
+    if argv[0] == "serve":
+        from .serve.daemon import main as serve_main
+        return serve_main(argv[1:])
     if argv[0] in _SUBCOMMANDS:
         raise NotImplementedError(
             f"the {argv[0]!r} subcommand is not in the port yet (ROADMAP.md "

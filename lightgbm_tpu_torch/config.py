@@ -391,6 +391,33 @@ class Config:
     # the OpenMetrics /metrics endpoint's port (obs/export.py; 0: off;
     # LIGHTGBM_TPU_METRICS_PORT overrides; rank r binds port + r)
     metrics_port: int = 0
+    # the serving daemon (serve/daemon.py; its flags take these as
+    # defaults): the micro-batching window in ms (0: dispatch at once)
+    serve_batch_window_ms: float = 2.0
+    # the largest device batch and the smallest row bucket (powers of
+    # two): larger requests are split, smaller ones pad up to a bucket
+    serve_max_batch_rows: int = 16384
+    serve_min_bucket_rows: int = 16
+    # pending-row budget: a submit beyond it is rejected (backpressure)
+    serve_queue_rows: int = 131072
+    # seconds between {"event": "serve"} lines, and between polls of
+    # the hot-swap watch target
+    serve_stats_interval_sec: float = 10.0
+    serve_watch_interval_sec: float = 1.0
+    # load shedding: above serve_shed_queue_rows pending rows (0: off;
+    # below serve_queue_rows to ever fire) the batcher sheds its oldest
+    # requests with a typed {"shed": true} reply; a request that waited
+    # longer than serve_shed_p99_ms (0: off) is shed at dequeue
+    serve_shed_queue_rows: int = 0
+    serve_shed_p99_ms: float = 0.0
+    # graceful-shutdown deadline: on SIGTERM or `shutdown` the daemon
+    # drains accepted requests for up to this many seconds
+    serve_shutdown_grace_sec: float = 15.0
+    # the replica fleet's autoscaling floor and ceiling (0: a fixed
+    # fleet); accepted and checked here, read by the fleet supervisor
+    # (ROADMAP.md Queue 1 item 19's last part)
+    serve_min_replicas: int = 1
+    serve_max_replicas: int = 0
     max_bin: int = 255
     max_bin_by_feature: List[int] = field(default_factory=list)
     min_data_in_bin: int = 3
@@ -536,6 +563,17 @@ class Config:
         "multi_error_top_k": (1, None),
         "refit_decay_rate": (0.0, 1.0),
         "metrics_port": (0, 65535),
+        "serve_batch_window_ms": (0.0, None),
+        "serve_max_batch_rows": (1, None),
+        "serve_min_bucket_rows": (1, None),
+        "serve_queue_rows": (1, None),
+        "serve_stats_interval_sec": (0.0, None, "gt"),
+        "serve_watch_interval_sec": (0.0, None, "gt"),
+        "serve_shed_queue_rows": (0, None),
+        "serve_shed_p99_ms": (0.0, None),
+        "serve_shutdown_grace_sec": (0.0, None),
+        "serve_min_replicas": (1, None),
+        "serve_max_replicas": (0, None),
     }
 
     def __post_init__(self) -> None:
@@ -596,6 +634,29 @@ class Config:
                 f"{self.monotone_constraints_method}")
         if self.grower not in ("compact", "masked", "level"):
             raise ValueError(f"Unknown grower: {self.grower}")
+        for name in ("serve_max_batch_rows", "serve_min_bucket_rows"):
+            v = getattr(self, name)
+            if v < 1 or (v & (v - 1)) != 0:
+                raise ValueError(f"{name} must be a power of two >= 1, "
+                                 f"got {v}")
+        if self.serve_min_bucket_rows > self.serve_max_batch_rows:
+            raise ValueError(
+                "serve_min_bucket_rows must be <= serve_max_batch_rows "
+                f"({self.serve_min_bucket_rows} > "
+                f"{self.serve_max_batch_rows})")
+        if self.serve_max_replicas \
+                and self.serve_min_replicas > self.serve_max_replicas:
+            raise ValueError(
+                "serve_min_replicas must be <= serve_max_replicas "
+                f"({self.serve_min_replicas} > "
+                f"{self.serve_max_replicas})")
+        if self.serve_shed_queue_rows \
+                and self.serve_shed_queue_rows >= self.serve_queue_rows:
+            raise ValueError(
+                "serve_shed_queue_rows (soft shed threshold) must stay "
+                "below serve_queue_rows (hard admission wall) to ever "
+                f"fire ({self.serve_shed_queue_rows} >= "
+                f"{self.serve_queue_rows})")
 
     _LIST_INT = {"eval_at", "max_bin_by_feature", "monotone_constraints"}
     _LIST_FLOAT = {"feature_contri", "label_gain", "auc_mu_weights",

@@ -15,27 +15,42 @@ for one training process on one card.
   ``render_stats_table`` read it back (``python -m lightgbm_tpu_torch
   stats <path>``);
 - :mod:`.trace` — spans, Chrome trace JSON and critical paths
-  (``python -m lightgbm_tpu_torch trace <dir>``).
+  (``python -m lightgbm_tpu_torch trace <dir>``);
+- :mod:`.jit_tracker` — :class:`RecompileWatcher`: the port has no jit
+  cache, so it counts what takes its place, kernel builds by ``nvcc``
+  and new padded row shapes of the compiled forest's walk.
 
-The JAX package's XLA cost attribution (``obs/cost.py``) and recompile
-tracker (``obs/jit_tracker.py``) are ROADMAP.md Queue 1 item 21's rest.
+The JAX package's XLA cost attribution (``obs/cost.py``) is ROADMAP.md
+Queue 1 item 21's rest.
 """
 
-from .export import (MetricsHTTPServer, ensure_metrics_server,
-                     parse_openmetrics, render_openmetrics)
-from .memory import device_memory_stats
-from .recorder import (ITERATION_EVENT_KEYS, TelemetryRecorder,
-                       UnknownEventError, merge_fleet_summaries,
-                       render_fleet_table, render_stats_table,
-                       summarize_directory, summarize_events)
+# the registry is bound here, eagerly and torch-free, so that the
+# package attribute ``registry`` is the process-global instance and
+# never the submodule of that name
 from .registry import Counter, Gauge, Histogram, MetricsRegistry, registry
-from .schemas import (ENV_VARS, EVENT_NAMES, EVENTS, FAULT_EVENT_KINDS,
-                      FAULT_KINDS, METRICS, event_keys,
-                      fault_event_kinds, injectable_fault_kinds,
-                      one_shot_fault_kinds, required_keys)
-from .trace import (SPAN_EVENT_KEYS, current_context, drain_span_events,
-                    new_span_id, new_trace_id, record_span,
-                    set_current_trace, span, span_events_snapshot)
+
+# every other name loads on first access (PEP 562): the span log and the
+# exporter are torch-free, and the serving daemon's parse path, the
+# store and the publisher import them without torch
+_LAZY = {
+    "MetricsHTTPServer": "export", "ensure_metrics_server": "export",
+    "parse_openmetrics": "export", "render_openmetrics": "export",
+    "device_memory_stats": "memory", "ITERATION_EVENT_KEYS": "recorder",
+    "TelemetryRecorder": "recorder", "UnknownEventError": "recorder",
+    "merge_fleet_summaries": "recorder", "render_fleet_table": "recorder",
+    "render_stats_table": "recorder", "summarize_directory": "recorder",
+    "summarize_events": "recorder", "ENV_VARS": "schemas", "EVENT_NAMES": "schemas", "EVENTS": "schemas",
+    "FAULT_EVENT_KINDS": "schemas", "FAULT_KINDS": "schemas",
+    "METRICS": "schemas", "event_keys": "schemas",
+    "fault_event_kinds": "schemas", "injectable_fault_kinds": "schemas",
+    "one_shot_fault_kinds": "schemas", "required_keys": "schemas",
+    "SPAN_EVENT_KEYS": "trace", "current_context": "trace",
+    "drain_span_events": "trace", "new_span_id": "trace",
+    "new_trace_id": "trace", "record_span": "trace",
+    "set_current_trace": "trace", "span": "trace",
+    "span_events_snapshot": "trace", "RecompileWatcher": "jit_tracker",
+    "jit_cache_sizes": "jit_tracker", "total_recompiles": "jit_tracker",
+}
 
 __all__ = [
     "MetricsRegistry", "Counter", "Gauge", "Histogram", "registry",
@@ -53,4 +68,20 @@ __all__ = [
     "SPAN_EVENT_KEYS", "record_span", "span", "drain_span_events",
     "span_events_snapshot", "new_trace_id", "new_span_id",
     "current_context", "set_current_trace",
+    "RecompileWatcher", "jit_cache_sizes", "total_recompiles",
 ]
+
+
+def __getattr__(name):
+    target = _LAZY.get(name)
+    if target is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+    value = getattr(importlib.import_module(f".{target}", __name__), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

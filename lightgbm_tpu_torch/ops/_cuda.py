@@ -6,7 +6,8 @@ shared library with a plain C interface, at first use, into
 ``ctypes``. The library's file name carries a hash of its source and of
 the shared headers (``csrc/*.cuh``), so an edited kernel is rebuilt.
 Nothing here runs when the module is imported: the CPU tests import every
-module of the port and have no ``nvcc``.
+module of the port and have no ``nvcc``. Each build counts as a compile
+in ``obs/jit_tracker.py`` (``RecompileWatcher``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
+
+from ..obs.jit_tracker import note_build
 
 __all__ = ["KERNELS", "build", "library", "check", "stream_ptr"]
 
@@ -103,6 +106,7 @@ def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, float]:
             continue
         (BUILD_DIR / f"{name}.ptxas.txt").write_text(log)
         os.replace(tmp, out)
+        note_build(name)
     if errors:
         raise RuntimeError("\n".join(errors))
     return secs

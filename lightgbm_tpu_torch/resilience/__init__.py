@@ -7,14 +7,24 @@
   ``LIGHTGBM_TPU_CHECKPOINT`` auto-resume that reproduces the
   uninterrupted model byte for byte;
 - :mod:`.faults` — the ``LIGHTGBM_TPU_FAULT_INJECT`` harness
-  (``nan_grad``, ``nan_hess``, ``oom``, ``kill``, ``refit_nan``) and the
-  fault-event log;
+  (``nan_grad``, ``nan_hess``, ``oom``, ``kill``, ``refit_nan``, and the
+  lifecycle kinds ``publish_torn``, ``publish_poison``,
+  ``store_outage``, ``serve_kill``) and the fault-event log;
+- :mod:`.store` — the artifact-store transport (a local directory, or
+  the faultable in-memory object store behind ``mem://<name>``);
+- :mod:`.publisher` — manifest-first model publication (sha256, a
+  canary, retries with jittered backoff, retention and rollback), the
+  writer side of the serving daemon's watch target;
 - the non-finite guard (``nonfinite_policy``: raise, skip_tree, clamp)
   and the OOM ladder live in ``models/gbdt.py``.
 
+Importing this package imports no torch (the checkpoint module imports
+it where a snapshot restores generators), so the serving daemon's parse
+path and the publisher stay torch-free.
+
 The collective watchdog is ROADMAP.md Queue 1 item 21's rest; the
-supervised restarts (``elastic.py``, ``autoscale.py``) item 20; model
-publication (``publisher.py``, ``store.py``) item 19.
+supervised restarts (``elastic.py``, ``autoscale.py``) come with item
+19's last part and item 20.
 """
 
 from .checkpoint import (CHECKPOINT_MAGIC, Checkpoint, CheckpointError,
@@ -23,6 +33,11 @@ from .checkpoint import (CHECKPOINT_MAGIC, Checkpoint, CheckpointError,
                          write_snapshot)
 from .faults import (FaultPlan, InjectedResourceExhausted,
                      is_resource_exhausted, record_fault_event)
+from .publisher import (PublishError, latest_manifest, load_manifest,
+                        prune_publications, publish_model,
+                        rollback_publication, validate_artifact)
+from .store import (ArtifactStore, LocalDirStore, MemoryBackend,
+                    ObjectStore, StoreError, store_for)
 
 __all__ = [
     "checkpoint", "Checkpoint", "CheckpointError", "snapshot_path",
@@ -30,4 +45,9 @@ __all__ = [
     "list_snapshots", "restore_booster", "CHECKPOINT_MAGIC",
     "FaultPlan", "InjectedResourceExhausted", "is_resource_exhausted",
     "record_fault_event",
+    "ArtifactStore", "LocalDirStore", "MemoryBackend", "ObjectStore",
+    "StoreError", "store_for",
+    "PublishError", "publish_model", "latest_manifest", "load_manifest",
+    "prune_publications", "rollback_publication", "validate_artifact",
 ]
+

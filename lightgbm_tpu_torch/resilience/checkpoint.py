@@ -49,7 +49,6 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 import numpy as np
-import torch
 
 from ..log import log_info, log_warning
 from ..utils.atomic import atomic_write_bytes
@@ -326,6 +325,8 @@ def _generators_in_use(eng) -> List[str]:
 def _restore_generators(eng, snap: Dict[str, Any], iteration: int) -> None:
     """Install the snapshot's generator states and cached bagging draw,
     or refuse a snapshot that lacks what this run draws from."""
+    import torch
+
     from ..basic import LightGBMError
     missing = [k for k in _generators_in_use(eng) if k not in snap]
     cfg = eng.cfg

@@ -16,10 +16,22 @@ the JAX package parses them. The kinds of one training process:
 - ``refit_nan@T`` — poison tree ``T``'s gradients during
   ``Booster.refit``.
 
+The lifecycle kinds of model publication and serving:
+
+- ``publish_torn@G`` — generation ``G``'s publication
+  (``resilience/publisher.py``) first leaves a truncated model blob
+  behind, then fails the attempt: the publisher's retry loop and the
+  daemon's manifest check must both do their jobs;
+- ``store_outage@G`` — the store is down for one publication attempt;
+- ``publish_poison@G`` — the publication is byte-valid but its canary
+  expectations are garbage; only the daemon's canary gate refuses it;
+- ``serve_kill@N`` — ``SIGKILL`` the serving daemon at its ``N``-th
+  accepted predict request, before the request enters the batcher,
+  when ``LIGHTGBM_TPU_RANK`` is in ``LIGHTGBM_TPU_FAULT_RANK`` (default
+  ``0``).
+
 The distributed kinds (``rank_kill``, ``stall_rank``, ``init_refuse``)
-are ROADMAP.md Queue 1 item 20 and the lifecycle kinds
-(``publish_torn``, ``publish_poison``, ``store_outage``,
-``serve_kill``) item 19: a plan naming one raises
+are ROADMAP.md Queue 1 item 20: a plan naming one raises
 ``NotImplementedError`` when it is built.
 
 The fault-event log (:data:`FAULT_EVENTS` and each engine's
@@ -36,8 +48,6 @@ import threading
 import time
 from typing import Dict, List, Tuple
 
-import torch
-
 from ..obs.schemas import injectable_fault_kinds
 
 __all__ = ["FaultPlan", "InjectedResourceExhausted",
@@ -48,9 +58,7 @@ __all__ = ["FaultPlan", "InjectedResourceExhausted",
 _KNOWN_KINDS = injectable_fault_kinds()
 
 #: the kinds of a later ROADMAP.md Queue 1 item, by item
-_LATER_KINDS = {"rank_kill": 20, "stall_rank": 20, "init_refuse": 20,
-                "publish_torn": 19, "publish_poison": 19,
-                "store_outage": 19, "serve_kill": 19}
+_LATER_KINDS = {"rank_kill": 20, "stall_rank": 20, "init_refuse": 20}
 
 #: the finite ceiling of ``nonfinite_policy=clamp`` (the JAX package's
 #: ``_NF_CLAMP``)
@@ -62,6 +70,7 @@ def nf_clamp(a: torch.Tensor, lo: float = -NF_CLAMP,
     """NaN -> 0 and +-Inf -> ``lo``/``hi``, then clipped to them: the
     rule of ``nonfinite_policy=clamp`` for gradients, hessians and leaf
     values."""
+    import torch
     return torch.clamp(torch.nan_to_num(a, nan=0.0, posinf=hi, neginf=lo),
                        lo, hi)
 
@@ -120,6 +129,7 @@ def is_resource_exhausted(exc: BaseException) -> bool:
     """True for the caching allocator's ``torch.OutOfMemoryError``, for
     device allocation failures by message (``RESOURCE_EXHAUSTED``, "out
     of memory"), and for the injected stand-in."""
+    import torch
     if isinstance(exc, torch.OutOfMemoryError):
         return True
     msg = str(exc)
@@ -193,4 +203,26 @@ class FaultPlan:
         cleanup, no atexit: the hard crash the checkpoints must
         survive."""
         if self.take("kill", iteration):
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    @staticmethod
+    def _replica_selected() -> bool:
+        """Is this serving replica a fault target? Replicas are told
+        apart by ``LIGHTGBM_TPU_RANK`` alone, which the gate compares
+        with ``LIGHTGBM_TPU_FAULT_RANK`` (default ``0``)."""
+        targets = {int(r) for r in
+                   os.environ.get("LIGHTGBM_TPU_FAULT_RANK",
+                                  "0").split(",") if r.strip()}
+        me = int(os.environ.get("LIGHTGBM_TPU_RANK") or 0)
+        return me in targets
+
+    def maybe_serve_kill(self, request_count: int) -> None:
+        """SIGKILL the serving daemon when armed for this accepted
+        request ordinal and this replica is a target. Fired before the
+        request enters the batcher, so no accepted request is silently
+        dropped: the dying connection is the client's signal to
+        retry."""
+        if self.fires("serve_kill", request_count) \
+                and self._replica_selected():
+            self.take("serve_kill", request_count)
             os.kill(os.getpid(), signal.SIGKILL)

@@ -57,12 +57,19 @@ class SheddingError(RuntimeError):
 
 
 class _Request:
-    __slots__ = ("rows", "future", "t_submit")
+    __slots__ = ("rows", "future", "t_submit", "trace", "t_dequeue")
 
-    def __init__(self, rows: np.ndarray, future: Future, t_submit: float):
+    def __init__(self, rows: np.ndarray, future: Future,
+                 t_submit: float, trace=None):
         self.rows = rows
         self.future = future
         self.t_submit = t_submit
+        # optional trace context ({"trace_id", "span_id"}) from the
+        # protocol line; when set, the worker stamps dequeue and
+        # dispatch times so the daemon can emit queue-wait /
+        # batch-window / dispatch spans for exactly the sampled requests
+        self.trace = trace
+        self.t_dequeue = None
 
 
 class _SwapCmd:
@@ -135,10 +142,15 @@ class MicroBatcher:
         self._worker.start()
 
     # -- caller side ---------------------------------------------------
-    def submit(self, rows) -> Future:
+    def submit(self, rows, trace=None) -> Future:
         """Enqueue ``rows`` ([n, F] or [F]); the Future resolves to the
-        raw-score matrix ``[n, K]``. Raises :class:`QueueFullError`
-        when the pending-row budget would be exceeded."""
+        raw-score matrix ``[n, K]`` and carries ``serving_forest``, the
+        forest that produced it. Raises :class:`QueueFullError` when the
+        pending-row budget would be exceeded. ``trace`` is an optional
+        span context dict from the protocol: the resolved Future then
+        also carries ``trace`` and ``trace_times`` (submit, dequeue,
+        dispatch and done ``perf_counter`` stamps) for the daemon's
+        per-request spans."""
         rows = np.ascontiguousarray(np.asarray(rows, np.float32))
         if rows.ndim == 1:
             rows = rows[None, :]
@@ -163,7 +175,8 @@ class MicroBatcher:
             # enqueue UNDER the lock (put never blocks): a close()
             # racing between the flag check and an unlocked put could
             # drain, join and leave this future unresolved forever
-            self._queue.put(_Request(rows, fut, time.perf_counter()))
+            self._queue.put(_Request(rows, fut, time.perf_counter(),
+                                     trace))
         return fut
 
     def swap(self, forest) -> object:
@@ -301,6 +314,8 @@ class MicroBatcher:
                 continue
             if self._maybe_shed(req):
                 continue
+            if req.trace is not None:
+                req.t_dequeue = time.perf_counter()
             batch: List[_Request] = [req]
             n = req.rows.shape[0]
             deadline = time.perf_counter() + self._window_s
@@ -322,6 +337,8 @@ class MicroBatcher:
                     break
                 if self._maybe_shed(nxt):
                     continue
+                if nxt.trace is not None:
+                    nxt.t_dequeue = time.perf_counter()
                 batch.append(nxt)
                 n += nxt.rows.shape[0]
             self._run_batch(batch)
@@ -339,6 +356,7 @@ class MicroBatcher:
         X = batch[0].rows if len(batch) == 1 else \
             np.concatenate([r.rows for r in batch])
         err: Optional[BaseException] = None
+        t_dispatch = time.perf_counter()
         try:
             # device dispatch OUTSIDE the lock: a slow batch must not
             # block submit()/stats() on other threads
@@ -361,5 +379,18 @@ class MicroBatcher:
             if err is not None:
                 r.future.set_exception(err)
             else:
+                # stamp which forest produced the scores before
+                # resolving (the future's condition orders this write
+                # before result() returns): a caller that finalizes
+                # raw scores across a hot swap must use the producing
+                # model's transform, not the current one
+                r.future.serving_forest = forest
+                if r.trace is not None:
+                    # queue wait = dequeue - submit, batch window =
+                    # dispatch - dequeue, device = done - dispatch
+                    r.future.trace = r.trace
+                    r.future.trace_times = (
+                        r.t_submit, r.t_dequeue or t_dispatch,
+                        t_dispatch, done)
                 r.future.set_result(out[off:off + k])
             off += k

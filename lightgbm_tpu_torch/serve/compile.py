@@ -8,6 +8,10 @@ linear-leaf coefficients) and a batch walks it with the same torch ops
 as ``Booster.predict`` (``prediction.py`` ``forest_scores``), so the
 two answer bit for bit alike.
 
+Each compiled forest carries a ``model_id``: the JAX package's digest
+of the stacked fields, so the same model file has the same id in both
+packages.
+
 Two serving invariants live here:
 
 - **Shape bucketing**: rows are padded up to power-of-two buckets
@@ -27,28 +31,28 @@ Two serving invariants live here:
 
 from __future__ import annotations
 
-import threading
+import hashlib
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from ..obs import jit_tracker
 from ..ops.predict import StackedTrees
 from ..prediction import convert_raw_scores, forest_scores, stack_trees
 
 __all__ = ["CompiledForest", "compile_forest", "bucket_rows",
            "n_serve_buckets", "padded_shapes"]
 
-# the distinct (rows, features, trees, K) shapes the device walk saw
-_SHAPES: set = set()
-_SHAPES_LOCK = threading.Lock()
+#: the ``obs/jit_tracker.py`` entry of the walk's padded shapes
+_ENTRY = "serve/predict"
 
 
 def padded_shapes() -> int:
-    """How many distinct padded shapes reached the device walk in this
-    process (the port's counterpart of the JAX recompile counter)."""
-    with _SHAPES_LOCK:
-        return len(_SHAPES)
+    """How many distinct padded ``(rows, features, trees, K)`` shapes
+    reached the device walk in this process (the port's counterpart of
+    the JAX recompile counter; ``obs.RecompileWatcher`` counts them)."""
+    return jit_tracker.shape_count(_ENTRY)
 
 
 def bucket_rows(n: int, min_bucket: int = 16,
@@ -83,6 +87,41 @@ def _layouts_match(old: StackedTrees, new: StackedTrees) -> bool:
         for (_, x), (_, y) in zip(a, b))
 
 
+def _model_digest(host: StackedTrees) -> str:
+    """Short stable id of a stacked forest, for telemetry and the
+    daemon's replies ("which model answered"): the JAX package's
+    ``serve/compile.py`` ``_model_digest``, which hashes its own layout
+    (``lightgbm_tpu/prediction.py`` ``stack_trees``). The port stacks
+    other dtypes (int64 indices, no ``threshold_bin``, no categorical
+    fields in a forest without categorical splits), so the JAX layout's
+    prediction fields are rebuilt here in its order and dtypes; the same
+    model text gets the same id in both packages."""
+    T, N = host.split_feature.shape
+
+    def arr(t, dtype):
+        return np.ascontiguousarray(t.numpy().astype(dtype, copy=False))
+
+    ic = np.zeros((T, N), bool) if host.is_categorical is None \
+        else arr(host.is_categorical, bool)
+    bits = np.zeros((T, N, 1), np.uint32) if host.cat_bitset is None \
+        else arr(host.cat_bitset, np.uint32)
+    fields = [arr(host.split_feature, np.int32),
+              arr(host.threshold, np.float32),
+              arr(host.default_left, bool), arr(host.missing_type, np.int8),
+              ic, bits, arr(host.left_child, np.int32),
+              arr(host.right_child, np.int32),
+              arr(host.leaf_value, np.float32)]
+    if host.lin_const is not None:
+        fields += [arr(host.lin_const, np.float32),
+                   arr(host.lin_nfeat, np.int32),
+                   arr(host.lin_feats, np.int32),
+                   arr(host.lin_coef, np.float32)]
+    h = hashlib.sha256()
+    for f in fields:
+        h.update(f.tobytes())
+    return h.hexdigest()[:16]
+
+
 def _upload(host: StackedTrees, device) -> StackedTrees:
     return host._replace(**{k: v.to(device) for k, v in _fields(host)})
 
@@ -96,7 +135,7 @@ class CompiledForest:
     def __init__(self, stacked, *, num_class: int, n_features: int,
                  objective_str: str, avg_output: bool,
                  num_iteration: int, lo: int, hi: int,
-                 total_trees: int, device,
+                 total_trees: int, device, model_id: str = "empty",
                  min_bucket: int = 16, max_batch_rows: int = 16384):
         self._stacked = stacked           # device StackedTrees (or None)
         self._host = None                 # staged host arrays (stage=True)
@@ -110,6 +149,7 @@ class CompiledForest:
         self.lo = int(lo)
         self.hi = int(hi)
         self.total_trees = int(total_trees)
+        self.model_id = model_id
         if min_bucket < 1 or (min_bucket & (min_bucket - 1)) != 0:
             raise ValueError(f"min_bucket must be a power of two >= 1, "
                              f"got {min_bucket}")
@@ -144,9 +184,9 @@ class CompiledForest:
     def _walk(self, chunk: np.ndarray) -> np.ndarray:
         """``[b, K]`` float32 raw scores of one padded chunk."""
         st = self._stacked
-        with _SHAPES_LOCK:
-            _SHAPES.add((chunk.shape[0], chunk.shape[1],
-                         int(st.leaf_value.shape[0]), self.K))
+        jit_tracker.note_shape(_ENTRY, (chunk.shape[0], chunk.shape[1],
+                                        int(st.leaf_value.shape[0]),
+                                        self.K))
         Xd = torch.from_numpy(chunk).to(self.device)
         return forest_scores(st, Xd, self.K).T.cpu().numpy()
 
@@ -292,6 +332,7 @@ def compile_forest(booster, num_iteration: Optional[int] = None,
     sel = trees[lo:hi]
     device = booster._device
     host = stack_trees(sel, "cpu") if sel else None
+    model_id = _model_digest(host) if host is not None else "empty"
     if stage:
         stacked = None
     elif reuse is not None:
@@ -308,7 +349,7 @@ def compile_forest(booster, num_iteration: Optional[int] = None,
         objective_str=booster._objective_str,
         avg_output=booster._avg_output,
         num_iteration=max(1, num_iteration), lo=lo, hi=hi,
-        total_trees=len(trees), device=device,
+        total_trees=len(trees), device=device, model_id=model_id,
         min_bucket=min_bucket, max_batch_rows=max_batch_rows)
     if stage:
         cf._host = host

@@ -246,7 +246,7 @@ def test_refit_save_binary_and_snapshots_match_jax(binary_files):
 
 
 @pytest.mark.parametrize("sub,item", [
-    ("lint", "21"), ("launch", "20"), ("serve", "19"), ("pipeline", "19")])
+    ("lint", "21"), ("launch", "20"), ("pipeline", "19")])
 def test_jax_subcommands_name_their_items(sub, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         port_cli.main([sub, "x"])

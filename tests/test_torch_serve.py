@@ -3,8 +3,8 @@ compiled forest and the micro-batcher) held against its own eager
 predictions and the JAX package's ``CompiledForest`` on the CPU.
 
 Mirrors tests/test_serve.py's forest-compiler and micro-batcher tests,
-and tests/test_pipeline.py's shedding tests; the daemon is ROADMAP.md
-Queue 1 item 19. The port's models train on the CPU; the JAX forest is
+and tests/test_pipeline.py's shedding tests; the daemon's are in
+tests/test_torch_daemon.py. The port's models train on the CPU; the JAX forest is
 compiled from the same model text. Compiled predictions equal the
 port's eager ones exactly (the same torch ops in the same order) and
 the JAX ones to rtol 1e-6, atol 1e-6. The JAX recompile counter's
@@ -24,7 +24,6 @@ import jax
 import lightgbm_tpu as jlgb
 import lightgbm_tpu_torch as tlgb
 from lightgbm_tpu.serve.compile import compile_forest as jax_compile_forest
-from lightgbm_tpu_torch.serve import handle_request
 from lightgbm_tpu_torch.serve.batcher import (MicroBatcher, QueueFullError,
                                               SheddingError)
 from lightgbm_tpu_torch.serve.compile import (bucket_rows, compile_forest,
@@ -290,11 +289,6 @@ def test_dead_forest_raises_and_the_booster_falls_back(binary_model,
     assert cf_old._dead
     assert not cf_old.matches(cf_old.lo, cf_old.hi, cf_old.total_trees)
     np.testing.assert_array_equal(bst.predict(X[:10]), want)
-
-
-def test_the_daemon_is_refused():
-    with pytest.raises(NotImplementedError, match="item 19"):
-        handle_request(None, {"cmd": "ping"})
 
 
 # ---- the micro-batcher -----------------------------------------------------

@@ -343,7 +343,9 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
         "utils/timer.py", "obs/__init__.py", "obs/schemas.py",
         "obs/registry.py", "obs/export.py", "obs/memory.py",
         "obs/recorder.py", "obs/trace.py", "resilience/__init__.py",
-        "resilience/faults.py", "resilience/checkpoint.py")} <= scanned
+        "resilience/faults.py", "resilience/checkpoint.py",
+        "resilience/store.py", "resilience/publisher.py",
+        "obs/jit_tracker.py", "serve/daemon.py")} <= scanned
     for path in _py_files():
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
