@@ -220,6 +220,35 @@ Phases, in order; any failure exits non-zero:
              draining, every request the batcher took answered, exit 0
              inside --grace); the serve_kill@5 daemon dies by SIGKILL
              after 4 answers; no swap_failure that was not injected;
+6l. pipeline — `python -m lightgbm_tpu_torch pipeline --device-type
+             cuda` at the main path's width (28 features, 255 leaves,
+             binary, 3 generations of 5 rounds, ingest_chunk_rows
+             65,536), the JAX package's two slow acceptance runs. First
+             the in-process twins of run A's generation 0 and of its
+             uninterrupted continuation (launches counted: the phase's
+             K1 and K2 calls). Run A (tests/test_pipeline.py's chaos run;
+             1,000,000 rows a generation, 10.5M reduced) under
+             rank_kill@7, publish_torn@1 and serve_kill@12 at 15
+             requests/s: no failure, 3 generations published, 2 swaps
+             confirmed, the replica on the last sha, no client timeout,
+             a connection error, the longest gap between answers under
+             60 s, a swap_failure in serve.jsonl; generation 0's
+             published model byte-equal to its twin, generation 1
+             (killed and resumed) to the uninterrupted continuation; 64
+             requests after the run, each reply's raw scores within 1e-6
+             of the model it names. Run B (tests/test_fleet.py's;
+             200,000 rows; --swap-timeout 30, not 240: PIPE_B says
+             why) under store_outage@1 and publish_poison@2
+             with a 60 requests/s spike on 1-3 replicas: scaled up and
+             down, a peak of 2 or more, one rollback, the fleet on the
+             good sha, the poisoned model never swapped in, no client
+             timeout. Printed beside the card's name and power limit:
+             each generation's seconds and seconds per iteration, the
+             relaunch gap after rank_kill, each replica's spawn to
+             ready, autoscale decision to serving, publish to the
+             fleet-wide swap, the canary refusal to the rollback and to
+             the fleet's convergence, the client's p50/p99 and longest
+             gap, each process's device memory; no kernel rebuilt;
 7. small runs — uint16 bins (max_bin=400) held to the float standard,
              a deterministic quantized run (200k x 28, no stochastic
              rounding) whose every tree equals its plain twin's, and
@@ -3690,6 +3719,552 @@ def phase_serve_daemon(torch, lgb, dev, tr, serve_lat):
     return out
 
 
+# the pipeline phase (6l): the JAX package's two slow acceptance runs
+# (tests/test_pipeline.py and tests/test_fleet.py chaos runs) at the
+# main path's width on the card
+PIPE_SEED = 7
+PIPE_ROUNDS = 5
+PIPE_CHUNK = 65_536
+PIPE_ROWS_A = 1_000_000
+PIPE_ROWS_B = 200_000
+PIPE_PARAM = "publish_backoff_sec=2"
+PIPE_WAIT_S = 420
+PIPE_FLAGS = ["--generations", "3", "--rounds", str(PIPE_ROUNDS),
+              "--features", str(FEATURES), "--num-leaves", str(BINS),
+              "--ingest-chunk-rows", str(PIPE_CHUNK),
+              "--health-interval", "0.5", "--health-grace", "25",
+              "--swap-timeout", "240", "--grace", "10",
+              "--param", PIPE_PARAM, "--seed", str(PIPE_SEED)]
+PIPE_A = ("rank_kill@7,publish_torn@1,serve_kill@12",
+          ["--rows", str(PIPE_ROWS_A), "--request-rate", "15",
+           "--request-rows", "4", "--keep-fleet"])
+# run B's --swap-timeout is 30 s, not the JAX run's 240: the pipeline
+# waits that long for the fleet to swap onto the poisoned generation
+# before it looks for the rollback (the refusal is the expected path),
+# and 240 s of that wait is most of the phase
+PIPE_B = ("store_outage@1,publish_poison@2",
+          ["--rows", str(PIPE_ROWS_B), "--swap-timeout", "30",
+           "--request-rate", "8",
+           "--request-rows", "4", "--replicas", "1", "--max-replicas", "3",
+           "--autoscale-up-qps", "15", "--autoscale-down-qps", "6",
+           "--spike-rate", "60", "--spike-start", "4",
+           "--spike-duration", "12", "--retire-grace", "15",
+           "--rollback-grace", "8", "--canary-rows", "8",
+           "--publish-keep", "4", "--scrape-interval", "1"])
+
+
+def _pipeline_twin(lgb, dev, gen, rows, init_model=None):
+    """One generation's training in this process, as the pipeline's
+    worker trains it: the same drifting data (``_gen_data``), streamed
+    through the same chunk source, the same parameters."""
+    from lightgbm_tpu_torch import pipeline as pp
+    from lightgbm_tpu_torch.data import GeneratorChunkSource
+    X, y = pp._gen_data(PIPE_SEED, gen, rows, FEATURES)
+
+    def factory():
+        for lo in range(0, len(y), PIPE_CHUNK):
+            yield X[lo:lo + PIPE_CHUNK], y[lo:lo + PIPE_CHUNK]
+
+    params = {"objective": "binary", "num_leaves": BINS, "verbosity": -1,
+              "ingest_chunk_rows": PIPE_CHUNK, "device_type": dev.type,
+              **pp._parse_params([PIPE_PARAM])}
+    ds = lgb.Dataset(GeneratorChunkSource(factory, num_rows=len(y),
+                                          num_features=FEATURES),
+                     params=params)
+    return lgb.train(params, ds, num_boost_round=PIPE_ROUNDS,
+                     init_model=init_model)
+
+
+def _ps_matching(tag):
+    """The pids of this machine's processes whose command line holds
+    ``tag`` (a run's own work directory)."""
+    out = subprocess.run(["ps", "-eo", "pid=,args="], capture_output=True,
+                         text=True, timeout=60).stdout
+    return [int(ln.split(None, 1)[0]) for ln in out.splitlines()
+            if tag in ln and int(ln.split(None, 1)[0]) != os.getpid()]
+
+
+def _stop_run(work, ports, wait_s=40):
+    """Shut a run's replicas down through their protocol, wait for the
+    run's processes to end, and SIGKILL what is left."""
+    import signal
+    from lightgbm_tpu_torch.resilience.elastic import replica_rpc
+    for port in ports:
+        replica_rpc(port, {"cmd": "shutdown"}, timeout=5.0)
+    deadline = time.perf_counter() + wait_s
+    while _ps_matching(work) and time.perf_counter() < deadline:
+        time.sleep(0.2)
+    left = _ps_matching(work)
+    for pid in left:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+    return left
+
+
+class _RunWatch:
+    """A thread that watches one pipeline run from outside: when each
+    worker's and replica's log file appears (the supervisors create it
+    just before the spawn) and when a replica's serve_ready line lands
+    in it, and ``nvidia-smi``'s per-process device memory every 3 s."""
+
+    def __init__(self, work):
+        import threading
+        self.work = work
+        self.first_seen = {}
+        self.ready = {}
+        self.mem = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        next_smi = 0.0
+        while not self._stop.wait(0.05):
+            logs = os.path.join(self.work, "logs")
+            for sub in (os.listdir(logs) if os.path.isdir(logs) else ()):
+                d = os.path.join(logs, sub)
+                if not os.path.isdir(d):
+                    continue
+                for fn in os.listdir(d):
+                    key = f"{sub}/{fn}"
+                    self.first_seen.setdefault(key, time.time())
+                    if sub == "fleet" and key not in self.ready:
+                        with open(os.path.join(d, fn), errors="replace") as fh:
+                            for ln in fh:
+                                if ln.startswith('{"event": "serve_ready"'):
+                                    self.ready[key] = (time.time(),
+                                                       json.loads(ln))
+                                    break
+            if time.time() >= next_smi:
+                next_smi = time.time() + 3.0
+                smi = subprocess.run(
+                    ["nvidia-smi",
+                     "--query-compute-apps=pid,process_name,used_memory",
+                     "--format=csv,noheader"], capture_output=True,
+                    text=True, timeout=60)
+                self.mem.append((time.time(), smi.stdout.strip()))
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+
+def _start_pipeline(work, faults, flags, base_port, dev):
+    e = dict(os.environ)
+    for k in [k for k in e if k.startswith("LIGHTGBM_TPU_")]:
+        del e[k]
+    e["PYTHONPATH"] = REPO + (os.pathsep + e["PYTHONPATH"]
+                              if e.get("PYTHONPATH") else "")
+    e["LIGHTGBM_TPU_FAULT_INJECT"] = faults
+    out = os.path.join(os.path.dirname(work),
+                       os.path.basename(work) + ".out")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "lightgbm_tpu_torch", "pipeline",
+         "--device-type", dev.type, "--workdir", work,
+         "--port", str(base_port), *PIPE_FLAGS, *flags],
+        stdout=open(out, "w"), stderr=subprocess.STDOUT, cwd=REPO, env=e,
+        start_new_session=True)
+    return proc, out
+
+
+def _jsonl(path):
+    if not os.path.exists(path):
+        return []
+    out = []
+    with open(path) as fh:
+        for ln in fh:
+            try:
+                out.append(json.loads(ln))
+            except ValueError:
+                pass
+    return out
+
+
+def _free_base(span):
+    """A base port with ``span`` free ports from it (replica r serves on
+    base + r)."""
+    import socket
+    for _ in range(100):
+        socks = []
+        try:
+            s0 = socket.socket()
+            socks.append(s0)
+            s0.bind(("127.0.0.1", 0))
+            base = s0.getsockname()[1]
+            for r in range(1, span):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", base + r))
+            return base
+        except OSError:
+            pass
+        finally:
+            for s in socks:
+                s.close()
+    raise AssertionError("pipeline: no free port range")
+
+
+def _run_pipeline(tag, work, spec, dev, span):
+    """One pipeline run to its summary; the run's watch and its output."""
+    faults, flags = spec
+    base = _free_base(span)
+    watch = _RunWatch(work)
+    t0 = time.perf_counter()
+    proc, out = _start_pipeline(work, faults, flags, base, dev)
+    try:
+        rc = proc.wait(timeout=PIPE_WAIT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    run_s = time.perf_counter() - t0
+    watch.stop()
+    text = open(out).read()
+    if rc != 0:
+        _stop_run(work, [base + r for r in range(span)])
+        raise AssertionError(f"pipeline {tag}: exit {rc} after "
+                             f"{run_s:.1f} s:\n{text[-6000:]}")
+    summary = None
+    for ln in text.splitlines():
+        if ln.startswith('{"event": "pipeline_summary"'):
+            summary = json.loads(ln)
+    if summary is None:
+        raise AssertionError(f"pipeline {tag}: no summary:\n{text[-4000:]}")
+    return summary, watch, run_s, [base + r for r in range(span)]
+
+
+def _generation_times(work, gens):
+    """Each generation's supervised seconds (train_start to train_done),
+    its iterations' seconds (the ``train/iteration`` spans: each from the
+    previous iteration's end, the first from the recorder's start), its
+    ingest seconds and its trainer's peak allocated device bytes, from
+    the telemetry."""
+    events = _jsonl(os.path.join(work, "telemetry", "pipeline.jsonl"))
+    start = {e["generation"]: e["time"] for e in events
+             if e.get("phase") == "train_start"}
+    done = {e["generation"]: e["time"] for e in events
+            if e.get("phase") == "train_done"}
+    out = {}
+    for g in range(gens):
+        tel = _jsonl(os.path.join(work, "telemetry", f"train_g{g:04d}.jsonl"))
+        its = [e["dur"] for e in tel if e.get("event") == "span"
+               and e.get("name") == "train/iteration"]
+        ing = [e for e in tel if e.get("event") == "ingest"]
+        peak = [e["hbm"].get("peak_bytes_in_use") for e in tel
+                if e.get("event") == "iteration"]
+        out[g] = dict(
+            supervised_s=done[g] - start[g], iterations=len(its),
+            median_iter_s=statistics.median(its) if its else None,
+            iter_s=[round(s, 4) for s in its],
+            ingest_s=[round(e["pass1_s"] + e["pass2_s"], 3) for e in ing],
+            peak_bytes=max((b for b in peak if b), default=None))
+    return out
+
+
+def _swap_ends(work, path_suffix):
+    """Per replica process, the end (wall clock) of its first swap onto
+    the file ending in ``path_suffix``, from the serve telemetry."""
+    ends = {}
+    tdir = os.path.join(work, "telemetry")
+    for fn in os.listdir(tdir):
+        if not fn.startswith("serve.jsonl") or fn.endswith(".fleet"):
+            continue
+        for e in _jsonl(os.path.join(tdir, fn)):
+            if e.get("event") == "span" and e.get("name") == "swap/apply" \
+                    and str(e["attrs"].get("path", "")).endswith(path_suffix):
+                ends.setdefault(e["proc"], e["wall"] + e["dur"])
+    return ends
+
+
+def _mem_table(watch, roles):
+    """The nvidia-smi sample with the most processes, its pids named
+    where they are this machine's pids."""
+    best = max(watch.mem, key=lambda m: len(m[1].splitlines()),
+               default=(None, ""))
+    rows = []
+    for ln in best[1].splitlines():
+        parts = [p.strip() for p in ln.split(",")]
+        if len(parts) == 3 and parts[0].isdigit():
+            rows.append((roles.get(int(parts[0]), "?"), *parts))
+    return rows
+
+
+def _serve_peaks(work):
+    """Each replica stream's largest allocated device bytes, from its
+    ``{"event": "serve"}`` lines."""
+    tdir = os.path.join(work, "telemetry")
+    out = {}
+    for fn in sorted(os.listdir(tdir)):
+        if fn.startswith("serve.jsonl") and not fn.endswith(".fleet"):
+            peaks = [(e.get("hbm") or {}).get("peak_bytes_in_use")
+                     for e in _jsonl(os.path.join(tdir, fn))
+                     if e.get("event") == "serve"]
+            out[fn] = max((b for b in peaks if b), default=None)
+    return out
+
+
+def phase_pipeline(torch, lgb, dev, card):
+    """``python -m lightgbm_tpu_torch pipeline --device-type cuda`` at
+    the main path's width (28 features, 255 leaves, binary), run A and
+    run B of docstring 6l, with the in-process twins of run A's first
+    two generations. ``card``: nvidia-smi's name and power limit,
+    printed beside every figure."""
+    from lightgbm_tpu_torch.ops import _cuda
+    from lightgbm_tpu_torch.resilience.elastic import replica_rpc
+    from lightgbm_tpu_torch.resilience.publisher import load_manifest
+    from lightgbm_tpu_torch.serve.compile import compile_forest
+    t_phase = time.perf_counter()
+    built = {p.name: p.stat().st_mtime_ns
+             for p in _cuda.BUILD_DIR.glob("*.so")}
+    out = {}
+
+    # the twins: generation 0, and generation 1 continued from it
+    # (through the model text, as the worker loads it), launches counted
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    twin0 = _pipeline_twin(lgb, dev, 0, PIPE_ROWS_A)
+    text0 = twin0.model_to_string()
+    twin1 = _pipeline_twin(lgb, dev, 1, PIPE_ROWS_A, init_model=lgb.Booster(
+        model_str=text0, params={"device_type": dev.type}))
+    text1 = twin1.model_to_string()
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    twin_s = time.perf_counter() - t0
+    leaves = [t.num_leaves for t in twin0._models] + \
+        [t.num_leaves for t in twin1._models[PIPE_ROUNDS:]]
+    _check_counts("pipeline twins", counts, leaves, "hist")
+    out["counts"] = counts
+    log(f"[pipeline] in-process twins of run A's generations 0 and 1 "
+        f"({PIPE_ROWS_A:,} rows x {FEATURES}, {BINS} leaves, "
+        f"{PIPE_ROUNDS} + {PIPE_ROUNDS} trees): {twin_s:.2f} s, "
+        f"leaves={leaves} launches={json.dumps(counts)} ({card})")
+
+    root = tempfile.mkdtemp(prefix="pipeline_")
+    # ---- run A: rank_kill@7, publish_torn@1, serve_kill@12
+    work = os.path.join(root, "a")
+    summary, watch, run_s, ports = _run_pipeline("A", work, PIPE_A, dev, 1)
+    try:
+        client = summary["client"]
+        fleet = summary["fleet"]
+        last = summary["last_published_sha256"]
+        serve_faults = {e.get("kind") for e in _jsonl(os.path.join(
+            work, "telemetry", "serve.jsonl")) if e.get("event") == "fault"}
+        held = (summary["failures"] == []
+                and summary["generations_published"] == 3
+                and summary["swaps_confirmed"] == 2
+                and fleet and all(st and st["manifest_sha256"] == last
+                                  for st in fleet)
+                and client["timeout"] == 0 and client["conn"] >= 1
+                and client["ok"] > 0 and client["max_ok_gap_s"] < 60
+                and "swap_failure" in serve_faults)
+        log(f"[pipeline] run A: exit 0 after {run_s:.1f} s; failures "
+            f"{summary['failures']}, published "
+            f"{summary['generations_published']}, swaps confirmed "
+            f"{summary['swaps_confirmed']}, fleet on the last sha "
+            f"{[st and st['manifest_sha256'] == last for st in fleet]}, "
+            f"client {json.dumps(client)}, serve fault kinds "
+            f"{sorted(serve_faults)}")
+        if not held:
+            raise AssertionError("pipeline run A: the JAX package's "
+                                 "assertions do not hold")
+        pub = os.path.join(work, "publish")
+        files = {g: os.path.join(pub, f"model_g{g:04d}.txt")
+                 for g in range(3)}
+        same0 = open(files[0]).read() == text0
+        same1 = open(files[1]).read() == text1
+        log(f"[pipeline] run A: generation 0's published model equal byte "
+            f"for byte to the in-process twin {same0}; generation 1 "
+            f"(killed at iteration 7, resumed) equal to the uninterrupted "
+            f"continuation {same1}")
+        if not (same0 and same1):
+            raise AssertionError("pipeline run A: a published model differs "
+                                 "from its in-process twin")
+        # 64 requests to the fleet, each held to the model it names
+        boosters = {}
+        for g, path in files.items():
+            b = lgb.Booster(model_file=path, params={"device_type": dev.type})
+            boosters[compile_forest(b).model_id] = (g, b)
+        rs = np.random.RandomState(PIPE_SEED)
+        worst, named = 0.0, []
+        for k in range(64):
+            X = rs.uniform(-2, 2, size=(1 + k % 8, FEATURES)).astype(
+                np.float32).astype(np.float64)
+            rep = replica_rpc(ports[k % len(ports)],
+                              {"rows": X.tolist(), "raw": True}, timeout=30)
+            if not rep or "predictions" not in rep or \
+                    rep.get("model") not in boosters:
+                raise AssertionError(f"pipeline run A: reply {rep}")
+            g, b = boosters[rep["model"]]
+            named.append(g)
+            worst = max(worst, float(np.abs(
+                np.asarray(rep["predictions"])
+                - b.predict(X, raw_score=True)).max()))
+        log(f"[pipeline] run A: 64 requests after the run, generations "
+            f"named {sorted(set(named))}, max abs err against the "
+            f"in-process raw prediction of the named model {worst:.3g}")
+        if worst > 1e-6 or set(named) != {2}:
+            raise AssertionError("pipeline run A: a reply is off")
+        # telemetry: the generations, the relaunch, the replicas, swaps
+        gens = _generation_times(work, 3)
+        for g, v in gens.items():
+            log(f"[pipeline] run A generation {g}: supervised "
+                f"{v['supervised_s']:.2f} s, {v['iterations']} iterations "
+                f"(a relaunch repeats none), median "
+                f"{v['median_iter_s']:.4f} s/iteration {v['iter_s']}, "
+                f"ingest {v['ingest_s']} s ({card})")
+        spans = [e for e in _jsonl(os.path.join(
+            work, "telemetry", "train_g0001.jsonl"))
+            if e.get("event") == "span" and e["name"] == "train/iteration"]
+        procs = list(dict.fromkeys(e["proc"] for e in spans))
+        killed = [e for e in spans if e["proc"] == procs[0]]
+        resumed = [e for e in spans if e["proc"] == procs[-1]]
+        kill_t = killed[-1]["wall"] + killed[-1]["dur"]
+        relaunch = watch.first_seen.get("train_g0001/elastic_g1_rank0.log")
+        gap = resumed[0]["wall"] - kill_t
+        log(f"[pipeline] run A rank_kill@7: lives {len(procs)}, the killed "
+            f"life's last iteration {killed[-1]['attrs']['iteration']}, "
+            f"the resumed life's first {resumed[0]['attrs']['iteration']}; "
+            f"kill -> resumed first iteration {gap:.3f} s (kill -> "
+            f"relaunch spawn "
+            f"{(relaunch - kill_t) if relaunch else float('nan'):.3f} s) "
+            f"({card})")
+        if len(procs) != 2 or killed[-1]["attrs"]["iteration"] != 6 or \
+                resumed[0]["attrs"]["iteration"] != 7:
+            raise AssertionError("pipeline run A: rank_kill@7 did not "
+                                 "kill and resume generation 1 at 7")
+        ready = {k: (t - watch.first_seen[k], r)
+                 for k, (t, r) in sorted(watch.ready.items())}
+        log("[pipeline] run A replicas, spawn -> serve_ready s: "
+            + "; ".join(f"{k.split('/')[1][:-4]} {s:.3f}"
+                        for k, (s, _) in ready.items()) + f" ({card})")
+        swaps = {}
+        for g in (1, 2):
+            man = load_manifest(files[g])
+            ends = _swap_ends(work, os.path.basename(files[g]))
+            swaps[g] = (max(ends.values()) - man["created_unix"]
+                        if ends else None)
+        log("[pipeline] run A publish -> fleet-wide swap s: "
+            + "; ".join(f"generation {g} {s:.3f}" if s is not None
+                        else f"generation {g} none (loaded at start)"
+                        for g, s in swaps.items())
+            + f"; client p50 {client.get('p50_ms')} ms, p99 "
+              f"{client.get('p99_ms')} ms, max_ok_gap_s "
+              f"{client['max_ok_gap_s']} ({card})")
+        roles = {os.getpid(): "smoke"}
+        for _, r in ready.values():
+            roles[r["pid"]] = f"replica{r['rank']}"
+        for g in range(3):
+            for e in _jsonl(os.path.join(work, "telemetry",
+                                         f"train_g{g:04d}.jsonl")):
+                if e.get("event") == "span":
+                    roles[int(e["proc"].split(".")[0][3:])] = f"trainer_g{g}"
+        mem = _mem_table(watch, roles)
+        serve_peak = _serve_peaks(work)
+        log(f"[pipeline] run A device memory: nvidia-smi by process (the "
+            f"sample with the most processes; role, pid, name, used) "
+            f"{mem}; allocated peaks, trainers "
+            f"{[v['peak_bytes'] for v in gens.values()]} bytes, replicas "
+            f"{serve_peak} bytes ({card})")
+        out["A"] = dict(run_s=run_s, generations=gens, relaunch_gap_s=gap,
+                        ready_s={k: s for k, (s, _) in ready.items()},
+                        swap_s=swaps, client=client, memory=mem,
+                        serve_peak_bytes=serve_peak)
+    finally:
+        left = _stop_run(work, ports)
+        if left:
+            log(f"[pipeline] run A: killed leftover processes {left}")
+
+    # ---- run B: store_outage@1, publish_poison@2, a load spike
+    work = os.path.join(root, "b")
+    summary, watch, run_s, ports = _run_pipeline("B", work, PIPE_B, dev, 3)
+    try:
+        life = summary["fleet_lifecycle"]
+        client = summary["client"]
+        rb = summary["rollbacks"]
+        fleet_events = _jsonl(os.path.join(work, "telemetry",
+                                           "serve.jsonl.fleet"))
+        rb_events = [e for e in fleet_events if e.get("event") == "rollback"]
+        bad = rb[0]["bad_sha"] if rb else None
+        good = rb[0]["good_sha"] if rb else None
+        tdir = os.path.join(work, "telemetry")
+        poisoned = "model_g0002.txt"
+        served_poison = any(
+            e.get("event") == "span" and e.get("name") == "swap/apply"
+            and str(e["attrs"].get("path", "")).endswith(poisoned)
+            for fn in os.listdir(tdir)
+            if fn.startswith("serve.jsonl") and not fn.endswith(".fleet")
+            for e in _jsonl(os.path.join(tdir, fn)))
+        held = (summary["failures"] == [] and life["scale_ups"] >= 1
+                and life["scale_downs"] >= 1 and life["replicas_peak"] >= 2
+                and len(rb) == 1 and life["rollbacks"] == 1 and bad != good
+                and summary["fleet"] and all(
+                    st and st["manifest_sha256"] == good
+                    for st in summary["fleet"])
+                and not served_poison and client["timeout"] == 0)
+        log(f"[pipeline] run B: exit 0 after {run_s:.1f} s; failures "
+            f"{summary['failures']}, lifecycle {json.dumps(life)}, "
+            f"rollbacks {len(rb)}, fleet on the good sha "
+            f"{[st and st['manifest_sha256'] == good for st in summary['fleet']]}"
+            f", the poisoned publication swapped in {served_poison}, "
+            f"client {json.dumps(client)}")
+        if not held:
+            raise AssertionError("pipeline run B: the JAX package's "
+                                 "assertions do not hold")
+        ups = [e for e in fleet_events if e.get("event") == "autoscale"
+               and e.get("action") == "up"]
+        up_s = []
+        for e in ups:
+            later = [(t, k) for k, (t, _) in watch.ready.items()
+                     if k.endswith(f"_rank{e['rank']}.log")
+                     and watch.first_seen[k] >= e["time"] - 0.5]
+            up_s.append(round(min(later)[0] - e["time"], 3) if later
+                        else None)
+        refusals = [e["time"] for fn in os.listdir(tdir)
+                    if fn.startswith("serve.jsonl")
+                    and not fn.endswith(".fleet")
+                    for e in _jsonl(os.path.join(tdir, fn))
+                    if e.get("event") == "fault"
+                    and e.get("kind") == "canary_refused"]
+        rb_t = rb_events[0]["time"]
+        conv = _swap_ends(work, rb_events[0].get("republished") or "\0")
+        ready = {k: round(t - watch.first_seen[k], 3)
+                 for k, (t, _) in sorted(watch.ready.items())}
+        gens = _generation_times(work, 3)
+        log(f"[pipeline] run B: autoscale decision -> serving s {up_s}; "
+            f"replicas spawn -> serve_ready s {ready}; first canary "
+            f"refusal -> rollback order {rb_t - min(refusals):.3f} s, -> "
+            f"fleet converged on the republished good model "
+            f"{(max(conv.values()) - min(refusals)) if conv else float('nan'):.3f}"
+            f" s ({len(conv)} replicas swapped); client p50 "
+            f"{client.get('p50_ms')} ms, p99 {client.get('p99_ms')} ms, "
+            f"max_ok_gap_s {client['max_ok_gap_s']}; generations "
+            + "; ".join(f"{g}: {v['supervised_s']:.2f} s, median "
+                        f"{v['median_iter_s']:.4f} s/iteration"
+                        for g, v in gens.items()) + f" ({card})")
+        out["B"] = dict(run_s=run_s, lifecycle=life, autoscale_up_s=up_s,
+                        ready_s=ready, generations=gens,
+                        refusal_to_rollback_s=rb_t - min(refusals),
+                        refusal_to_converged_s=(max(conv.values())
+                                                - min(refusals))
+                        if conv else None, client=client)
+    finally:
+        left = _stop_run(work, ports)
+        if left:
+            log(f"[pipeline] run B: killed leftover processes {left}")
+
+    after = {p.name: p.stat().st_mtime_ns
+             for p in _cuda.BUILD_DIR.glob("*.so")}
+    log(f"[pipeline] kernel libraries built by the runs' processes: "
+        f"{len(set(after.items()) - set(built.items()))} (the build phase "
+        f"built them)")
+    if after != built:
+        raise AssertionError("pipeline: a generation rebuilt a kernel")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[pipeline] seconds {out['phase_s']:.1f} ({card})")
+    return out
+
+
 def profile_iteration(torch, bst, host=True):
     """One more boosting iteration under torch.profiler: the card's busy
     time (the sum of the device-side events' times; one stream, so they
@@ -6512,6 +7087,17 @@ def phase_surface_examples(torch, lgb, dev):
     return out
 
 
+def card_name():
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else "nvidia-smi: no output")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=HIGGS_ROWS,
@@ -6618,6 +7204,8 @@ def main(argv=None):
     done("serve")
     phase_serve_daemon(torch, lgb, dev, tr, sv["latency"])
     done("serve_daemon")
+    pl = phase_pipeline(torch, lgb, dev, card_name())
+    done("pipeline")
     sh = phase_surface_higgs(torch, lgb, dev, tr, min(args.iters, 3))
     for key in ("ds", "Xt", "target", "target_valid"):
         del tr[key]
@@ -6653,12 +7241,7 @@ def main(argv=None):
     se = phase_surface_examples(torch, lgb, dev)
     done("surface_examples")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else "nvidia-smi: no output", flush=True)
+    print(card_name(), flush=True)
 
     def entry(name, source, replaces, by_path, shapes, path=None):
         top = shapes[0]  # the root window: the main path's largest launch
@@ -6717,6 +7300,7 @@ def main(argv=None):
                 "surface_custom": sh["custom_counts"][key],
                 "surface_examples": sum(v[key]
                                         for v in se["counts"].values()),
+                "pipeline": pl["counts"][key],
                 **{f"train_growth_{k}": v["counts"][key]
                    for k, v in tgr.items()},
                 **{k: v["counts"][key] for k, v in ih.items()}}

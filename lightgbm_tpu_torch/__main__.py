@@ -1,13 +1,24 @@
 """``python -m lightgbm_tpu_torch``: the command line (``cli.py``).
 
-``serve`` (the inference daemon, ``serve/daemon.py``) is dispatched
-before the training CLI loads: the package root is lazy, so ``serve
---help`` and a bad model path exit without importing torch.
+``launch`` (the supervisor, ``resilience/elastic.py``), ``pipeline``
+(the train -> publish -> serve loop, ``pipeline.py``) and ``serve`` (the
+inference daemon, ``serve/daemon.py``) are dispatched before the
+training CLI loads. The package root is lazy, so none of them imports
+torch to parse its arguments: a supervisor never holds the CUDA
+context its workers need, and ``serve --help`` and a bad model path
+exit at once. Torch loads in the pipeline's training workers (the
+hidden ``--train-worker`` mode re-enters here) and in the replicas.
 """
 
 import sys
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "launch":
+        from .resilience.elastic import main as launch_main
+        sys.exit(launch_main(sys.argv[2:]))
+    if len(sys.argv) > 1 and sys.argv[1] == "pipeline":
+        from .pipeline import main as pipeline_main
+        sys.exit(pipeline_main(sys.argv[2:]))
     if len(sys.argv) > 1 and sys.argv[1] == "serve":
         from .serve.daemon import main as serve_main
         sys.exit(serve_main(sys.argv[2:]))

@@ -22,8 +22,14 @@ whether a run can resume from them); they read the JAX package's files
 too. ``serve <model | dir> [--device-type cuda|cpu] ...`` is the
 JSON-lines inference daemon (``serve/daemon.py``; ``python -m
 lightgbm_tpu_torch serve`` reaches it without importing torch until a
-model loads). The JAX package's ``lint``, ``launch`` and ``pipeline``
-raise, naming the ROADMAP.md item that brings each.
+model loads). ``launch <nprocs> [--health-port P] -- <cmd...>`` is the
+supervisor (``resilience/elastic.py``: a fleet of serve replicas, or a
+supervised one-rank training run; a world of more ranks raises naming
+ROADMAP.md Queue 1 item 20) and ``pipeline --workdir DIR
+[--device-type cuda|cpu] ...`` the train -> publish -> serve loop
+(``pipeline.py``); ``python -m lightgbm_tpu_torch launch`` and
+``pipeline`` parse without importing torch. The JAX package's ``lint``
+raises, naming the ROADMAP.md item that brings it.
 
     python -m lightgbm_tpu_torch stats telemetry.jsonl
     python -m lightgbm_tpu_torch checkpoints ckpt/
@@ -46,9 +52,7 @@ from .log import log_info, log_warning
 __all__ = ["main", "parse_args", "load_config_file"]
 
 # the JAX package's subcommands that the port does not have yet
-_SUBCOMMANDS = {
-    "lint": "21 (its last entry)", "launch": 20, "pipeline": 19,
-}
+_SUBCOMMANDS = {"lint": "21 (its last entry)"}
 
 
 def load_config_file(path: str) -> Dict[str, str]:
@@ -378,6 +382,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     if argv[0] == "serve":
         from .serve.daemon import main as serve_main
         return serve_main(argv[1:])
+    if argv[0] == "launch":
+        from .resilience.elastic import main as launch_main
+        return launch_main(argv[1:])
+    if argv[0] == "pipeline":
+        from .pipeline import main as pipeline_main
+        return pipeline_main(argv[1:])
     if argv[0] in _SUBCOMMANDS:
         raise NotImplementedError(
             f"the {argv[0]!r} subcommand is not in the port yet (ROADMAP.md "

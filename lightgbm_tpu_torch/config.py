@@ -414,10 +414,36 @@ class Config:
     # drains accepted requests for up to this many seconds
     serve_shutdown_grace_sec: float = 15.0
     # the replica fleet's autoscaling floor and ceiling (0: a fixed
-    # fleet); accepted and checked here, read by the fleet supervisor
-    # (ROADMAP.md Queue 1 item 19's last part)
+    # fleet), read by the fleet supervisor (resilience/autoscale.py)
     serve_min_replicas: int = 1
     serve_max_replicas: int = 0
+    # scale up when the fleet's QPS exceeds autoscale_up_qps per active
+    # replica or a replica's p99 exceeds autoscale_up_p99_ms (0: that
+    # signal is off); scale down when the QPS would stay under
+    # autoscale_down_qps per replica with one replica fewer (strictly
+    # below autoscale_up_qps: the hysteresis band); the cooldowns are
+    # the seconds after any scaling action before the next one
+    autoscale_up_qps: float = 0.0
+    autoscale_down_qps: float = 0.0
+    autoscale_up_p99_ms: float = 0.0
+    autoscale_up_cooldown_sec: float = 5.0
+    autoscale_down_cooldown_sec: float = 15.0
+    # seconds between the supervisors' scrapes into {"event": "fleet"}
+    # records (0: off), and the load generator's trace sample rate
+    # (every Nth request carries a trace; 0: off)
+    metrics_scrape_interval_sec: float = 5.0
+    trace_sample_every: int = 16
+    # one publication's retries and the base of their jittered
+    # exponential backoff; retention (prune beyond the newest N valid
+    # manifests, 0: keep all); the canary's rows in each manifest (0:
+    # no gate) and its absolute tolerance; the publish target ("": the
+    # pipeline's publish/ directory, or a mem:// spec)
+    publish_retries: int = 5
+    publish_backoff_sec: float = 0.25
+    publish_keep: int = 0
+    canary_rows: int = 8
+    canary_tol: float = 1e-3
+    publish_store: str = ""
     max_bin: int = 255
     max_bin_by_feature: List[int] = field(default_factory=list)
     min_data_in_bin: int = 3
@@ -574,6 +600,18 @@ class Config:
         "serve_shutdown_grace_sec": (0.0, None),
         "serve_min_replicas": (1, None),
         "serve_max_replicas": (0, None),
+        "autoscale_up_qps": (0.0, None),
+        "autoscale_down_qps": (0.0, None),
+        "autoscale_up_p99_ms": (0.0, None),
+        "autoscale_up_cooldown_sec": (0.0, None, "gt"),
+        "autoscale_down_cooldown_sec": (0.0, None, "gt"),
+        "publish_retries": (0, None),
+        "publish_backoff_sec": (0.0, None),
+        "publish_keep": (0, None),
+        "canary_rows": (0, None),
+        "canary_tol": (0.0, None, "gt"),
+        "metrics_scrape_interval_sec": (0.0, None),
+        "trace_sample_every": (0, None),
     }
 
     def __post_init__(self) -> None:
@@ -650,6 +688,14 @@ class Config:
                 "serve_min_replicas must be <= serve_max_replicas "
                 f"({self.serve_min_replicas} > "
                 f"{self.serve_max_replicas})")
+        if self.autoscale_up_qps > 0 and self.autoscale_down_qps > 0 \
+                and self.autoscale_down_qps >= self.autoscale_up_qps:
+            raise ValueError(
+                "autoscale_down_qps must stay strictly below "
+                "autoscale_up_qps — that gap is the hysteresis band "
+                "that stops the fleet flapping "
+                f"({self.autoscale_down_qps} >= "
+                f"{self.autoscale_up_qps})")
         if self.serve_shed_queue_rows \
                 and self.serve_shed_queue_rows >= self.serve_queue_rows:
             raise ValueError(

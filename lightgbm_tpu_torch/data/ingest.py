@@ -25,11 +25,12 @@ pass 2
 Peak host memory is one chunk plus the sample (kept in the chunks'
 dtype) plus the label and weight vectors, never the float matrix.
 
-Not ported here: the JAX package's mapper broadcast across processes
-and the ``rank_kill@-1`` fault hook before it (ROADMAP.md Queue 1 item
-20); a run of the port is one process. Chunks and rows are counted in
-the metrics registry (``obs/registry.py``) as the JAX package counts
-them.
+``LIGHTGBM_TPU_FAULT_INJECT=rank_kill@-1`` kills the process after
+pass 1 has found the mappers, where the JAX package fires it before
+its mapper broadcast. The broadcast itself is not ported (ROADMAP.md
+Queue 1 item 20); a run of the port is one process. Chunks and rows
+are counted in the metrics registry (``obs/registry.py``) as the JAX
+package counts them.
 """
 
 from __future__ import annotations
@@ -43,7 +44,12 @@ import numpy as np
 
 from .sources import DEFAULT_CHUNK_ROWS, RowChunkSource, _as_chunk, _err
 
-__all__ = ["ingest_dataset", "IngestResult", "dataset_digest"]
+__all__ = ["ingest_dataset", "IngestResult", "dataset_digest",
+           "INGEST_FAULT_ITERATION"]
+
+#: the pseudo-iteration ``rank_kill`` fires at during ingest
+#: (``rank_kill@-1``), as in the JAX package
+INGEST_FAULT_ITERATION = -1
 
 
 class IngestResult(NamedTuple):
@@ -306,6 +312,10 @@ def ingest_dataset(source: RowChunkSource, cfg, cat_idx_set,
         sampled_rows = int(sample.shape[0])
         full_mappers = _find_chunk_mappers(sample, cfg, cat_idx_set)
         del sample, sampler
+        from ..resilience.faults import FaultPlan
+        plan = FaultPlan.from_env()
+        if plan.active:
+            plan.maybe_distributed_fault(INGEST_FAULT_ITERATION)
         # (the JAX package broadcasts process 0's mappers here in a
         # multi-process world: ROADMAP.md Queue 1 item 20)
         used, mappers = used_mappers(full_mappers)

@@ -230,6 +230,7 @@ def _train_impl(params, cfg: Config, train_set, num_boost_round: int,
     try:
         for i in range(begin_iteration, end_iteration):
             fault_plan.maybe_kill(i)
+            fault_plan.maybe_distributed_fault(i)
             if env_capture is not None:
                 env_capture.before_iteration(i)
             for cb in cbs_before:

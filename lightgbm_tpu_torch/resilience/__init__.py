@@ -7,24 +7,32 @@
   ``LIGHTGBM_TPU_CHECKPOINT`` auto-resume that reproduces the
   uninterrupted model byte for byte;
 - :mod:`.faults` — the ``LIGHTGBM_TPU_FAULT_INJECT`` harness
-  (``nan_grad``, ``nan_hess``, ``oom``, ``kill``, ``refit_nan``, and the
-  lifecycle kinds ``publish_torn``, ``publish_poison``,
-  ``store_outage``, ``serve_kill``) and the fault-event log;
+  (``nan_grad``, ``nan_hess``, ``oom``, ``kill``, ``rank_kill``,
+  ``refit_nan``, and the lifecycle kinds ``publish_torn``,
+  ``publish_poison``, ``store_outage``, ``serve_kill``) and the
+  fault-event log;
 - :mod:`.store` — the artifact-store transport (a local directory, or
   the faultable in-memory object store behind ``mem://<name>``);
 - :mod:`.publisher` — manifest-first model publication (sha256, a
   canary, retries with jittered backoff, retention and rollback), the
   writer side of the serving daemon's watch target;
+- :mod:`.elastic` — the supervisor of ``python -m lightgbm_tpu_torch
+  launch``: a fleet of serve replicas restarted one by one, health
+  checked, autoscaled and guarded against bad publications, or a
+  one-rank training run restarted from its newest snapshot;
+- :mod:`.autoscale` — the fleet's scaling policy and rollback guard;
 - the non-finite guard (``nonfinite_policy``: raise, skip_tree, clamp)
   and the OOM ladder live in ``models/gbdt.py``.
 
 Importing this package imports no torch (the checkpoint module imports
-it where a snapshot restores generators), so the serving daemon's parse
-path and the publisher stay torch-free.
+it where a snapshot restores generators), so the supervisors, the
+serving daemon's parse path and the publisher stay torch-free. As in
+the JAX package, ``elastic`` and ``autoscale`` are imported as
+submodules; the package root exports none of their names.
 
-The collective watchdog is ROADMAP.md Queue 1 item 21's rest; the
-supervised restarts (``elastic.py``, ``autoscale.py``) come with item
-19's last part and item 20.
+The collective watchdog and worlds of more than one rank (``launch``
+without ``--health-port``, ``stall_rank``, ``init_refuse``) are
+ROADMAP.md Queue 1 items 21 and 20.
 """
 
 from .checkpoint import (CHECKPOINT_MAGIC, Checkpoint, CheckpointError,

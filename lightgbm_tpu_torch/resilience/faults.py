@@ -30,8 +30,16 @@ The lifecycle kinds of model publication and serving:
   when ``LIGHTGBM_TPU_RANK`` is in ``LIGHTGBM_TPU_FAULT_RANK`` (default
   ``0``).
 
-The distributed kinds (``rank_kill``, ``stall_rank``, ``init_refuse``)
-are ROADMAP.md Queue 1 item 20: a plan naming one raises
+``rank_kill@N`` — ``SIGKILL`` the training process at the start of
+iteration ``N`` (``-1``: in streaming ingest, before the mappers are
+found) when its rank is in ``LIGHTGBM_TPU_FAULT_RANK`` (default ``0``);
+the supervised restart (``resilience/elastic.py``) strips it from the
+relaunch's environment. A run of the port is one process, so its rank
+is 0, as ``jax.process_index()`` is in a JAX process that never joined
+a world.
+
+The other distributed kinds (``stall_rank``, ``init_refuse``) are
+ROADMAP.md Queue 1 item 20: a plan naming one raises
 ``NotImplementedError`` when it is built.
 
 The fault-event log (:data:`FAULT_EVENTS` and each engine's
@@ -58,7 +66,7 @@ __all__ = ["FaultPlan", "InjectedResourceExhausted",
 _KNOWN_KINDS = injectable_fault_kinds()
 
 #: the kinds of a later ROADMAP.md Queue 1 item, by item
-_LATER_KINDS = {"rank_kill": 20, "stall_rank": 20, "init_refuse": 20}
+_LATER_KINDS = {"stall_rank": 20, "init_refuse": 20}
 
 #: the finite ceiling of ``nonfinite_policy=clamp`` (the JAX package's
 #: ``_NF_CLAMP``)
@@ -203,6 +211,24 @@ class FaultPlan:
         cleanup, no atexit: the hard crash the checkpoints must
         survive."""
         if self.take("kill", iteration):
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    @staticmethod
+    def _rank_selected() -> bool:
+        """Is this process one of the fault-target ranks
+        (``LIGHTGBM_TPU_FAULT_RANK``, comma list, default ``0``)? The
+        port has no multi-process world yet (ROADMAP.md Queue 1 item
+        20), so its rank is 0."""
+        targets = {int(r) for r in
+                   os.environ.get("LIGHTGBM_TPU_FAULT_RANK",
+                                  "0").split(",") if r.strip()}
+        return 0 in targets
+
+    def maybe_distributed_fault(self, iteration: int) -> None:
+        """Fire ``rank_kill`` if armed for this iteration and this
+        process is a selected rank: ``SIGKILL``, like ``kill``."""
+        if self.fires("rank_kill", iteration) and self._rank_selected():
+            self.take("rank_kill", iteration)
             os.kill(os.getpid(), signal.SIGKILL)
 
     @staticmethod

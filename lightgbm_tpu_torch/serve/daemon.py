@@ -33,7 +33,10 @@ one micro-batcher (``serve/batcher.py``), on the card unless
   skipped with a ``swap_failure`` fault event and retried at the next
   poll. A manifest's **canary** (rows and the publisher's raw scores)
   is scored through the real compiled forest before the swap; a
-  mismatch refuses it with a ``canary_refused`` fault event. A store
+  mismatch refuses it with a ``canary_refused`` fault event. The same
+  gates hold at startup: a daemon started on a directory whose newest
+  publication fails its canary serves the newest older artifact that
+  passes (the JAX daemon loads the newest one unchecked). A store
   outage degrades to serving the current model with a ``store_outage``
   event. A failed load, compile or upload keeps the current model
   serving on its device, with a ``swap_failure`` event: a swap never
@@ -746,29 +749,19 @@ class _Watcher:
                      f"--num-iteration {int(trim)} trim; the canary "
                      "scores the full published model)")
             return None
-        import numpy as np
-        rows = np.asarray(canary.get("rows"), np.float32)
-        if rows.ndim == 1:
-            rows = rows[None, :]
-        want = np.asarray(canary.get("scores"),
-                          np.float64).reshape(-1)
-        tol = float(canary.get("tol", 1e-3))
         # a plain attach, no reuse: the old forest still serves traffic
         # while the canary runs
         forest = staged.attach()
-        got = np.asarray(forest.predict_raw(rows),
-                         np.float64).reshape(-1)
-        if got.shape != want.shape \
-                or not np.allclose(got, want, rtol=0.0, atol=tol):
-            worst = (float(np.max(np.abs(got - want)))
-                     if got.shape == want.shape else float("inf"))
+        bad = _canary_mismatch(manifest, forest, self.compile_kwargs)
+        if bad is not None:
+            worst, tol, n = bad
             if key != self._failed_key:   # once per observed artifact
                 from ..resilience.faults import record_fault_event
                 record_fault_event(
                     "canary_refused", action="refused_swap",
                     detail=f"canary mismatch on {key[0]}: worst "
                            f"|raw - expected| {worst:.6g} > tol "
-                           f"{tol:g} over {int(rows.shape[0])} rows")
+                           f"{tol:g} over {n} rows")
             raise ValueError(
                 f"canary validation failed: worst |raw - expected| "
                 f"{worst:.6g} exceeds tol {tol:g} — the publication "
@@ -942,6 +935,92 @@ def _resolve_model(args) -> Tuple[str, Optional[str]]:
     return model, watch_dir
 
 
+def _canary_mismatch(manifest, forest, compile_kwargs) \
+        -> Optional[Tuple[float, float, int]]:
+    """Score a manifest's canary rows through ``forest``: ``(worst |raw
+    - expected|, tol, rows)`` on a mismatch, None on a pass, without a
+    canary, or under a ``--num-iteration`` trim (the publisher's scores
+    are the full model's)."""
+    canary = (manifest or {}).get("canary")
+    trim = compile_kwargs.get("num_iteration")
+    if not canary or (trim is not None and int(trim) > 0):
+        return None
+    import numpy as np
+    rows = np.asarray(canary.get("rows"), np.float32)
+    if rows.ndim == 1:
+        rows = rows[None, :]
+    want = np.asarray(canary.get("scores"), np.float64).reshape(-1)
+    tol = float(canary.get("tol", 1e-3))
+    got = np.asarray(forest.predict_raw(rows), np.float64).reshape(-1)
+    if got.shape == want.shape \
+            and np.allclose(got, want, rtol=0.0, atol=tol):
+        return None
+    worst = (float(np.max(np.abs(got - want)))
+             if got.shape == want.shape else float("inf"))
+    return worst, tol, int(rows.shape[0])
+
+
+def _startup_candidates(args, model_path: str) -> List[str]:
+    """The artifacts a daemon may start on, in order: the one
+    :func:`_resolve_model` found, then, when MODEL is a directory, its
+    older model artifacts, newest first."""
+    if not os.path.isdir(args.model):
+        return [model_path]
+    from ..resilience.store import LocalDirStore
+    store = LocalDirStore(args.model)
+    found = []
+    for name in store.list_names():
+        st = store.stat(name) if _is_model_name(name, True) else None
+        if st is not None:
+            found.append((st[0], name))
+    older = [os.path.join(args.model, name)
+             for _, name in sorted(found, reverse=True)]
+    return [model_path] + [p for p in older if p != model_path]
+
+
+def _startup_forest(args, model_path: str, compile_kwargs):
+    """Load and compile the artifact to serve at startup, held to the
+    same gates as a hot swap: a managed artifact must match its manifest
+    and pass its canary. A refused one (``canary_refused``; a torn older
+    one is skipped) gives way to the next older artifact of MODEL's
+    directory, so a replica started after a poisoned publication serves
+    the newest good one and its watcher keeps refusing the poisoned
+    one. Returns ``(path, watch key, manifest, forest, load end)``."""
+    from ..resilience.faults import record_fault_event
+    from ..resilience.publisher import validate_artifact
+    from .compile import compile_forest
+    candidates = _startup_candidates(args, model_path)
+    for i, path in enumerate(candidates):
+        last = i == len(candidates) - 1
+        try:
+            # key the watch state to the artifact BEFORE loading it:
+            # stat-then-load can at worst re-swap to identical content
+            # on the first poll; load-then-stat could suppress a swap
+            key = _artifact_key(path)
+            manifest = validate_artifact(path)
+            booster = _load_booster(path, args.device_type)
+        except Exception:
+            if i == 0 or last:
+                raise
+            continue               # an older torn or broken artifact
+        t_load = time.perf_counter()
+        forest = compile_forest(booster, **compile_kwargs)
+        bad = _canary_mismatch(manifest, forest, compile_kwargs)
+        if bad is None:
+            return path, key, manifest, forest, t_load
+        worst, tol, n = bad
+        record_fault_event(
+            "canary_refused", action="refused_load",
+            detail=f"canary mismatch on {path}: worst |raw - expected| "
+                   f"{worst:.6g} > tol {tol:g} over {n} rows")
+        if last:
+            raise ValueError(f"canary validation failed on {path} and no "
+                             "older artifact passes")
+        log_warning(f"serve: {path} failed its canary at startup; "
+                    "trying the next older artifact")
+    raise FileNotFoundError(f"no model artifact for {args.model!r}")
+
+
 def _startup_device(device_type: str) -> None:
     """Create the CUDA context now (timed apart from the model's load),
     or raise when ``device_type`` is ``cuda`` and there is no GPU."""
@@ -980,22 +1059,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         t1 = time.perf_counter()
         _startup_device(args.device_type)
         t2 = time.perf_counter()
-        # key the watch state to the artifact BEFORE loading it:
-        # stat-then-load can at worst re-swap to identical content on
-        # the first poll; load-then-stat could suppress a real swap
-        watch_key = _artifact_key(model_path)
-        # a managed artifact is validated at startup as at swap time
-        from ..resilience.publisher import validate_artifact
-        manifest = validate_artifact(model_path)
-        booster = _load_booster(model_path, args.device_type)
-        t3 = time.perf_counter()
         from .batcher import MicroBatcher
-        from .compile import compile_forest
         compile_kwargs = dict(
             num_iteration=args.num_iteration,
             min_bucket=args.min_bucket_rows,
             max_batch_rows=args.max_batch_rows)
-        forest = compile_forest(booster, **compile_kwargs)
+        model_path, watch_key, manifest, forest, t3 = _startup_forest(
+            args, model_path, compile_kwargs)
         t4 = time.perf_counter()
         if args.warmup_rows != 0:
             forest.warmup(args.warmup_rows)

@@ -267,7 +267,7 @@ def test_fault_plan_rejects_like_jax(spec, error):
 
 
 @pytest.mark.parametrize("kind,item", [
-    ("rank_kill", 20), ("stall_rank", 20), ("init_refuse", 20)])
+    ("stall_rank", 20), ("init_refuse", 20)])
 def test_unported_fault_kinds_name_their_item(kind, item):
     JaxFaultPlan(f"{kind}@1")
     with pytest.raises(NotImplementedError, match=f"item {item}"):
