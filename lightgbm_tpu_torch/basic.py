@@ -41,8 +41,10 @@ sample for the mappers, then chunk by chunk binned on the device into
 the preallocated device matrix); ``two_round`` loads a text file so
 too; ``init_streaming`` / ``push_rows`` / ``mark_finished`` stage rows
 on the host and construct once. ``Booster.compile`` gives a
-``serve.CompiledForest``, which ``predict`` then rides. The network
-methods are refused, naming the ROADMAP.md item that brings them.
+``serve.CompiledForest``, which ``predict`` then rides.
+``Booster.set_network`` / ``free_network`` join and leave a world of
+ranks (``parallel/distributed.py``), and ``Dataset.free_host_bins``
+drops a host copy of the bins (``parallel/placement.py``).
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .config import _Q1, Config, resolve_params
+from .config import Config, resolve_params
 from .data.ingest import _find_chunk_mappers, used_mappers
 from .ops.binning import BinMapper, BinType, MissingType, bin_matrix
 
@@ -81,11 +83,6 @@ def resolve_device(cfg: Config) -> torch.device:
                 "available; pass device_type='cpu' to run on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
-
-
-def _refuse(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not in the port yet "
-                               f"({_Q1.format(item)})")
 
 
 def _load_text_file(path: str, cfg: Config
@@ -406,6 +403,7 @@ class Dataset:
         # a streamed construct's data digest and its ingest stats
         self._data_digest: Optional[str] = None
         self._ingest_stats: Optional[Dict[str, Any]] = None
+        self._host_bins_freed = False
 
     # -- construction ---------------------------------------------------
     def construct(self) -> "Dataset":
@@ -1147,10 +1145,33 @@ class Dataset:
     def host_bins(self) -> np.ndarray:
         """The ``[n, F]`` bins copied to the host."""
         self.construct()
+        if self._host_bins_freed and self._bins.numel() == 0:
+            raise LightGBMError(
+                "host_bins(): the host copy of the bins was released by "
+                "free_host_bins() (shard_residency=device)")
         return self._bins.cpu().numpy()
 
     def free_host_bins(self) -> None:
-        raise _refuse("Dataset.free_host_bins (shard placement)", 20)
+        """Release the host copy of the binned matrix once the bins live
+        on the device (``shard_residency=device``,
+        ``parallel/placement.py``). The checkpoint's data fingerprint is
+        computed first and kept (``_data_digest``). A Dataset on a CUDA
+        device keeps its bins there and drops only a copy parked on the
+        host (the unbundled bins while the bundled matrix trains); on the
+        CPU the host copy is the device copy, and it stays."""
+        if self._bins is None:
+            return
+        if self._data_digest is None and self.label is not None \
+                and getattr(self, "_shard", None) is None:
+            from .data.ingest import dataset_digest
+            self._data_digest = dataset_digest(
+                np.asarray(self.label, np.float64),
+                self._bins[:64].cpu().numpy())
+        from .parallel.placement import host_bytes_gauge
+        host_bytes_gauge(0)
+        if self._bins.device.type == "cpu" and self.device.type != "cpu":
+            self._bins = self._bins[:0]
+        self._host_bins_freed = True
 
     def thresholds_to_bins(self, real_feat: np.ndarray,
                            thresholds: np.ndarray) -> np.ndarray:
@@ -1663,7 +1684,19 @@ class Booster:
     def set_network(self, machines, local_listen_port: int = 12400,
                     listen_time_out: int = 120,
                     num_machines: int = 1) -> "Booster":
-        raise _refuse("Booster.set_network (distributed training)", 20)
+        """Join the world of ``machines`` (``LGBM_NetworkInit``; the
+        first entry is rank 0's, and ``LIGHTGBM_TPU_RANK`` names this
+        process's rank), on this Booster's device type. One machine
+        joins nothing."""
+        from .parallel.distributed import init_distributed
+        if num_machines > 1:
+            init_distributed(machines=machines if isinstance(machines, str)
+                             else ",".join(machines),
+                             device_type=self._device.type)
+        return self
 
     def free_network(self) -> "Booster":
-        raise _refuse("Booster.free_network (distributed training)", 20)
+        """Leave the world (``LGBM_NetworkFree``)."""
+        from .parallel.distributed import shutdown_distributed
+        shutdown_distributed()
+        return self

@@ -24,8 +24,7 @@ JSON-lines inference daemon (``serve/daemon.py``; ``python -m
 lightgbm_tpu_torch serve`` reaches it without importing torch until a
 model loads). ``launch <nprocs> [--health-port P] -- <cmd...>`` is the
 supervisor (``resilience/elastic.py``: a fleet of serve replicas, or a
-supervised one-rank training run; a world of more ranks raises naming
-ROADMAP.md Queue 1 item 20) and ``pipeline --workdir DIR
+supervised world of training ranks) and ``pipeline --workdir DIR
 [--device-type cuda|cpu] ...`` the train -> publish -> serve loop
 (``pipeline.py``); ``python -m lightgbm_tpu_torch launch`` and
 ``pipeline`` parse without importing torch. The JAX package's ``lint``
@@ -395,6 +394,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     try:
         params = parse_args(argv)
         cfg = Config.from_params(params)
+        if cfg.num_machines > 1:
+            # Network::Init (application.cpp): join the world of the
+            # machine list before any device work
+            from .parallel.distributed import init_distributed
+            init_distributed(machines=cfg.machines or None,
+                             machine_list_file=cfg.machine_list_file
+                             or None, device_type=cfg.device_type)
         task = _TASKS.get(cfg.task)
         if task is None:
             raise LightGBMError(f"Unknown task: {cfg.task}")

@@ -180,6 +180,14 @@ ALIASES: Dict[str, str] = {
     "is_training_metric": "is_provide_training_metric",
     "train_metric": "is_provide_training_metric",
     "num_machine": "num_machines",
+    "local_port": "local_listen_port",
+    "port": "local_listen_port",
+    "machine_list_filename": "machine_list_file",
+    "machine_list": "machine_list_file",
+    "mlist": "machine_list_file",
+    "workers": "machines",
+    "nodes": "machines",
+    "topk": "top_k",
     "ndcg_eval_at": "eval_at",
     "ndcg_at": "eval_at",
     "map_eval_at": "eval_at",
@@ -211,26 +219,19 @@ _OBJECTIVE_ALIASES = {
     "xentlambda": "cross_entropy_lambda",
 }
 
-_Q1 = "ROADMAP.md Queue 1 item {}"
 _TPU_KNOB = "a TPU layout knob of the JAX package with no counterpart " \
     "in the port"
 
 # parameter -> (its JAX default, what brings it)
 NOT_IMPLEMENTED: Dict[str, tuple] = {
-    "tree_learner": ("serial", _Q1.format(20)),
-    "num_devices": (0, _Q1.format(20)),
-    "num_machines": (1, _Q1.format(20)),
     # the JAX package fits raw labels under reg_sqrt (it never calls
     # transform_label) while LightGBM fits transformed ones
     "reg_sqrt": (False, "ROADMAP.md Queue 3, reg_sqrt"),
     "hist_method": ("auto", _TPU_KNOB),
     "hist_precision": ("default", _TPU_KNOB),
     "hist_dtype": ("float32", _TPU_KNOB),
-    "hist_comm": ("f32", _TPU_KNOB),
     "chunk_rows": (16384, _TPU_KNOB),
     "big_chunk_rows": (0, _TPU_KNOB),
-    "shard_residency": ("auto", _TPU_KNOB),
-    "split_search": ("gathered", _TPU_KNOB),
     "sharding_axis": ("data", _TPU_KNOB),
     "fused_scan_iters": ("auto", _TPU_KNOB),
 }
@@ -497,6 +498,35 @@ class Config:
     eval_at: List[int] = field(default_factory=lambda: [1, 2, 3, 4, 5])
     multi_error_top_k: int = 1
     auc_mu_weights: List[float] = field(default_factory=list)
+    # distributed training (parallel/): serial | data | feature | voting
+    # | auto (comms.choose_parallel_mode); a world of one rank trains as
+    # serial
+    tree_learner: str = "serial"
+    top_k: int = 20  # voting parallel
+    # the network (parallel/distributed.py): num_machines > 1 makes the
+    # CLI join the world of ``machines`` / ``machine_list_file``
+    num_machines: int = 1
+    local_listen_port: int = 12400
+    time_out: int = 120
+    machine_list_file: str = ""
+    machines: str = ""
+    # deadline (seconds) of every host collective of a world
+    # (resilience/watchdog.py); 0 disables; the
+    # LIGHTGBM_TPU_COLLECTIVE_TIMEOUT variable overrides
+    collective_timeout_sec: float = 300.0
+    # one rank is one process on one device: 0 or the world's size
+    num_devices: int = 0
+    # the histogram allreduce's wire format (parallel/comms.py): f32,
+    # int16 / int8 block-quantized with error feedback, or auto
+    hist_comm: str = "f32"
+    # gathered: every rank searches the allreduced histogram; sharded:
+    # a reduce-scatter, each rank searches its feature chunk and the
+    # best split is combined (tree_learner=data only)
+    split_search: str = "gathered"
+    # host: keep the Dataset's host copy of its bins; device: free it
+    # once the bins are on the device (parallel/placement.py); auto:
+    # device in a world on CUDA, host otherwise
+    shard_residency: str = "auto"
     # quantized-gradient training (LightGBM's GradientDiscretizer):
     # int8 gradients/hessians, exact int32 histograms
     use_quantized_grad: bool = False
@@ -587,6 +617,10 @@ class Config:
         "lambdarank_truncation_level": (1, None),
         "num_class": (1, None),
         "multi_error_top_k": (1, None),
+        "top_k": (1, None),
+        "num_machines": (1, None),
+        "collective_timeout_sec": (0.0, None),
+        "num_devices": (0, None),
         "refit_decay_rate": (0.0, 1.0),
         "metrics_port": (0, 65535),
         "serve_batch_window_ms": (0.0, None),
@@ -629,6 +663,20 @@ class Config:
         if self.data_sample_strategy not in ("bagging", "goss"):
             raise ValueError(
                 f"Unknown data_sample_strategy: {self.data_sample_strategy}")
+        if self.tree_learner not in ("serial", "feature", "data",
+                                     "voting", "auto"):
+            raise ValueError(f"Unknown tree_learner: {self.tree_learner}")
+        if self.hist_comm not in ("f32", "int16", "int8", "auto"):
+            raise ValueError(f"Unknown hist_comm: {self.hist_comm} "
+                             "(expected f32, int16, int8 or auto)")
+        if self.shard_residency not in ("auto", "host", "device"):
+            raise ValueError(
+                f"Unknown shard_residency: {self.shard_residency} "
+                "(expected auto, host or device)")
+        if self.split_search not in ("gathered", "sharded"):
+            raise ValueError(
+                f"Unknown split_search: {self.split_search} "
+                "(expected gathered or sharded)")
         dev = str(self.device_type).strip().lower()
         self.device_type = "cuda" if dev == "gpu" else dev
         if self.device_type not in ("cuda", "cpu"):

@@ -7,9 +7,8 @@ re-iterable :class:`RowChunkSource` protocol and its adapters (numpy
 array, generator factory, ``Sequence``, CSV/TSV, Arrow/parquet when
 pyarrow is installed); :mod:`.ingest` runs the two passes — sample ->
 BinMappers -> chunk by chunk binned on the device into the
-preallocated device matrix. (The JAX package's
-``INGEST_FAULT_ITERATION`` belongs to its distributed fault kind
-``rank_kill@-1``, ROADMAP.md Queue 1 item 20.)
+preallocated device matrix. (``INGEST_FAULT_ITERATION`` is where
+the distributed fault kind ``rank_kill@-1`` fires.)
 """
 
 from .ingest import IngestResult, dataset_digest, ingest_dataset

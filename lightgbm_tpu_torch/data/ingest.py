@@ -27,8 +27,10 @@ dtype) plus the label and weight vectors, never the float matrix.
 
 ``LIGHTGBM_TPU_FAULT_INJECT=rank_kill@-1`` kills the process after
 pass 1 has found the mappers, where the JAX package fires it before
-its mapper broadcast. The broadcast itself is not ported (ROADMAP.md
-Queue 1 item 20); a run of the port is one process. Chunks and rows
+its mapper broadcast. In a world of ranks the port broadcasts no
+mappers here: ``parallel/spmd.py`` ``distributed_dataset`` constructs
+rank 0's shard first and hands its mappers to the other ranks'
+constructs as their ``reference``. Chunks and rows
 are counted in the metrics registry (``obs/registry.py``) as the JAX
 package counts them.
 """
@@ -283,7 +285,8 @@ def ingest_dataset(source: RowChunkSource, cfg, cat_idx_set,
 
     The stats dict has the JAX package's keys. Its ``host_binned_bytes``
     is 0: the bins are written on the device chunk by chunk and never
-    held on the host. ``world`` is 1 (one process; item 20).
+    held on the host. ``world`` is 1: each rank's construct is its own
+    (``parallel/spmd.py``).
     """
     import torch
 
@@ -317,7 +320,8 @@ def ingest_dataset(source: RowChunkSource, cfg, cat_idx_set,
         if plan.active:
             plan.maybe_distributed_fault(INGEST_FAULT_ITERATION)
         # (the JAX package broadcasts process 0's mappers here in a
-        # multi-process world: ROADMAP.md Queue 1 item 20)
+        # world; the port's ranks take rank 0's as their reference,
+        # parallel/spmd.py distributed_dataset)
         used, mappers = used_mappers(full_mappers)
     t1 = time.perf_counter()
 

@@ -1,8 +1,7 @@
 """``train`` and ``cv``: the training entry points of the port.
 
-Counterpart of ``train`` and ``cv`` in ``lightgbm_tpu/engine.py`` for one
-process (the collective watchdog is ROADMAP.md Queue 1 item 21's rest,
-the distributed parts item 20):
+Counterpart of ``train`` and ``cv`` in ``lightgbm_tpu/engine.py``, for
+one process or one rank of a world (``parallel/``):
 
 - ``train`` runs ``num_boost_round`` iterations (or ``num_iterations``
   from the params) on top of an ``init_model``'s, scores the
@@ -20,6 +19,11 @@ the distributed parts item 20):
   iteration (``init_model``'s offset included); ``kill@N``
   (``LIGHTGBM_TPU_FAULT_INJECT``) kills the process at the start of
   iteration N;
+- a world of ranks: ``collective_timeout_sec`` configures the collective
+  watchdog, and every iteration starts with the ranks' step check
+  (``spmd.verify_step_consistency``), so a rank that died or stalls at
+  ``rank_kill@N`` / ``stall_rank@N`` is named by the watchdog's error
+  before any rank enters a histogram reduction;
 - telemetry: ``LIGHTGBM_TPU_TELEMETRY=path`` adds the ``telemetry``
   callback, which is attached before the first iteration and closed on
   exit; ``metrics_port`` (or ``LIGHTGBM_TPU_METRICS_PORT``, plus
@@ -52,6 +56,8 @@ from .log import log_info, log_warning, scoped_verbosity
 from .ops.grow import _take_rows
 from .resilience.checkpoint import (Checkpoint, checkpoint,
                                     load_latest_snapshot, restore_booster)
+from .parallel import spmd
+from .resilience import watchdog
 from .resilience.faults import FaultPlan
 from .utils.timer import EnvCapture, Timer, timed
 
@@ -218,6 +224,10 @@ def _train_impl(params, cfg: Config, train_set, num_boost_round: int,
     _setup_telemetry(callbacks, booster)
     cbs_before, cbs_after = _sorted_callbacks(callbacks)
     fault_plan = FaultPlan.from_env()
+    # the deadline of this run's host collectives (the variable
+    # LIGHTGBM_TPU_COLLECTIVE_TIMEOUT still wins)
+    watchdog.configure(cfg.collective_timeout_sec)
+    in_world = booster._engine.comm is not None
     # continued training adds num_boost_round iterations on top of the
     # adopted ones; a resume trains on toward the same end; the loop
     # index is the engine's absolute iteration
@@ -231,6 +241,12 @@ def _train_impl(params, cfg: Config, train_set, num_boost_round: int,
         for i in range(begin_iteration, end_iteration):
             fault_plan.maybe_kill(i)
             fault_plan.maybe_distributed_fault(i)
+            if in_world:
+                # every rank agrees on the step before the iteration's
+                # first collective: a dead or stalled peer surfaces here
+                # as the watchdog's error naming it, not as a hang inside
+                # a histogram reduction
+                spmd.verify_step_consistency(i, len(booster._models))
             if env_capture is not None:
                 env_capture.before_iteration(i)
             for cb in cbs_before:
@@ -402,6 +418,12 @@ def _cv_impl(params, cfg: Config, train_set: Dataset, num_boost_round: int,
              callbacks, eval_train_metric, return_cvbooster):
     # only binary labels are stratified
     stratified = stratified and cfg.objective == "binary"
+    # the construct runs where the cv params say (Booster.__init__
+    # merges its params into the Dataset's the same way); the bins stay
+    # the Dataset's own, as in the JAX package's cv
+    if "device_type" in params:
+        train_set.params = {**resolve_params(train_set.params),
+                            "device_type": params["device_type"]}
     train_set.construct()
     folds = _make_n_folds(train_set, folds, nfold, seed, stratified,
                           shuffle)

@@ -128,6 +128,21 @@ Resilience (the JAX booster's ``_gh_flag_clamp``, ``_leaf_value_guard``,
   ``tree_learner/grow`` and ``boosting/update_score`` are ``timed``
   (``utils/timer.py``).
 
+A world of ranks (``parallel/``; the JAX booster's ``dp_active`` block,
+``_setup_world``): with ``tree_learner`` ``data``, ``feature``,
+``voting`` or ``auto`` (the payload model) and more than one rank, the
+grower gets a ``DistGrow``. A Dataset of one rank's shard
+(``spmd.distributed_dataset``) trains its own rows; a whole Dataset
+passed on every rank trains this rank's ``ceil(n / D)`` rows (all of
+them under ``feature``). The labels of ``boost_from_average`` and the
+objective's label statistics, GOSS's threshold, leaf renewal and the
+train set's metrics are the world's (gathered); bagging, GOSS and the
+stochastic rounding draw the world's vector on every rank and take this
+rank's rows, so the bag is the one-process run's. The JAX package's
+refusals and warnings come along (CEGB, voting with forced splits,
+voting's basic monotone method, the sharded search under EFB), and
+``linear_tree`` trains serially only.
+
 The loop is plain PyTorch on the device, driven from the host.
 """
 
@@ -139,9 +154,10 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..log import log_warning
-from ..resilience.faults import (FaultPlan, append_fault_event,
-                                 is_resource_exhausted, nf_clamp)
+from ..log import log_info, log_warning
+from ..resilience.faults import (FaultPlan, InjectedResourceExhausted,
+                                 append_fault_event, is_resource_exhausted,
+                                 nf_clamp)
 from ..utils.timer import timed
 from ..ops.binning import BinType
 from ..ops.grow import CegbConfig, CegbState, GrowConfig, Grower
@@ -298,31 +314,8 @@ class GBDTBooster:
         # learning_rate as reset_parameter may change it between
         # iterations
         self._shrinkage = cfg.learning_rate
-        label = np.asarray(train_set.get_label())
-        w = train_set.get_weight()
-        self.label = torch.as_tensor(label, dtype=torch.float32, device=dev)
-        self.weight = None if w is None else torch.as_tensor(
-            w, dtype=torch.float32, device=dev)
-        self.n = len(label)
-        # a custom objective (None: gradients from fobj) grows one tree
-        # per iteration, from zero scores, as in the JAX package
-        self.K = K = objective.num_model_per_iteration \
-            if objective is not None else 1
-        if hasattr(objective, "init_label_weights"):
-            objective.init_label_weights(label, w)
-        # boost_from_average: folded into the first iteration's trees
-        # (every tree for rf, whose score is a running average); a user
-        # init_score turns it off
-        init = np.zeros((K,), np.float64)
-        user_init = train_set.get_init_score()
-        self._fold_bias = False
-        if objective is not None and cfg.boost_from_average \
-                and user_init is None:
-            self._fold_bias = cfg.boosting != "rf"
-            init = np.asarray(objective.boost_from_score(label, w),
-                              np.float64).reshape(K)
-        self.init_score = init
-        self.score = self._base_score(self.n, user_init, True)
+        # split constraints and the grower's routing, which the world's
+        # parallel mode (below) reads
         self.monotone = train_set.monotone_array(cfg)
         # linear trees fit on the train set's raw values
         self.raw = None
@@ -346,61 +339,120 @@ class GBDTBooster:
                 or cfg.feature_fraction_bynode < 1.0 \
                 or self.monotone is not None:
             grower = "compact"
-        if grower == "masked" and self.n * cfg.num_leaves > 50_000_000:
+        n_rows = train_set.num_data()
+        if grower == "masked" and n_rows * cfg.num_leaves > 50_000_000:
             log_warning(
                 "grower=masked rebuilds every histogram with a full-row "
                 "pass: O(num_leaves * rows * features) per tree "
-                f"(~{self.n * cfg.num_leaves / 1e9:.1f}B row-visits "
+                f"(~{n_rows * cfg.num_leaves / 1e9:.1f}B row-visits "
                 "here). Use grower=compact (the default) for data of "
                 "this size.")
         # EFB: train on the bundled matrix when the Dataset bundles (the
-        # compact grower only, and not under linear trees)
+        # compact grower only, not under linear trees, and not on one
+        # rank's shard, whose bundles would differ from its peers')
+        local_shard = getattr(train_set, "_shard", None) is not None
         self.bundle = train_set.bundles(cfg) \
-            if grower == "compact" and not cfg.linear_tree else None
+            if grower == "compact" and not cfg.linear_tree \
+            and not local_shard else None
         num_bins = train_set.num_total_bins() if self.bundle is None \
             else self.bundle.num_positions
+        ncols = len(train_set.mappers) if self.bundle is None \
+            else self.bundle.bins_bundled.shape[1]
         # the histogram cache's slots (histogram_pool_size MB)
         pool = 0
         if cfg.histogram_pool_size > 0 and grower == "compact":
-            ncols = len(train_set.mappers) if self.bundle is None \
-                else self.bundle.bins_bundled.shape[1]
             slots = max(2, int(cfg.histogram_pool_size * 2 ** 20
                                // (ncols * num_bins * 2 * 4)))
             if slots < cfg.num_leaves:
                 pool = slots
+        split = SplitParams(
+            lambda_l1=cfg.lambda_l1, lambda_l2=cfg.lambda_l2,
+            max_delta_step=cfg.max_delta_step,
+            min_data_in_leaf=float(cfg.min_data_in_leaf),
+            min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
+            min_gain_to_split=cfg.min_gain_to_split,
+            cat_smooth=cfg.cat_smooth, cat_l2=cfg.cat_l2,
+            max_cat_threshold=cfg.max_cat_threshold,
+            max_cat_to_onehot=cfg.max_cat_to_onehot,
+            min_data_per_group=float(cfg.min_data_per_group),
+            path_smooth=cfg.path_smooth,
+            monotone_penalty=cfg.monotone_penalty
+            if self.monotone is not None else 0.0)
+        gcfg = GrowConfig(
+            num_leaves=cfg.num_leaves, num_bins=num_bins,
+            max_depth=cfg.max_depth, split=split,
+            quantized=cfg.use_quantized_grad,
+            quant_bins=cfg.num_grad_quant_bins,
+            renew_leaf=cfg.quant_train_renew_leaf,
+            bynode=cfg.feature_fraction_bynode,
+            monotone_method=cfg.monotone_constraints_method,
+            grower=grower, pool_slots=pool)
+        # a world of ranks (parallel/): this rank's rows, the parallel
+        # mode and the grower's side of the collectives
+        gcfg, dist = self._setup_world(cfg, train_set, gcfg, ncols,
+                                       forced, cegb)
+        label = np.asarray(train_set.get_label())
+        w = train_set.get_weight()
+        glabel, gw = self._global_rows(label), self._global_rows(w)
+        # the world's labels (the snapshot's data fingerprint)
+        self._glabel = glabel
+        label, w = self._local_rows(label), self._local_rows(w)
+        self.label = torch.as_tensor(label, dtype=torch.float32, device=dev)
+        self.weight = None if w is None else torch.as_tensor(
+            w, dtype=torch.float32, device=dev)
+        self.n = len(label)
+        # a custom objective (None: gradients from fobj) grows one tree
+        # per iteration, from zero scores, as in the JAX package
+        self.K = K = objective.num_model_per_iteration \
+            if objective is not None else 1
+        if hasattr(objective, "init_label_weights"):
+            objective.init_label_weights(glabel, gw)
+        # boost_from_average: folded into the first iteration's trees
+        # (every tree for rf, whose score is a running average); a user
+        # init_score turns it off. In a world: the world's labels
+        init = np.zeros((K,), np.float64)
+        user_init = train_set.get_init_score()
+        self._fold_bias = False
+        if objective is not None and cfg.boost_from_average \
+                and user_init is None:
+            self._fold_bias = cfg.boosting != "rf"
+            init = np.asarray(objective.boost_from_score(glabel, gw),
+                              np.float64).reshape(K)
+        self.init_score = init
+        if user_init is not None and self._rows is not None:
+            ui = np.asarray(user_init).reshape(-1, self.n_global)
+            user_init = ui[:, self._rows[0]:self._rows[1]].reshape(-1)
+        self.score = self._base_score(self.n, user_init, True)
         # kept to rebuild the grower with fewer pool slots (OOM ladder)
-        self._grower_args = (
-            None if self.bundle is not None else train_set.device_bins(),
-            train_set.feat_num_bins(), train_set.feat_nan_bin())
+        bins = None if self.bundle is not None else train_set.device_bins()
+        bundle = self.bundle
+        if self._rows is not None:
+            lo, hi = self._rows
+            if bundle is not None:
+                bundle = bundle._replace(
+                    bins_bundled=bundle.bins_bundled[lo:hi])
+            else:
+                bins = bins[lo:hi]
+        self._grower_args = (bins, train_set.feat_num_bins(),
+                             train_set.feat_nan_bin())
         self._grower_kw = dict(
-            bundle=self.bundle, feat_is_cat=train_set.feat_is_cat(),
+            bundle=bundle, feat_is_cat=train_set.feat_is_cat(),
             monotone=self.monotone, interaction_groups=groups,
-            forced=forced, cegb=cegb)
-        self.grower = Grower(
-            GrowConfig(
-                num_leaves=cfg.num_leaves,
-                num_bins=num_bins,
-                max_depth=cfg.max_depth,
-                split=SplitParams(
-                    lambda_l1=cfg.lambda_l1, lambda_l2=cfg.lambda_l2,
-                    max_delta_step=cfg.max_delta_step,
-                    min_data_in_leaf=float(cfg.min_data_in_leaf),
-                    min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
-                    min_gain_to_split=cfg.min_gain_to_split,
-                    cat_smooth=cfg.cat_smooth, cat_l2=cfg.cat_l2,
-                    max_cat_threshold=cfg.max_cat_threshold,
-                    max_cat_to_onehot=cfg.max_cat_to_onehot,
-                    min_data_per_group=float(cfg.min_data_per_group),
-                    path_smooth=cfg.path_smooth,
-                    monotone_penalty=cfg.monotone_penalty
-                    if self.monotone is not None else 0.0),
-                quantized=cfg.use_quantized_grad,
-                quant_bins=cfg.num_grad_quant_bins,
-                renew_leaf=cfg.quant_train_renew_leaf,
-                bynode=cfg.feature_fraction_bynode,
-                monotone_method=cfg.monotone_constraints_method,
-                grower=grower, pool_slots=pool),
-            *self._grower_args, **self._grower_kw)
+            forced=forced, cegb=cegb, dist=dist)
+        self.grower = Grower(gcfg, *self._grower_args, **self._grower_kw)
+        from ..parallel import placement
+        if self.comm is not None:
+            # every rank holds its rows on its device: the world's sync
+            # point after placement, where a rank lost in its construct
+            # is named
+            placement.upload_barrier()
+        # shard_residency=device (auto in a world on CUDA): the grower
+        # holds the device bins, so the Dataset's host copy goes
+        if placement.shard_residency(cfg.shard_residency,
+                                     1 if self.comm is None
+                                     else self.comm.size,
+                                     dev.type) == "device":
+            train_set.free_host_bins()
         self.cegb_state = None
         if self.grower.cegb is not None:
             self.cegb_state = CegbState(
@@ -423,6 +475,153 @@ class GBDTBooster:
         self.fault_log: List[dict] = []
         self._finished_natural = False
         self._resume_stalled = False
+
+    # -- the world of ranks (parallel/) ---------------------------------
+    def _setup_world(self, cfg: Config, ts, gcfg: GrowConfig, ncols: int,
+                     forced, cegb):
+        """Join the grower to the world when it trains in one (the JAX
+        booster's ``dp_active`` block): the parallel mode (``auto`` from
+        the payload model), the wire format, the JAX package's refusals
+        and warnings, and this rank's rows. Returns ``(GrowConfig,
+        DistGrow or None)``. Sets ``comm`` (None: serial), ``_rows``
+        (the slice of a replicated Dataset this rank trains, or None),
+        ``row_lo``, ``n_global`` and ``row_counts``."""
+        from ..basic import LightGBMError
+        from ..parallel.mesh import make_mesh, shard_rows
+        mesh = make_mesh(cfg.num_devices, device=ts.device)
+        want = cfg.tree_learner in ("data", "feature", "voting", "auto") \
+            or cfg.num_devices > 1
+        shard = getattr(ts, "_shard", None)
+        n = ts.num_data()
+        self.comm, self._rows, self.row_lo = None, None, 0
+        self.n_global = n if shard is None else int(shard[1])
+        self.row_counts = [n]
+        self.parallel_mode = "serial"
+        if not (want and mesh.size > 1):
+            if shard is not None and mesh.size > 1:
+                raise LightGBMError(
+                    "this Dataset holds one rank's rows "
+                    "(spmd.distributed_dataset): train it with "
+                    "tree_learner=data, voting or auto in its world")
+            return gcfg, None
+        from ..parallel import comms
+        from ..parallel.data_parallel import DistGrow
+        D = mesh.size
+        mode = {"feature": "feature",
+                "voting": "voting"}.get(cfg.tree_learner, "data")
+        if cfg.tree_learner == "auto":
+            mode = comms.choose_parallel_mode(
+                ncols, gcfg.num_bins, self.n_global, D, cfg.hist_comm,
+                cfg.top_k)
+            if mode == "voting" and forced is not None:
+                mode = "data"
+            if mode != "data" and gcfg.grower != "compact":
+                # feature and voting gate their reductions per search,
+                # which only the compact grower does
+                mode = "data"
+            log_info(f"tree_learner=auto -> {mode}-parallel (F={ncols}, "
+                     f"B={gcfg.num_bins}, rows={self.n_global}, world={D}, "
+                     f"hist_comm={cfg.hist_comm})")
+        if cegb is not None:
+            raise ValueError("CEGB is not supported with multi-device "
+                             "training yet")
+        if cfg.linear_tree:
+            raise ValueError("linear_tree trains with the serial tree "
+                             "learner only (the reference's config check)")
+        if mode != "data" and gcfg.grower != "compact":
+            raise NotImplementedError(
+                f"grower={gcfg.grower!r} with tree_learner={mode}: feature "
+                "and voting need grower='compact'")
+        wire = comms.resolve_hist_comm(cfg.hist_comm, ncols, gcfg.num_bins,
+                                       mode, cfg.top_k)
+        if cfg.use_quantized_grad or mode == "feature":
+            # exact int32 histograms, or no histogram reduction at all
+            wire = "f32"
+        if mode == "voting" and forced is not None:
+            raise ValueError(
+                "tree_learner=voting does not support forced splits or "
+                "CEGB (their gathers read the local histogram cache as if "
+                "it were global)")
+        if mode == "voting" and self.monotone is not None \
+                and gcfg.monotone_method != "basic":
+            log_warning("tree_learner=voting forces "
+                        "monotone_constraints_method=basic")
+            gcfg = gcfg._replace(monotone_method="basic")
+        ss = cfg.split_search
+        if ss == "sharded" and (mode != "data" or self.bundle is not None):
+            if self.bundle is not None and mode == "data":
+                log_warning("split_search=sharded does not cover EFB-"
+                            "bundled matrices yet; using the gathered "
+                            "search")
+            ss = "gathered"
+        if ss == "sharded" and gcfg.grower != "compact":
+            log_warning(f"split_search=sharded runs on the compact grower "
+                        f"only; grower={gcfg.grower} uses the gathered "
+                        "search")
+            ss = "gathered"
+        if mode == "feature":
+            if shard is not None:
+                raise LightGBMError(
+                    "feature-parallel growth replicates the full row set "
+                    "on every rank, but this Dataset holds one rank's "
+                    "shard (spmd.distributed_dataset) — use "
+                    "tree_learner=data, or give every rank the whole "
+                    "Dataset for feature-parallel")
+        elif shard is None:
+            if ts.query_boundaries() is not None:
+                raise LightGBMError(
+                    "a ranking Dataset in a world is built per rank with "
+                    "spmd.distributed_dataset (whole query groups per "
+                    "shard); a replicated one would cut queries")
+            bounds = [shard_rows(mesh, n, r) for r in range(D)]
+            self._rows = bounds[mesh.rank]
+            self.row_lo = self._rows[0]
+            self.row_counts = [hi - lo for lo, hi in bounds]
+        else:
+            self.row_lo = int(shard[0])
+            self.row_counts = [n] * D
+        self.comm = comms.Comm(mesh)
+        self.parallel_mode = mode
+        self.hist_comm = wire
+        self.split_search = ss
+        self._ncols = ncols
+        self._comm_sent = 0
+        return gcfg, DistGrow(self.comm, mode, ncols, wire, ss, cfg.top_k,
+                              cfg.use_quantized_grad)
+
+    @property
+    def _sharded_rows(self) -> bool:
+        """The rows are split over the world (data, voting)."""
+        return self.comm is not None and self.parallel_mode != "feature"
+
+    def _global_rows(self, a):
+        """The world's rows of a host per-row array of the train set (its
+        own rows when the Dataset is replicated)."""
+        if a is None or not self._sharded_rows or self._rows is not None:
+            return a
+        t = torch.as_tensor(np.asarray(a, np.float64), device=self.device)
+        return self.comm.gather_rows(t, self.row_counts).cpu().numpy()
+
+    def _local_rows(self, a):
+        """This rank's rows of a host per-row array of the train set."""
+        if a is None or self._rows is None:
+            return a
+        return np.asarray(a)[self._rows[0]:self._rows[1]]
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The world's rows (last axis) of a per-row device tensor."""
+        if not self._sharded_rows:
+            return t
+        moved = torch.movedim(t, -1, 0).contiguous()
+        return torch.movedim(self.comm.gather_rows(moved, self.row_counts),
+                             0, -1)
+
+    def _draw_rows(self, draw: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a draw over the world's rows (every rank
+        draws the whole vector, so a bag equals the serial one)."""
+        if not self._sharded_rows:
+            return draw
+        return draw[self.row_lo:self.row_lo + self.n]
 
     # -- split constraints ----------------------------------------------
     def _interaction_groups(self, cfg: Config) -> Optional[np.ndarray]:
@@ -541,9 +740,14 @@ class GBDTBooster:
         """``[K, n]`` raw scores of a dataset from the current trees (the
         init score only where it is not folded into them)."""
         is_rf = self.cfg.boosting == "rf"
-        score = self._base_score(dataset.num_data(),
-                                 dataset.get_init_score(),
-                                 not (self._fold_bias or is_rf))
+        rows, init = dataset.num_data(), dataset.get_init_score()
+        if dataset is self.train_set and self._rows is not None:
+            # this rank's rows of a replicated train set
+            rows = self.n
+            if init is not None:
+                init = np.asarray(init).reshape(-1, self.n_global)[
+                    :, self._rows[0]:self._rows[1]].reshape(-1)
+        score = self._base_score(rows, init, not (self._fold_bias or is_rf))
         for i, tree in enumerate(self.models):
             score[i % self.K] += self._tree_values(tree, dataset)
         if is_rf and self.iter_ > 0:
@@ -573,11 +777,13 @@ class GBDTBooster:
             if it < max(1, int(1.0 / cfg.learning_rate)):
                 return None
             metric = (grad.abs() * hess).sum(dim=0)           # [n]
-            thresh = _quantile_f32(metric, 1.0 - cfg.top_rate)
+            # a world's threshold is over the world's rows
+            thresh = _quantile_f32(self._gather(metric), 1.0 - cfg.top_rate)
             top = metric >= thresh
             rest_prob = cfg.other_rate / max(1e-12, 1.0 - cfg.top_rate)
             amplify = (1.0 - cfg.top_rate) / max(1e-12, cfg.other_rate)
-            u = bagging_uniform(self._bag_gen, it, n)
+            u = self._draw_rows(bagging_uniform(self._bag_gen, it,
+                                                self.n_global))
             other = ~top & (u < torch.tensor(rest_prob, dtype=f32,
                                              device=self.device))
             return top.to(f32) + other.to(f32) * torch.tensor(
@@ -587,7 +793,8 @@ class GBDTBooster:
                 or cfg.neg_bagging_fraction < 1.0):
             if it % cfg.bagging_freq != 0 and self._cached_bag is not None:
                 return self._cached_bag
-            u = bagging_uniform(self._bag_gen, it, n)
+            u = self._draw_rows(bagging_uniform(self._bag_gen, it,
+                                                self.n_global))
             if cfg.pos_bagging_fraction < 1.0 \
                     or cfg.neg_bagging_fraction < 1.0:
                 frac = torch.where(
@@ -660,9 +867,9 @@ class GBDTBooster:
             def grow_k(k=k):
                 noise = None
                 if self._rounding_gen is not None:
-                    noise = torch.rand((self.n, 2),
-                                       generator=self._rounding_gen,
-                                       device=self.device)
+                    noise = self._draw_rows(torch.rand(
+                        (self.n_global, 2), generator=self._rounding_gen,
+                        device=self.device))
                 node_u = None
                 if cfg.feature_fraction_bynode < 1.0:
                     def node_u(node):
@@ -805,28 +1012,68 @@ class GBDTBooster:
         """Run a grow with graceful OOM degradation: on a device OOM
         (or an injected one), halve the histogram pool, rebuild the
         grower and retry from the generators' states before the failed
-        grow; raise ``LightGBMError`` once no rung is left."""
+        grow; raise ``LightGBMError`` once no rung is left.
+
+        In a world the ranks agree before each grow, with one ``max``
+        ``all_reduce`` of a flag: an injected OOM on any rank (it fires
+        before the grow's first collective) degrades every rank, so their
+        pools, pool misses and collectives stay in step. A real OOM inside
+        a grow raises ``LightGBMError`` on its rank: its peers are already
+        in the tree's collectives, so no rank can retry alone."""
         gens = [gen for gen in (self._rounding_gen, self._bynode_gen)
                 if gen is not None]
         states = [gen.get_state() for gen in gens]
         while True:
+            err = None
             try:
                 self._fault_plan.maybe_oom(self.iter_)
-                return thunk()
-            except Exception as e:
-                if not is_resource_exhausted(e):
-                    raise
-                if self._next_pool_slots() is None:
-                    from ..basic import LightGBMError
-                    raise LightGBMError(
-                        f"device RESOURCE_EXHAUSTED in grow at "
-                        f"iteration {self.iter_} and no degradation "
-                        f"left to try: {e}") from e
+            except InjectedResourceExhausted as e:
+                err = str(e)
+            if self.comm is not None:
+                err = self._world_oom(err)
+            if err is None:
+                try:
+                    return thunk()
+                except Exception as e:
+                    if not is_resource_exhausted(e):
+                        raise
+                    self._raise_unless_degradable(str(e), e)
+            else:
+                self._raise_unless_degradable(err)
             # outside the handler: the failed grow's frames (and the
             # tensors they hold) are released by now
             self._degrade_after_oom()
             for gen, state in zip(gens, states):
                 gen.set_state(state)
+
+    def _world_oom(self, err: Optional[str]) -> Optional[str]:
+        """Every rank's view of the injected OOMs before a grow: this
+        rank's message, a peer's stand-in, or None."""
+        flag = torch.tensor([0 if err is None else 1], dtype=torch.int32,
+                            device=self.device)
+        if int(self.comm.all_reduce(flag, "max").item()) and err is None:
+            err = (f"RESOURCE_EXHAUSTED: injected device OOM at iteration "
+                   f"{self.iter_} on another rank of the world")
+        return err
+
+    def _raise_unless_degradable(self, msg: str, exc=None) -> None:
+        """Raise ``LightGBMError`` for an OOM no rung can absorb: one
+        raised inside a world's grow (``exc``), or any once the pool
+        is down to its last rung."""
+        from ..basic import LightGBMError
+        if exc is not None and self.comm is not None:
+            raise LightGBMError(
+                f"device RESOURCE_EXHAUSTED in grow at iteration "
+                f"{self.iter_} on rank {self.comm.rank} of a world of "
+                f"{self.comm.size}: the other ranks are inside the "
+                f"tree's collectives, so this rank cannot retry alone "
+                f"with a smaller histogram pool (set histogram_pool_size "
+                f"and restart the world): {msg}") from exc
+        if self._next_pool_slots() is None:
+            raise LightGBMError(
+                f"device RESOURCE_EXHAUSTED in grow at iteration "
+                f"{self.iter_} and no degradation left to try: "
+                f"{msg}") from exc
 
     def _degrade_after_oom(self) -> None:
         """One rung: a grower with half the pool slots, built after the
@@ -841,6 +1088,34 @@ class GBDTBooster:
             self.fault_log, "oom", self.iter_,
             f"histogram pool -> {slots} slots",
             "RESOURCE_EXHAUSTED in grow; retrying after downgrade")
+
+    def telemetry_comm_stats(self, leaves: Optional[int] = None
+                             ) -> Optional[Dict[str, object]]:
+        """The iteration's collective payloads for the telemetry recorder:
+        the JAX package's modeled bytes (``comms.payload_bytes`` per
+        reduction, one reduction per leaf grown; ``leaves`` defaults to
+        the ``num_leaves`` budget) and, beside them, ``sent_bytes``: what
+        this rank's collectives sent since the last call. None on one
+        card."""
+        if self.comm is None:
+            return None
+        from ..parallel import comms
+        B, k = self.grower.cfg.num_bins, self.cfg.top_k
+        n_red = int(leaves) if leaves is not None \
+            else self.cfg.num_leaves * self.K
+        per = comms.payload_bytes(self.parallel_mode, self._ncols, B,
+                                  self.hist_comm, k)
+        post = comms.post_reduction_bytes(
+            self.parallel_mode, self._ncols, B, self.comm.size,
+            self.split_search, self.hist_comm, k)
+        total = sum(self.comm.bytes.values())
+        sent, self._comm_sent = total - self._comm_sent, total
+        return {"payload_bytes": int(per) * n_red,
+                "post_reduction_bytes": int(post) * n_red,
+                "hist_comm": self.hist_comm,
+                "parallel_mode": self.parallel_mode,
+                "split_search": self.split_search,
+                "world": self.comm.size, "sent_bytes": int(sent)}
 
     def telemetry_tree_stats(self) -> Optional[Dict[str, float]]:
         """Leaves grown and split-gain sum of the last iteration's K
@@ -911,8 +1186,11 @@ class GBDTBooster:
     def _tree_values(self, tree: Tree, dataset) -> torch.Tensor:
         """:func:`tree_values`, over the bundled matrix for the train
         set of a bundled run."""
-        bundle = self.bundle if dataset is self.train_set else None
-        return tree_values(tree, dataset, bundle)
+        if dataset is not self.train_set:
+            return tree_values(tree, dataset)
+        out = tree_values(tree, dataset, self.bundle)
+        return out if self._rows is None else out[self._rows[0]:
+                                                  self._rows[1]]
 
     def _renewed(self, arrays, row_leaf: torch.Tensor, k: int,
                  row_w: Optional[torch.Tensor]) -> np.ndarray:
@@ -931,8 +1209,10 @@ class GBDTBooster:
             row_w = torch.ones(self.n, dtype=torch.float32,
                                device=self.device)
         rw = row_w if rw is None else row_w * rw
+        resid = obj.renew_residual(base, self.label)
+        # a world's percentiles are over the world's rows
         out = renew_leaf_values(
-            row_leaf, obj.renew_residual(base, self.label), rw,
+            self._gather(row_leaf), self._gather(resid), self._gather(rw),
             self.cfg.num_leaves, obj.renew_alpha,
             torch.as_tensor(arrays.leaf_value, device=self.device))
         return out.cpu().numpy()
@@ -1039,14 +1319,22 @@ class GBDTBooster:
         (``data_idx`` 0) or valid set ``data_idx - 1``."""
         if data_idx == 0:
             score, ds = self.score, self.train_set
+            # a world's train metrics are over the world's rows (valid
+            # sets are replicated: every rank scores the whole set)
+            label = self._gather(self.label)
+            weight = None if self.weight is None \
+                else self._gather(self.weight)
+            if self._sharded_rows:
+                score = self._gather(score)
+                ds = self._world_queries()
         else:
             v = self.valid_sets[data_idx - 1]
             score, ds = v.score, v.dataset
-        label = torch.as_tensor(np.asarray(ds.get_label()),
-                                dtype=torch.float32, device=self.device)
-        w = ds.get_weight()
-        weight = None if w is None else torch.as_tensor(
-            np.asarray(w), dtype=torch.float32, device=self.device)
+            label = torch.as_tensor(np.asarray(ds.get_label()),
+                                    dtype=torch.float32, device=self.device)
+            w = ds.get_weight()
+            weight = None if w is None else torch.as_tensor(
+                np.asarray(w), dtype=torch.float32, device=self.device)
         convert = self.objective.convert_output \
             if self.objective is not None else (lambda s: s)
         out = {}
@@ -1057,6 +1345,33 @@ class GBDTBooster:
                 val = m.eval(score, label, weight, convert)
             out[m.name] = float(val)
         return out
+
+    def _world_queries(self):
+        """The world's query boundaries of the train set, for ranking
+        metrics (each rank holds whole queries of its shard)."""
+        if getattr(self, "_wq", None) is None:
+            qb = self.train_set.query_boundaries()
+
+            class _Queries:
+                def __init__(self, b):
+                    self.b = b
+
+                def query_boundaries(self):
+                    return self.b
+            glob = None
+            if qb is not None:
+                from ..parallel.hostsync import host_allgather
+                sizes = np.diff(np.asarray(qb, np.int64))
+                ng = host_allgather(np.asarray([len(sizes)], np.int64),
+                                    "gbdt/train_queries")[:, 0]
+                pad = np.zeros(int(ng.max()), np.int64)
+                pad[:len(sizes)] = sizes
+                g = host_allgather(pad, "gbdt/train_query_sizes")
+                allsz = np.concatenate([g[r, :int(c)]
+                                        for r, c in enumerate(ng)])
+                glob = np.concatenate([[0], np.cumsum(allsz)])
+            self._wq = _Queries(glob)
+        return self._wq
 
     def current_score(self, data_idx: int) -> np.ndarray:
         score = self.score if data_idx == 0 \

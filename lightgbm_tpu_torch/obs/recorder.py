@@ -116,7 +116,13 @@ class TelemetryRecorder:
         self._last_iter_mono = self._t0
         self._started = True
         # telemetry must degrade, never break training: an unwritable
-        # path downgrades to registry-only recording
+        # path downgrades to registry-only recording; in a world, rank 0
+        # writes for every rank
+        from ..parallel.mesh import world_rank
+        if world_rank() != 0:
+            self._file = None
+            self._record_ingest()
+            return
         try:
             dirname = os.path.dirname(os.path.abspath(self.path))
             os.makedirs(dirname, exist_ok=True)
@@ -167,8 +173,11 @@ class TelemetryRecorder:
                 self._engines = []
 
     # -- event assembly ------------------------------------------------
-    def _phase_delta(self) -> Dict[str, Dict[str, float]]:
-        """Per-iteration diff of ``Timer.snapshot()``."""
+    def _phase_delta(self, keep_all: bool = False
+                     ) -> Dict[str, Dict[str, float]]:
+        """Per-iteration diff of ``Timer.snapshot()`` (``keep_all``: every
+        label, idle ones too, so the ranks of a world hold the same
+        set)."""
         from ..utils.timer import Timer
         snap = Timer.snapshot()
         delta: Dict[str, Dict[str, float]] = {}
@@ -176,10 +185,21 @@ class TelemetryRecorder:
             base = self._phase_base.get(label, {"total": 0.0, "count": 0})
             dt = cur["total"] - base["total"]
             dc = int(cur["count"] - base["count"])
-            if dc > 0 or dt > 0:
+            if dc > 0 or dt > 0 or keep_all:
                 delta[label] = {"total": dt, "count": dc}
         self._phase_base = snap
         return delta
+
+    def _comm_stats(self, tree: Dict) -> Optional[Dict[str, object]]:
+        """The iteration's collective payloads from the first engine in a
+        world (``models/gbdt.py`` ``telemetry_comm_stats``); None on one
+        card."""
+        leaves = tree.get("leaves") if len(self._engines) == 1 else None
+        for eng in self._engines:
+            stats = eng.telemetry_comm_stats(leaves)
+            if stats is not None:
+                return stats
+        return None
 
     def _tree_stats(self) -> Dict[str, Optional[float]]:
         leaves = 0
@@ -251,7 +271,18 @@ class TelemetryRecorder:
         """Assemble, register and write the event for one iteration."""
         if not self.active:
             return {}
-        phases = self._phase_delta()
+        from ..parallel.mesh import world_size
+        multiproc = world_size() > 1
+        if multiproc and self._engines:
+            # the event is a sync point of the world already: the ranks'
+            # step check rides along, then the phases' skew across ranks
+            from ..parallel.spmd import verify_step_consistency
+            verify_step_consistency(int(iteration),
+                                    len(self._engines[0].models))
+        phases = self._phase_delta(keep_all=multiproc)
+        if multiproc:
+            from ..parallel.spmd import aggregate_phase_snapshot
+            phases = aggregate_phase_snapshot(phases)
         device = self._engines[0].device if self._engines else None
         tree = self._tree_stats()
         now_mono = time.perf_counter()
@@ -264,7 +295,7 @@ class TelemetryRecorder:
             "hbm": device_memory_stats(device),
             "tree": tree,
             "eval": self._eval_dict(evals),
-            "comm": None,
+            "comm": self._comm_stats(tree),
             "scan": None,
         }
         self._feed_registry(event)
@@ -283,8 +314,9 @@ class TelemetryRecorder:
         reg = self.registry
         reg.counter("iterations").inc()
         for label, v in event["phases"].items():
+            # a world's phases carry the ranks' mean (and min/max)
             reg.histogram("phase_seconds", phase=label).observe(
-                v["total"])
+                v.get("total", v.get("mean", 0.0)))
         for key in ("bytes_in_use", "peak_bytes_in_use"):
             if event["hbm"].get(key) is not None:
                 reg.gauge(f"hbm_{key}").set(event["hbm"][key])
@@ -292,6 +324,11 @@ class TelemetryRecorder:
             reg.histogram("tree_leaves").observe(event["tree"]["leaves"])
             reg.histogram("tree_split_gain_sum").observe(
                 event["tree"]["split_gain_sum"])
+        comm = event.get("comm")
+        if comm:
+            reg.counter("comm_bytes", mode=str(comm["parallel_mode"]),
+                        wire=str(comm["hist_comm"])).inc(
+                comm["payload_bytes"])
 
 
 # ---------------------------------------------------------------------

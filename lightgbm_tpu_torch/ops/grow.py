@@ -166,6 +166,21 @@ quant_bins`` in magnitude (``cnt * 127`` for any int8 payload), so the
 exact int32 sums hold for ``n < 2**31 / quant_bins`` rows (16.9M for any
 payload), the JAX package's limit too.
 
+A world of ranks (``dist``, a ``parallel/data_parallel.py``
+``DistGrow``; the JAX grower's ``axis_name`` branches): each rank grows
+the same tree over its own rows. K1 and K2 run on the rank's windows;
+the histograms are reduced where the JAX grower psums them (the root and
+every smaller child before it is stored or subtracted; a pool miss's
+recomputed one) or, under ``split_search="sharded"``, reduce-scattered
+to the rank's chunk of columns; ``feature`` (replicated rows) and
+``voting`` (a local cache, elected columns reduced per search) reduce
+inside :meth:`Grower._search`. The root totals, the in-bag count and
+every split's left count are summed over the world, the quantization
+scales are its maxima, and the tree records the world's counts
+(``st.gcount``) while the windows keep the rank's (``st.leaf_count``).
+The smaller child is chosen by the split record's counts, which every
+rank holds alike.
+
 The TPU workarounds of the JAX grower (packed u32 bin words, group
 sorts, K-row chunking, the nibble-matmul histogram) have no counterpart.
 """
@@ -447,7 +462,8 @@ def _check_grower(cfg: GrowConfig, bundle, interaction_groups, forced,
                   cegb) -> None:
     """The JAX ``grow_tree_impl``'s refusals: the level and masked
     growers cover the core set only, and the pool is the compact
-    grower's."""
+    grower's. (A world's refusals are the booster's,
+    ``models/gbdt.py`` ``_setup_world``.)"""
     if cfg.grower not in ("compact", "level", "masked"):
         raise ValueError(f"Unknown grower: {cfg.grower}")
     if cfg.grower == "level":
@@ -508,7 +524,8 @@ class Grower:
     def __init__(self, cfg: GrowConfig, bins: torch.Tensor,
                  feat_num_bins, feat_nan_bin, feature_mask=None,
                  bundle=None, feat_is_cat=None, monotone=None,
-                 interaction_groups=None, forced=None, cegb=None):
+                 interaction_groups=None, forced=None, cegb=None,
+                 dist=None):
         if bundle is not None:
             bins = bundle.bins_bundled
         n, C = bins.shape
@@ -517,6 +534,9 @@ class Grower:
         F = len(feat_num_bins)
         _check_grower(cfg, bundle, interaction_groups, forced, cegb)
         self.cfg, self.n, self.F, self.dev = cfg, n, F, dev
+        # the world's side (parallel/data_parallel.py DistGrow; None:
+        # serial)
+        self.dist = dist
         self.bins = bins
         self.bundled = bundle is not None
         self.tables = BundleTables.of(bundle, dev) if self.bundled else None
@@ -536,8 +556,11 @@ class Grower:
                                     dtype=torch.int8 if q else torch.float32)
             self.ids2 = torch.empty((2, n), dtype=torch.int32, device=dev)
         self.pooled = 0 < cfg.pool_slots < L
+        # the cached histograms' columns: a sharded search keeps its own
+        # chunk of them
+        Cc = C if dist is None else dist.cache_columns()
         self.hists = torch.empty(
-            (cfg.pool_slots if self.pooled else L, C, B, 2), device=dev,
+            (cfg.pool_slots if self.pooled else L, Cc, B, 2), device=dev,
             dtype=torch.int32 if q else torch.float32)
         self.best = torch.empty((L, NF), dtype=torch.float32, device=dev)
         self.row_ids = torch.arange(n, dtype=torch.int32, device=dev)
@@ -599,9 +622,11 @@ class Grower:
             return self.hists[slot]
         self.pool_misses += 1
         b = int(st.leaf_buf[leaf])
-        return window_hist(self.bins2[b], self.pay2[b], self.cfg.num_bins,
-                           int(st.leaf_begin[leaf]),
-                           int(st.leaf_count[leaf]), pay_absmax=st.absmax)
+        h = window_hist(self.bins2[b], self.pay2[b], self.cfg.num_bins,
+                        int(st.leaf_begin[leaf]), int(st.leaf_count[leaf]),
+                        pay_absmax=st.absmax)
+        # every rank misses at the same split: the LRU state is the same
+        return h if self.dist is None else self.dist.reduce_hist_once(h)
 
     def _store_children(self, st, leaf: int, R: int, lh, rh) -> None:
         """Cache the children of split ``R - 1`` of ``leaf``; under the
@@ -634,20 +659,92 @@ class Grower:
         self.hists[s_r] = rh
 
     # -- the search ------------------------------------------------------
-    def _search(self, hist2, g, h, c, fmask, p_out, depth, bounds,
-                pen=None):
-        """Search the ``C`` leaves of ``hist2``; returns ``(records,
-        masks)`` (masks None without categorical features)."""
-        p = self.cfg.split
+    def _find(self, hf, g, h, c, fmask, p_out, depth, bounds, pen=None,
+              p=None, col_mask=None, gains=False):
+        """The plain or bundled search of float histograms ``hf``;
+        returns ``(records, masks, per-column gains)`` (masks None
+        without categorical features, gains None unless asked)."""
+        p = self.cfg.split if p is None else p
         if self.bundled:
             out = find_best_split_bundled(
-                hist2, g, h, c, self.tables, fmask, p, self.fcat, self.fnb,
-                self.mono, p_out, depth, bounds, pen)
+                hf, g, h, c, self.tables, fmask, p, self.fcat, self.fnb,
+                self.mono, p_out, depth, bounds, pen, col_mask=col_mask,
+                feature_gains=gains)
         else:
-            out = find_best_split(hist2, g, h, c, self.fnb, self.fnan,
+            if col_mask is not None:
+                fmask = fmask & col_mask
+            out = find_best_split(hf, g, h, c, self.fnb, self.fnan,
                                   fmask, p, self.fcat, self.mono, p_out,
-                                  depth, bounds, pen)
-        return out if self.fcat is not None else (out, None)
+                                  depth, bounds, pen, feature_gains=gains)
+        out = out if isinstance(out, tuple) else (out,)
+        masks = out[1] if self.fcat is not None else None
+        return out[0], masks, (out[-1] if gains else None)
+
+    def _search(self, hist2, g, h, c, fmask, p_out, depth, bounds,
+                pen=None):
+        """Search the ``S`` leaves of the cached histograms ``hist2``
+        (int32 when quantized: dequantized here); returns ``(records,
+        masks)`` (masks None without categorical features). In a world
+        (``parallel/data_parallel.py``): ``feature`` searches the owned
+        columns and combines the records, a sharded search its chunk,
+        ``voting`` elects columns from the local histograms and searches
+        the world's histograms of the elected ones."""
+        d = self.dist
+        hf = self._hf(hist2)
+        if d is None or (d.mode == "data" and not d.sharded):
+            return self._find(hf, g, h, c, fmask, p_out, depth, bounds,
+                              pen)[:2]
+        if d.fp:
+            rec, masks, _ = self._find(hf, g, h, c, fmask, p_out, depth,
+                                       bounds, pen,
+                                       col_mask=d.owned(self.dev))
+            return d.combine(rec, masks) if masks is not None \
+                else (d.combine(rec), None)
+        if d.sharded:
+            return self._search_chunk(hf, g, h, c, fmask, p_out, depth,
+                                      bounds, pen)
+        # voting: the local ballot (local totals, per-rank data limits)
+        p = self.cfg.split
+        tot = hf[:, 0].sum(dim=1)
+        c_loc = torch.round(c * tot[:, 1] / torch.clamp_min(h, 1e-15))
+        p_loc = p._replace(
+            min_data_in_leaf=p.min_data_in_leaf / d.D,
+            min_sum_hessian_in_leaf=p.min_sum_hessian_in_leaf / d.D)
+        fg = self._find(hf, tot[:, 0], tot[:, 1], c_loc, fmask, p_out,
+                        depth, bounds, pen, p=p_loc, gains=True)[2]
+        idx = d.elect(fg)
+        elected = torch.zeros(fg.shape, dtype=torch.bool, device=self.dev)
+        elected.scatter_(1, idx, True)
+        ghf = self._hf(d.exchange_elected(hist2, idx))
+        return self._find(ghf, g, h, c, fmask, p_out, depth, bounds, pen,
+                          col_mask=elected)[:2]
+
+    def _search_chunk(self, hf, g, h, c, fmask, p_out, depth, bounds,
+                      pen):
+        """The sharded search: this rank's columns ``[c_start, c_start +
+        Cl)`` of every per-feature input, its feature ids made global,
+        and the records combined."""
+        d = self.dist
+        cs = d.chunk_slice
+        real = cs(torch.ones(self.F, dtype=torch.bool, device=self.dev),
+                  False)
+        fm = cs(fmask, False) & real
+        if isinstance(bounds, AdvancedBounds):
+            def bsl(b):
+                return torch.movedim(cs(torch.movedim(b, 1, -1), 0.0),
+                                     -1, 1)
+            bounds = AdvancedBounds(*(bsl(b) for b in bounds[:4]),
+                                    bounds.smin, bounds.smax)
+        out = find_best_split(
+            hf, g, h, c, cs(self.fnb, 1), cs(self.fnan, -1), fm,
+            self.cfg.split, cs(self.fcat, False),
+            cs(self.mono, 0), p_out, depth, bounds,
+            cs(pen, 0.0))
+        rec, masks = out if self.fcat is not None else (out, None)
+        rec = rec.clone()
+        rec[:, F_["feature"]] += float(d.c_start)
+        return d.combine(rec, masks) if masks is not None \
+            else (d.combine(rec), None)
 
     def _store(self, slots, rec, masks) -> None:
         """Store records (and categorical masks) at leaf slots: a slice
@@ -738,9 +835,11 @@ class Grower:
         and returns the records."""
         t = st.t
         slots = range(S)
-        hf = st.hist_f(torch.stack([self._leaf_hist(st, s) for s in slots])
-                       if self.pooled else self.hists[:S])
-        sums = leaf_totals(hf)
+        raw = torch.stack([self._leaf_hist(st, s) for s in slots]) \
+            if self.pooled else self.hists[:S]
+        hf = st.hist_f(raw)
+        sums = leaf_totals(hf) if self.dist is None \
+            or not self.dist.sharded else self.dist.chunk_totals(hf)
         cnt = st.cnt_dev[:S]
         p_out = torch.as_tensor(t["leaf_value"][:S], device=self.dev)
         bounds = None
@@ -752,7 +851,7 @@ class Grower:
         pen = None
         if self.cegb is not None:
             pen = self._cegb_pen(cnt, st.cegb, st.lazy_nu[:S])
-        rec, masks = self._search(hf, sums[:, 0], sums[:, 1], cnt,
+        rec, masks = self._search(raw, sums[:, 0], sums[:, 1], cnt,
                                   self._leaf_masks(st, slots), p_out,
                                   t["leaf_depth"][:S], bounds, pen)
         self._store(slots, rec, masks)
@@ -790,15 +889,17 @@ class Grower:
             grad, hess = grad * row_weight, hess * row_weight
         # the tree's payload over all n rows, in row order
         scale2 = None
+        d = self.dist
         if cfg.quantized:
+            # a world's scales are its maxima, so int histograms sum
             full, scale2 = discretize(grad, hess, None, cfg.quant_bins,
-                                      noise)
+                                      noise, None if d is None else d.max)
         else:
             full = torch.stack([grad, hess], dim=1)
 
         def hist_f(h):
             return dequantize(h, scale2) if cfg.quantized else h
-        st.hist_f = hist_f
+        st.hist_f = self._hf = hist_f
         if row_weight is None:
             m, oob = n, None
             self.bins2[0].copy_(self.bins)
@@ -820,13 +921,35 @@ class Grower:
             else pay[:m].abs().amax(dim=0)
         root_hist = window_hist(self.bins2[0], pay, B, 0, m,
                                 pay_absmax=st.absmax)
+        # a world's histogram: reduced (data), its chunk (sharded) or the
+        # rank's own (feature, voting); the error feedback of a quantized
+        # wire is carried through the tree
+        st.ef = None
+        if d is not None:
+            shape = d.ef_shape(B)
+            if shape is not None:
+                st.ef = torch.zeros(shape, dtype=torch.float32, device=dev)
+            local_root = root_hist
+            root_hist, st.ef = d.reduce_hist(root_hist, st.ef)
         self.hists[0] = root_hist
         if cfg.quantized:
-            # every row hits feature 0 once
-            tg, th = hist_f(root_hist[0]).sum(dim=0).unbind()
+            # every row hits feature 0 once; a world sums the int row
+            row0 = root_hist[0]
+            if d is not None and d.vp:
+                row0 = d.sum(local_root[0])
+            elif d is not None and d.sharded:
+                row0 = d.comm.all_reduce(
+                    root_hist[0] if d.rank == 0
+                    else torch.zeros_like(root_hist[0]))
+            tg, th = hist_f(row0).sum(dim=0).unbind()
         else:
             tg, th = root_totals(full)
-        tc = torch.full((), float(m), dtype=torch.float32, device=dev)
+            if d is not None:
+                tg, th = d.sum(torch.stack([tg, th])).unbind()
+        tc64 = torch.full((), float(m), dtype=torch.float64, device=dev)
+        if d is not None:
+            tc64 = d.sum(tc64)
+        tc = tc64.float()
         root_out = leaf_output(tg, th, p)
         t = _init_tree(L)
         st.t = t
@@ -851,7 +974,7 @@ class Grower:
         st.cnt_dev = None
         if self.track_counts:
             st.cnt_dev = torch.zeros(L, dtype=torch.float32, device=dev)
-            st.cnt_dev[0] = float(m)
+            st.cnt_dev[0] = tc
         root_pen = None
         if self.cegb is not None:
             cs = cegb_state
@@ -870,14 +993,20 @@ class Grower:
             root_bounds = torch.as_tensor(
                 np.stack([st.lmin[:1], st.lmax[:1]], 1), device=dev)
         rec, masks = self._search(
-            hist_f(root_hist)[None], tg[None], th[None], tc[None],
+            root_hist[None], tg[None], th[None], tc[None],
             self._leaf_masks(st, [0]), root_out[None], 0, root_bounds,
             root_pen)
         self._store([0], rec, masks)
-        host = self._host(torch.cat([rec[0], torch.stack([root_out, th])]))
+        host = self._host(torch.cat([rec[0].double(),
+                                     torch.stack([root_out, th]).double(),
+                                     tc64[None]]))
         t["leaf_value"][0] = host[NF]
         t["leaf_weight"][0] = host[NF + 1]
-        t["leaf_count"][0] = m
+        # the tree's counts are the world's; the windows the rank's
+        m_all = int(host[NF + 2])
+        t["leaf_count"][0] = m_all
+        st.gcount = np.zeros(L, np.int64)
+        st.gcount[0] = m_all
         st.best_h = np.zeros((L, NF), np.float32)
         st.best_h[0] = host[:NF]
         st.gains = np.full(L, -np.inf, np.float32)
@@ -900,9 +1029,12 @@ class Grower:
             for leaf, f, tb in zip(*self.forced):
                 if st.ns >= L - 1:
                     break
+                lh = self._leaf_hist(st, int(leaf))
+                if d is not None and d.sharded:
+                    lh = d.full_from_chunk(lh)
                 rec = forced_result(
-                    hist_f(self._leaf_hist(st, int(leaf))),
-                    torch.tensor(float(st.leaf_count[leaf]),
+                    hist_f(lh),
+                    torch.tensor(float(st.gcount[leaf]),
                                  dtype=torch.float32, device=dev),
                     int(f), int(tb),
                     torch.tensor(float(t["leaf_value"][leaf]),
@@ -992,15 +1124,22 @@ class Grower:
             self.bins2[src], self.bins2[dst], self.pay2[src],
             self.pay2[dst], self.ids2[src], self.ids2[dst], begin, cnt,
             col, lo, hi, nan_pos, bool(r[F_["default_left"]]), bits)
+        # the smaller child by the record's counts, which every rank
+        # holds alike (a rank's own window could pick the other side)
         est_left_small = r[F_["left_count"]] <= r[F_["right_count"]]
         small = window_hist(self.bins2[dst], self.pay2[dst], B, begin,
                             cnt, nl, 1 if est_left_small else 2,
                             pay_absmax=st.absmax)
+        d = self.dist
+        nl_all = nl
+        if d is not None:
+            small, st.ef = d.reduce_hist(small, st.ef)
+            nl_all = d.sum(nl.to(torch.int64))
         other = subtract_histogram(parent, small)
         lh, rh = (small, other) if est_left_small else (other, small)
         self._store_children(st, leaf, R, lh, rh)
-        nlf = nl.to(torch.float32)
-        cnt2 = torch.cat([nlf, float(cnt) - nlf])
+        nlf = nl_all.to(torch.float32)
+        cnt2 = torch.cat([nlf, float(st.gcount[leaf]) - nlf])
         if st.cnt_dev is not None:
             st.cnt_dev[leaf] = cnt2[0]
             st.cnt_dev[R] = cnt2[1]
@@ -1073,7 +1212,7 @@ class Grower:
                 np.stack([st.lmin[[leaf, R]], st.lmax[[leaf, R]]], 1),
                 device=dev)
             rec, masks = self._search(
-                st.hist_f(torch.stack([lh, rh])),
+                torch.stack([lh, rh]),
                 torch.stack([pb[F_["left_sum_g"]], pb[F_["right_sum_g"]]]),
                 torch.stack([pb[F_["left_sum_h"]], pb[F_["right_sum_h"]]]),
                 cnt2, mask2,
@@ -1082,18 +1221,22 @@ class Grower:
                 depth, bounds2, pen2)
             slots = [leaf, R]
             self._store(slots, rec, masks)
-        host = self._host(torch.cat([rec.reshape(-1).double(),
-                                     nl.double()]))
-        n_left = int(host[-1])
-        n_right = cnt - n_left
-        t["leaf_count"][leaf] = n_left
-        t["leaf_count"][R] = n_right
-        t["internal_count"][ns] = np.float32(n_left) + np.float32(n_right)
+        tail = [nl.double()] if d is None \
+            else [nl.double(), nl_all.double()]
+        host = self._host(torch.cat([rec.reshape(-1).double(), *tail]))
+        # the rank's window, and the world's counts for the tree
+        n_left = int(host[-len(tail)])
+        g_left = int(host[-1])
+        g_right = int(st.gcount[leaf]) - g_left
+        t["leaf_count"][leaf] = g_left
+        t["leaf_count"][R] = g_right
+        t["internal_count"][ns] = np.float32(g_left) + np.float32(g_right)
+        st.gcount[leaf], st.gcount[R] = g_left, g_right
         st.leaf_buf[leaf] = st.leaf_buf[R] = dst
         st.leaf_count[leaf] = n_left
         st.leaf_begin[R] = begin + n_left
-        st.leaf_count[R] = n_right
-        recs = host[:-1].reshape(len(slots), NF)
+        st.leaf_count[R] = cnt - n_left
+        recs = host[:-len(tail)].reshape(len(slots), NF)
         for i, s in enumerate(slots):
             st.best_h[s] = recs[i]
             ok = cfg.max_depth <= 0 or t["leaf_depth"][s] < cfg.max_depth
@@ -1136,23 +1279,34 @@ class Grower:
                 _apply_split(t, r, leaf, R, node, 0.0, 0.0)
                 moves.append((leaf, R, node, 1 - src, begin, cnt))
             st.ns = ns0 + len(elected)
-            # the level's one read-back of its counts, then K1 on every
-            # smaller child (exact counts) and the siblings by subtraction
-            n_left = self._host(torch.cat(nls)).astype(np.int64)
+            # the level's one read-back of its counts (the rank's and,
+            # in a world, the world's), then K1 on every smaller child
+            # (exact counts) and the siblings by subtraction
+            d = self.dist
+            nls = torch.cat(nls).to(torch.int64)
+            both = nls if d is None else torch.cat([nls, d.sum(nls)])
+            host = self._host(both).astype(np.int64)
+            n_left, g_lefts = host[:len(moves)], host[-len(moves):]
             slots = []
-            for (leaf, R, node, dst, begin, cnt), nl in zip(moves, n_left):
-                nl = int(nl)
+            for (leaf, R, node, dst, begin, cnt), nl, gl in zip(
+                    moves, n_left, g_lefts):
+                nl, gl = int(nl), int(gl)
                 nr = cnt - nl
-                t["leaf_count"][leaf], t["leaf_count"][R] = nl, nr
-                t["internal_count"][node] = np.float32(nl) + np.float32(nr)
+                gr = int(st.gcount[leaf]) - gl
+                t["leaf_count"][leaf], t["leaf_count"][R] = gl, gr
+                t["internal_count"][node] = np.float32(gl) + np.float32(gr)
+                st.gcount[leaf], st.gcount[R] = gl, gr
                 st.leaf_buf[leaf] = st.leaf_buf[R] = dst
                 st.leaf_count[leaf], st.leaf_count[R] = nl, nr
                 st.leaf_begin[R] = begin + nl
-                left_small = nl <= nr
+                # the smaller child by the world's counts
+                left_small = gl <= gr
                 small = window_hist(
                     self.bins2[dst], self.pay2[dst], B,
                     begin if left_small else begin + nl,
                     nl if left_small else nr, pay_absmax=st.absmax)
+                if d is not None:
+                    small, st.ef = d.reduce_hist(small, st.ef)
                 other = subtract_histogram(self.hists[leaf], small)
                 lh, rh = (small, other) if left_small else (other, small)
                 self.hists[leaf] = lh
@@ -1184,6 +1338,8 @@ class Grower:
         cfg, n, p = self.cfg, self.n, self.cfg.split
         L, B = cfg.num_leaves, cfg.num_bins
         dev = self.dev
+        d = self.dist
+        self._hf = _identity
         inbag = None
         if row_weight is not None:
             grad, hess = grad * row_weight, hess * row_weight
@@ -1193,18 +1349,29 @@ class Grower:
         tg, th = root_totals(full)
         m_dev = torch.tensor(n, device=dev) if inbag is None \
             else inbag.sum()
-        tc = m_dev.to(torch.float32)
+        m_all = m_dev
+        ef = None
+        if d is not None:
+            tg, th = d.sum(torch.stack([tg, th])).unbind()
+            m_all = d.sum(m_dev.to(torch.int64))
+            shape = d.ef_shape(B)
+            ef = None if shape is None else torch.zeros(
+                shape, dtype=torch.float32, device=dev)
+        tc = m_all.to(torch.float32)
         root_hist = window_hist(self.bins, full, B, 0, n, pay_absmax=(
             st.absmax if inbag is None
             else masked_absmax(st.absmax, m_dev, n)))
+        if d is not None:
+            root_hist, ef = d.reduce_hist(root_hist, ef)
         self.hists[0] = root_hist
         root_out = leaf_output(tg, th, p)
         rec, masks = self._search(root_hist[None], tg[None], th[None],
                                   tc[None], st.fmask, root_out[None], 0,
                                   None)
         self._store([0], rec, masks)
-        host = self._host(torch.cat([rec[0], torch.stack([root_out, th,
-                                                          tc])]))
+        host = self._host(torch.cat([
+            rec[0].double(), torch.stack([root_out, th]).double(),
+            torch.stack([m_all, m_dev]).double()]))
         t = _init_tree(L)
         t["leaf_value"][0] = host[NF]
         t["leaf_weight"][0] = host[NF + 1]
@@ -1213,8 +1380,11 @@ class Grower:
         st.best_h[0] = host[:NF]
         st.gains = np.full(L, -np.inf, np.float32)
         st.gains[0] = st.best_h[0, F_["gain"]]
+        # the world's counts (the tree's) and the rank's (K1's bound)
         counts = np.zeros(L, np.int64)
         counts[0] = m
+        local = np.zeros(L, np.int64)
+        local[0] = int(host[NF + 3])
         row_leaf = torch.zeros(n, dtype=torch.int64, device=dev)
         ns = 0
         while ns < L - 1 and st.gains.max() > 0.0:
@@ -1226,7 +1396,9 @@ class Grower:
                          bool(r[F_["default_left"]]), bits)
             on_leaf = row_leaf == leaf
             go = on_leaf & gl
-            nl = (go if inbag is None else go & inbag).sum()
+            nl_loc = (go if inbag is None else go & inbag).sum()
+            nr_loc = int(local[leaf]) - nl_loc
+            nl = nl_loc if d is None else d.sum(nl_loc.to(torch.int64))
             nr = int(counts[leaf]) - nl
             row_leaf.masked_fill_(on_leaf & ~gl, R)
             left_small = nl <= nr
@@ -1234,8 +1406,10 @@ class Grower:
             pay = full * (row_leaf == small_slot)[:, None].to(full.dtype)
             small = window_hist(self.bins, pay, B, 0, n,
                                 pay_absmax=masked_absmax(
-                                    st.absmax, torch.where(left_small, nl,
-                                                           nr), n))
+                                    st.absmax, torch.where(
+                                        left_small, nl_loc, nr_loc), n))
+            if d is not None:
+                small, ef = d.reduce_hist(small, ef)
             other = subtract_histogram(self.hists[leaf], small)
             lh = torch.where(left_small, small, other)
             rh = torch.where(left_small, other, small)
@@ -1252,12 +1426,15 @@ class Grower:
                 int(t["leaf_depth"][leaf]) + 1, None)
             self._store([leaf, R], rec, masks)
             host = self._host(torch.cat([rec.reshape(-1).double(),
-                                         nl.double()[None]]))
-            n_left = int(host[-1])
+                                         nl.double()[None],
+                                         nl_loc.double()[None]]))
+            n_left = int(host[-2])
             _apply_split(t, r, leaf, R, ns, n_left, counts[leaf] - n_left)
             counts[R] = counts[leaf] - n_left
             counts[leaf] = n_left
-            recs = host[:-1].reshape(2, NF)
+            local[R] = local[leaf] - int(host[-1])
+            local[leaf] = int(host[-1])
+            recs = host[:-2].reshape(2, NF)
             ok = cfg.max_depth <= 0 or t["leaf_depth"][leaf] < cfg.max_depth
             for i, sl in enumerate((leaf, R)):
                 st.best_h[sl] = recs[i]
@@ -1344,9 +1521,15 @@ class Grower:
         gh = torch.stack([grad, hess], dim=1).to(torch.float64)
         sums = torch.zeros((nleaves, 2), dtype=torch.float64,
                            device=self.dev).index_add_(0, row_leaf, gh)
+        if self.dist is not None:
+            sums = self.dist.sum(sums)
         sums = sums.to(torch.float32)
         out = leaf_output(sums[:, 0], sums[:, 1], self.cfg.split)
         return out.cpu().numpy()
+
+
+def _identity(h):
+    return h
 
 
 def grow_tree(cfg: GrowConfig, bins: torch.Tensor, grad: torch.Tensor,

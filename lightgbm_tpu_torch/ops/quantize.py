@@ -37,23 +37,29 @@ __all__ = ["discretize", "dequantize"]
 
 def discretize(grad: torch.Tensor, hess: torch.Tensor,
                row_weight: Optional[torch.Tensor], quant_bins: int,
-               noise: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               noise: Optional[torch.Tensor] = None,
+               amax_reduce=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``[n]`` f32 gradients and hessians -> ``(int8 [n, 2], scale2 f32
     [2])``.
 
     ``row_weight`` (``[n]`` f32, or None for all ones) scales both
     channels first. ``noise`` is an ``[n, 2]`` f32 uniform draw in
     ``[0, 1)`` for stochastic rounding, or None for the deterministic
-    ``u = 0.5``."""
+    ``u = 0.5``. ``amax_reduce`` (a world's max over ranks of a ``[2]``
+    tensor) makes the scales the world's, so every rank's integer
+    histograms sum exactly (the JAX grower's ``pmax``)."""
     g = grad.to(torch.float32)
     h = hess.to(torch.float32)
     if row_weight is not None:
         w = row_weight.to(torch.float32)
         g, h = g * w, h * w
     half = max(1, quant_bins // 2)
-    gs = torch.clamp_min(g.abs().max(), 1e-30) / half
-    hs = torch.clamp_min(h.max(), 1e-30) / max(1, quant_bins)
+    amax = torch.stack([g.abs().max(), h.max()]) if g.numel() \
+        else torch.zeros(2, dtype=torch.float32, device=g.device)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
+    gs = torch.clamp_min(amax[0], 1e-30) / half
+    hs = torch.clamp_min(amax[1], 1e-30) / max(1, quant_bins)
     if noise is None:
         ug = uh = 0.5
     else:

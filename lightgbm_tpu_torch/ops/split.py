@@ -424,7 +424,8 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
                     feat_is_cat: torch.Tensor = None,
                     monotone: torch.Tensor = None,
                     parent_output: torch.Tensor = None, leaf_depth=0,
-                    bounds=None, gain_penalty: torch.Tensor = None):
+                    bounds=None, gain_penalty: torch.Tensor = None,
+                    feature_gains: bool = False):
     """Best split of each of ``C`` leaves.
 
     Args:
@@ -444,6 +445,8 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
         or :class:`AdvancedBounds` (None: no bounds).
       gain_penalty: ``[C, F]`` f32 subtracted from every candidate's net
         gain of each feature (CEGB; None: none).
+      feature_gains: also return each feature's best net gain ``[C, F]``
+        (the voting learner's local ballot), as the last element.
     Returns:
       ``[C, len(FIELDS)]`` f32 records. ``gain`` is net of the parent
       gain and ``min_gain_to_split`` (> 0 means worth splitting) and
@@ -545,9 +548,10 @@ def find_best_split(hist: torch.Tensor, parent_g: torch.Tensor,
     lo, ro = _winner_outputs(sel, total, d >= 3, exact, p, p_out, b_lw,
                              b_rw)
     rec = _record(gain, f, t, d, sel, total, lo, ro, p)
-    if ce is None:
-        return rec
-    return rec, _cat_masks(ce, d, f, t, t)
+    out = (rec,) if ce is None else (rec, _cat_masks(ce, d, f, t, t))
+    if feature_gains:
+        out = out + (nets.amax(dim=(1, 3)),)
+    return out[0] if len(out) == 1 else out
 
 
 def _record(gain, f, t, d, sel, total, lo, ro, p):
@@ -592,7 +596,9 @@ def find_best_split_bundled(hist: torch.Tensor, parent_g: torch.Tensor,
                             monotone: torch.Tensor = None,
                             parent_output: torch.Tensor = None,
                             leaf_depth=0, bounds=None,
-                            gain_penalty: torch.Tensor = None):
+                            gain_penalty: torch.Tensor = None,
+                            col_mask: torch.Tensor = None,
+                            feature_gains: bool = False):
     """Best split of each of ``C`` leaves over bundled histograms.
 
     Every candidate is one (bundle, position) cell. A direct (singleton)
@@ -652,6 +658,11 @@ def find_best_split_bundled(hist: torch.Tensor, parent_g: torch.Tensor,
     fmask = feature_mask.to(device=dev, dtype=torch.bool)
     fmask = fmask[member_ix][None] if fmask.dim() == 1 \
         else fmask[:, member_ix]                             # [C', G, B]
+    if col_mask is not None:
+        # the bundle columns a distributed search may use: [G] or [C, G]
+        cm = col_mask.to(device=dev, dtype=torch.bool)
+        fmask = fmask & (cm[None, :, None] if cm.dim() == 1
+                         else cm[:, :, None])
     if feat_is_cat is not None:
         fcat = feat_is_cat.to(device=dev, dtype=torch.bool)
         is_cat_pos = fcat[member_ix] & has_member            # [G, B]
@@ -759,9 +770,10 @@ def find_best_split_bundled(hist: torch.Tensor, parent_g: torch.Tensor,
     tl = tables.tloc_at[g, pos]
     rec = _record(gain, tables.member_at[g, pos], tl, d, sel, total, lo, ro,
                   p)
-    if ce is None:
-        return rec
-    return rec, _cat_masks(ce, d, g, pos, tl)
+    out = (rec,) if ce is None else (rec, _cat_masks(ce, d, g, pos, tl))
+    if feature_gains:
+        out = out + (net.amax(dim=(1, 3)),)
+    return out[0] if len(out) == 1 else out
 
 
 def forced_result(hist: torch.Tensor, leaf_cnt: torch.Tensor, f: int,

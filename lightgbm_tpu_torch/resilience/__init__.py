@@ -30,9 +30,10 @@ serving daemon's parse path and the publisher stay torch-free. As in
 the JAX package, ``elastic`` and ``autoscale`` are imported as
 submodules; the package root exports none of their names.
 
-The collective watchdog and worlds of more than one rank (``launch``
-without ``--health-port``, ``stall_rank``, ``init_refuse``) are
-ROADMAP.md Queue 1 items 21 and 20.
+The collective watchdog (:mod:`.watchdog`) puts a deadline around every
+host collective of a world of ranks (``parallel/hostsync.py``);
+``launch N`` without ``--health-port`` supervises such a world, and
+``stall_rank`` / ``init_refuse`` fault it.
 """
 
 from .checkpoint import (CHECKPOINT_MAGIC, Checkpoint, CheckpointError,

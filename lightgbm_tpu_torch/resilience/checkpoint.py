@@ -33,6 +33,16 @@ values and shrinkage at full precision: the model text prints them with
 ``%g``, and DART rescales the kept trees, so a resumed DART run needs
 the unrounded values to write the uninterrupted run's text.
 
+A world of ranks (``parallel/``): every rank joins the step check and
+the gather of the row-sharded score (``placement.fetch_global``, and of
+the cached bag) before rank 0 writes for all. The snapshot stores the
+assembled ``[K, n]`` score, as a one-process snapshot does, plus one
+sha256 per rank's rows of it (``score_shard_fingerprints``); a resumed
+rank takes its own rows and checks them against its fingerprint. So a
+world's snapshot resumes a one-rank run of the same data and the other
+way round, and the JAX package's loader reads it (it ignores the port's
+members).
+
 ``train(..., resume_from=dir)`` — or ``LIGHTGBM_TPU_CHECKPOINT=<dir>``,
 which also installs the checkpoint callback — loads the newest snapshot
 that validates, skipping corrupt or truncated files, and trains on from
@@ -95,12 +105,15 @@ def _rng_restore(rng: np.random.RandomState, keys: np.ndarray,
 # write
 # ---------------------------------------------------------------------
 
-def write_snapshot(directory: str, booster, keep: int = 3) -> str:
+def write_snapshot(directory: str, booster, keep: int = 3,
+                   score_host: Optional[np.ndarray] = None,
+                   bag_host: Optional[np.ndarray] = None) -> str:
     """Snapshot ``booster`` into ``directory`` atomically; prune old
     snapshots beyond ``keep``. Returns the snapshot path. The non-finite
     guard resolves inside each iteration (``models/gbdt.py``), so a
     poisoned iteration has raised before any snapshot of it is
-    written."""
+    written. ``score_host`` / ``bag_host``: a world's assembled score and
+    cached bag (:meth:`Checkpoint.__call__` gathers them)."""
     eng = booster._engine
     if eng is None:
         raise CheckpointError(
@@ -129,14 +142,19 @@ def write_snapshot(directory: str, booster, keep: int = 3) -> str:
         "params_fingerprint": _params_fingerprint(booster.params),
         "data_fingerprint": _dataset_fingerprint(eng),
         "stalled": bool(eng._finished_natural),
-        # one device: the score is not sharded
         "score_shard_fingerprints": None,
     }
+    if score_host is None:
+        score_host = eng.score.cpu().numpy()
+    else:
+        from ..parallel import placement
+        state["score_shard_fingerprints"] = placement.shard_fingerprints(
+            score_host, _row_bounds(eng))
     members = dict(
         state_json=np.frombuffer(json.dumps(state).encode("utf-8"),
                                  np.uint8),
         model_str=np.frombuffer(model_str.encode("utf-8"), np.uint8),
-        score=eng.score.cpu().numpy().astype(np.float32, copy=False),
+        score=np.asarray(score_host).astype(np.float32, copy=False),
         frng_keys=frng_keys,
         drng_keys=drng_keys,
     )
@@ -150,9 +168,10 @@ def write_snapshot(directory: str, booster, keep: int = 3) -> str:
     members["tree_internal_value"] = np.concatenate(
         [np.asarray(t.internal_value, np.float64) for t in models]
         or [np.zeros(0)])
-    if eng._cached_bag is not None:
-        members["cached_bag"] = np.packbits(
-            (eng._cached_bag > 0).cpu().numpy())
+    if bag_host is None and eng._cached_bag is not None:
+        bag_host = eng._cached_bag.cpu().numpy()
+    if bag_host is not None:
+        members["cached_bag"] = np.packbits(np.asarray(bag_host) > 0)
     buf = io.BytesIO()
     np.savez(buf, **members)
     path = snapshot_path(directory, iteration)
@@ -172,13 +191,27 @@ def _dataset_fingerprint(eng) -> Dict[str, Any]:
         return cached
     ts = eng.train_set
     digest = getattr(ts, "_data_digest", None)
+    if digest is None and getattr(ts, "_shard", None) is not None \
+            and eng.comm is not None:
+        # one rank's shard: rank 0 holds the world's first rows; it
+        # hashes them with the world's labels and every rank joins the
+        # broadcast
+        from ..parallel.hostsync import host_broadcast_bytes
+        payload = None
+        if eng.comm.rank == 0:
+            from ..data.ingest import dataset_digest
+            payload = dataset_digest(
+                np.asarray(eng._glabel, np.float64),
+                ts._bins[:64].cpu().numpy()).encode()
+        digest = host_broadcast_bytes(payload,
+                                      "spmd/dataset_digest").decode()
     if digest is None:
         from ..data.ingest import dataset_digest
         digest = dataset_digest(
             np.asarray(ts.get_label(), np.float64),
             ts._bins[:64].cpu().numpy())
-    fp = {"n": int(eng.n), "F": int(ts.num_features()), "K": int(eng.K),
-          "digest": digest}
+    fp = {"n": int(eng.n_global), "F": int(ts.num_features()),
+          "K": int(eng.K), "digest": digest}
     eng._ckpt_data_fp = fp
     return fp
 
@@ -189,6 +222,14 @@ _FINGERPRINT_IGNORE = {"num_iterations", "input_model", "output_model",
                        "snapshot_freq", "data", "valid", "output_result",
                        "shard_residency", "split_search",
                        "fused_scan_iters", "device_type"}
+
+
+def _row_bounds(eng) -> List[List[int]]:
+    """``[lo, hi)`` of every rank's rows of the world's score."""
+    if not eng._sharded_rows:
+        return [[0, int(eng.n_global)]]
+    ends = np.cumsum([0] + list(eng.row_counts))
+    return [[int(a), int(b)] for a, b in zip(ends[:-1], ends[1:])]
 
 
 def _params_fingerprint(params) -> Dict[str, str]:
@@ -355,9 +396,10 @@ def _restore_generators(eng, snap: Dict[str, Any], iteration: int) -> None:
                 f"fit this run's {gen.device.type} generator (a snapshot "
                 "written on another device type)") from e
     if cache_needed:
-        bits = np.unpackbits(snap["cached_bag"])[:eng.n]
-        eng._cached_bag = torch.as_tensor(bits.astype(np.float32),
-                                          device=eng.device)
+        bits = np.unpackbits(snap["cached_bag"])[:eng.n_global]
+        lo = eng.row_lo if eng._sharded_rows else 0
+        eng._cached_bag = torch.as_tensor(
+            bits[lo:lo + eng.n].astype(np.float32), device=eng.device)
 
 
 def _restore_tree_precision(trees, snap: Dict[str, Any]) -> None:
@@ -411,11 +453,26 @@ def restore_booster(booster, snap: Dict[str, Any]) -> int:
     if "tree_shrinkage" in snap:
         _restore_tree_precision(trees, snap)
     score = np.asarray(snap["score"], np.float32)
-    if score.shape != (eng.K, eng.n):
+    if score.shape != (eng.K, eng.n_global):
         raise LightGBMError(
             f"checkpoint {snap.get('path')}: score shape {score.shape} "
-            f"does not match this training set [{eng.K}, {eng.n}] — "
-            "was the checkpoint written against different data?")
+            f"does not match this training set [{eng.K}, {eng.n_global}] "
+            "— was the checkpoint written against different data?")
+    if eng._sharded_rows:
+        # this rank's rows of the world's score, checked against their
+        # fingerprint when the snapshot's world had this layout
+        bounds = _row_bounds(eng)
+        lo, hi = bounds[eng.comm.rank]
+        fps = snap.get("score_shard_fingerprints")
+        if fps is not None and len(fps) == len(bounds):
+            from ..parallel import placement
+            mine = placement.shard_fingerprints(score, bounds)
+            if mine[eng.comm.rank] != fps[eng.comm.rank]:
+                raise LightGBMError(
+                    f"checkpoint {snap.get('path')}: rank "
+                    f"{eng.comm.rank}'s rows of the score do not match "
+                    "their shard fingerprint")
+        score = score[:, lo:hi]
     iteration = int(snap["iteration"])
     _restore_generators(eng, snap, iteration)
     eng.preload_models(trees, score=score)
@@ -460,7 +517,24 @@ class Checkpoint:
         if it <= 0 or (not last and self.every_n_iters > 1
                        and it % self.every_n_iters != 0):
             return
-        path = write_snapshot(self.directory, env.model, keep=self.keep)
+        score_host = bag_host = None
+        if eng.comm is not None:
+            # every rank holds the same model: check that, then every
+            # rank joins the gathers above the rank gate; rank 0 writes
+            from ..parallel import placement
+            from ..parallel.spmd import verify_step_consistency
+            verify_step_consistency(it, len(eng.models))
+            _dataset_fingerprint(eng)
+            if eng._sharded_rows:
+                score_host = placement.fetch_global(eng.score, eng.comm,
+                                                    eng.row_counts)
+                if eng._cached_bag is not None:
+                    bag_host = placement.fetch_global(
+                        eng._cached_bag, eng.comm, eng.row_counts)
+            if eng.comm.rank != 0:
+                return
+        path = write_snapshot(self.directory, env.model, keep=self.keep,
+                              score_host=score_host, bag_host=bag_host)
         log_info(f"checkpoint: wrote {path}")
 
 

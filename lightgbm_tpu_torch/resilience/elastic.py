@@ -9,12 +9,13 @@ Two supervision shapes:
   whole world is relaunched; with ``LIGHTGBM_TPU_CHECKPOINT`` exported
   (or ``--checkpoint-dir``) every relaunch resumes from the newest
   snapshot, so the restarted run ends on the model an uninterrupted
-  one gives. The port has no multi-process world yet (ROADMAP.md Queue
-  1 item 20): a world of more than one rank raises
-  ``NotImplementedError``; one rank is a supervised single-process run,
-  which is what ``pipeline`` trains each generation under::
+  one gives. Each rank's worker joins the world with a bare
+  ``parallel.distributed.init_distributed()`` (the exported
+  ``LIGHTGBM_TPU_COORDINATOR`` / ``_NUM_PROCS`` / ``_RANK``); one rank
+  is a supervised single-process run, which is what ``pipeline`` trains
+  each generation under::
 
-      python -m lightgbm_tpu_torch launch 1 --checkpoint-dir ckpt -- python train.py
+      python -m lightgbm_tpu_torch launch 4 --checkpoint-dir ckpt -- python train.py
 
 - **Fleet restart** (:func:`supervise_fleet`, ``--health-port``; the
   serving shape): the ranks are independent replicas, so only the dead
@@ -74,9 +75,6 @@ from ..obs.schemas import one_shot_fault_kinds as _one_shot_kinds
 _ONE_SHOT_KINDS = _one_shot_kinds()
 
 _POLL_SECONDS = 0.2
-
-#: the ROADMAP.md Queue 1 item that brings worlds of more than one rank
-_WORLD_ITEM = 20
 
 #: jittered exponential backoff shape between restarts (the JAX
 #: package's init_distributed retry curve)
@@ -570,17 +568,10 @@ def supervise(nprocs: int, cmd: Sequence[str], max_restarts: int = 3,
     from a :class:`RestartBudget` (total cap + optional sliding
     window) and each one waits out a jittered exponential backoff so
     a crash-looping world cannot thrash coordinator ports at full
-    speed. A world of more than one rank raises
-    ``NotImplementedError`` (ROADMAP.md Queue 1 item 20).
+    speed.
     """
     if nprocs < 1:
         raise ValueError("nprocs must be >= 1")
-    if nprocs > 1:
-        raise NotImplementedError(
-            f"launch {nprocs} without --health-port is a world of "
-            f"{nprocs} ranks, which is not in the port yet (ROADMAP.md "
-            f"Queue 1 item {_WORLD_ITEM}: distributed training); one "
-            "rank, or --health-port for a fleet of serve replicas, runs")
     if not cmd:
         raise ValueError("no worker command given (pass it after --)")
     base_env = dict(os.environ if env is None else env)
@@ -1147,9 +1138,9 @@ def supervise_fleet(nprocs: int, cmd: Sequence[str],
 _HELP_EPILOG = """\
 The worker command runs once per rank with LIGHTGBM_TPU_COORDINATOR /
 LIGHTGBM_TPU_NUM_PROCS / LIGHTGBM_TPU_RANK exported. Without
---health-port the ranks form one world, and the port runs a world of
-one rank only (a supervised single-process run; more ranks are
-ROADMAP.md Queue 1 item 20). Export LIGHTGBM_TPU_CHECKPOINT=<dir> (or
+--health-port the ranks form one world (each joins it with
+parallel.distributed.init_distributed()). Export
+LIGHTGBM_TPU_CHECKPOINT=<dir> (or
 pass --checkpoint-dir) so every restart resumes from the newest
 snapshot. With --health-port the ranks are independent serve replicas
 (python -m lightgbm_tpu_torch serve ... --port <health-port>).

@@ -30,17 +30,21 @@ The lifecycle kinds of model publication and serving:
   when ``LIGHTGBM_TPU_RANK`` is in ``LIGHTGBM_TPU_FAULT_RANK`` (default
   ``0``).
 
-``rank_kill@N`` — ``SIGKILL`` the training process at the start of
-iteration ``N`` (``-1``: in streaming ingest, before the mappers are
-found) when its rank is in ``LIGHTGBM_TPU_FAULT_RANK`` (default ``0``);
-the supervised restart (``resilience/elastic.py``) strips it from the
-relaunch's environment. A run of the port is one process, so its rank
-is 0, as ``jax.process_index()`` is in a JAX process that never joined
-a world.
+The distributed kinds (a world of ranks, ``parallel/``), gated on
+``LIGHTGBM_TPU_FAULT_RANK`` (a comma list of ranks, default ``0``)
+against the rank of the world this process joined (0 outside one):
 
-The other distributed kinds (``stall_rank``, ``init_refuse``) are
-ROADMAP.md Queue 1 item 20: a plan naming one raises
-``NotImplementedError`` when it is built.
+- ``rank_kill@N`` — ``SIGKILL`` the training process at the start of
+  iteration ``N`` (``-1``: in streaming ingest, before the mappers are
+  found); the supervised restart (``resilience/elastic.py``) strips it
+  from the relaunch's environment;
+- ``stall_rank@N`` — the selected rank records a fault event and sleeps
+  forever at the start of iteration ``N``: alive, so no transport error
+  surfaces, and only the peers' collective watchdog
+  (``resilience/watchdog.py``) catches it;
+- ``init_refuse@K`` — ``init_distributed`` raises a synthetic
+  connection-refused error on its first ``K`` attempts (a coordinator
+  not up yet), on every rank.
 
 The fault-event log (:data:`FAULT_EVENTS` and each engine's
 ``fault_log``) keeps the JAX package's event schema, its cap of 512 and
@@ -58,15 +62,12 @@ from typing import Dict, List, Tuple
 
 from ..obs.schemas import injectable_fault_kinds
 
-__all__ = ["FaultPlan", "InjectedResourceExhausted",
+__all__ = ["FaultPlan", "InjectedResourceExhausted", "InjectedInitRefused",
            "is_resource_exhausted", "append_fault_event",
            "record_fault_event", "drain_events", "FAULT_EVENTS",
            "NF_CLAMP", "nf_clamp"]
 
 _KNOWN_KINDS = injectable_fault_kinds()
-
-#: the kinds of a later ROADMAP.md Queue 1 item, by item
-_LATER_KINDS = {"stall_rank": 20, "init_refuse": 20}
 
 #: the finite ceiling of ``nonfinite_policy=clamp`` (the JAX package's
 #: ``_NF_CLAMP``)
@@ -133,6 +134,11 @@ class InjectedResourceExhausted(RuntimeError):
     ``RESOURCE_EXHAUSTED`` marker the classifier keys on."""
 
 
+class InjectedInitRefused(RuntimeError):
+    """Synthetic coordinator-not-up failure: carries the ``connection
+    refused`` marker ``init_distributed``'s retry classifier keys on."""
+
+
 def is_resource_exhausted(exc: BaseException) -> bool:
     """True for the caching allocator's ``torch.OutOfMemoryError``, for
     device allocation failures by message (``RESOURCE_EXHAUSTED``, "out
@@ -166,13 +172,11 @@ class FaultPlan:
                 raise ValueError(
                     f"unknown fault-injection kind {kind!r} "
                     f"(known: {', '.join(_KNOWN_KINDS)})")
-            if kind in _LATER_KINDS:
-                raise NotImplementedError(
-                    f"fault-injection kind {kind!r} is not in the port "
-                    f"yet (ROADMAP.md Queue 1 item {_LATER_KINDS[kind]})")
             self._events.setdefault(kind, []).append(int(it))
         for lst in self._events.values():
             lst.sort()
+        # init_refuse@K: refuse the first K connection attempts
+        self._init_refusals_left = sum(self._events.get("init_refuse", ()))
 
     @classmethod
     def from_env(cls) -> "FaultPlan":
@@ -216,20 +220,47 @@ class FaultPlan:
     @staticmethod
     def _rank_selected() -> bool:
         """Is this process one of the fault-target ranks
-        (``LIGHTGBM_TPU_FAULT_RANK``, comma list, default ``0``)? The
-        port has no multi-process world yet (ROADMAP.md Queue 1 item
-        20), so its rank is 0."""
+        (``LIGHTGBM_TPU_FAULT_RANK``, comma list, default ``0``)? Its
+        rank is the one of the world it joined (``parallel/``), 0
+        outside a world; only queried when a distributed kind is
+        armed."""
         targets = {int(r) for r in
                    os.environ.get("LIGHTGBM_TPU_FAULT_RANK",
                                   "0").split(",") if r.strip()}
-        return 0 in targets
+        from ..parallel.mesh import world_rank
+        return world_rank() in targets
 
     def maybe_distributed_fault(self, iteration: int) -> None:
-        """Fire ``rank_kill`` if armed for this iteration and this
-        process is a selected rank: ``SIGKILL``, like ``kill``."""
+        """Fire ``rank_kill`` / ``stall_rank`` if armed for this
+        iteration and this process is a selected rank. ``rank_kill``
+        SIGKILLs (like ``kill``); ``stall_rank`` records a fault event
+        and then sleeps forever — the straggler the peers' collective
+        watchdog must catch, because no transport error will."""
         if self.fires("rank_kill", iteration) and self._rank_selected():
             self.take("rank_kill", iteration)
             os.kill(os.getpid(), signal.SIGKILL)
+        if self.fires("stall_rank", iteration) and self._rank_selected():
+            self.take("stall_rank", iteration)
+            record_fault_event(
+                "stall_rank", iteration=iteration, action="stall",
+                detail="injected infinite stall "
+                       "(LIGHTGBM_TPU_FAULT_INJECT)")
+            while True:
+                time.sleep(3600.0)
+
+    def maybe_refuse_init(self) -> None:
+        """Raise one synthetic connection-refused error per remaining
+        ``init_refuse`` budget — the coordinator-not-up failure
+        ``init_distributed``'s retry loop must absorb."""
+        if self._init_refusals_left > 0:
+            self._init_refusals_left -= 1
+            record_fault_event(
+                "init_refuse", action="retry",
+                detail="injected coordinator connection refusal "
+                       "(LIGHTGBM_TPU_FAULT_INJECT)")
+            raise InjectedInitRefused(
+                "connection refused: injected coordinator-not-up "
+                "failure (LIGHTGBM_TPU_FAULT_INJECT)")
 
     @staticmethod
     def _replica_selected() -> bool:

@@ -38,6 +38,7 @@ import os
 import shutil
 import signal
 import subprocess
+import tempfile
 import sys
 from pathlib import Path
 
@@ -351,9 +352,11 @@ FRESH = {
                     "lightgbm_tpu_torch launch' in out"),
     "pipeline_help": ("pipeline", ["--help"], "rc == 0 and 'usage: python "
                       "-m lightgbm_tpu_torch pipeline' in out"),
-    "launch_world": ("launch", ["2", "--", "x"],
-                     "isinstance(err, NotImplementedError) and 'item 20' "
-                     "in str(err)"),
+    # a world of two ranks: the supervisor spawns them without torch
+    # (here a worker command that does not exist)
+    "launch_world": ("launch", ["2", "--log-dir", os.path.join(
+        tempfile.gettempdir(), "lgbm_torch_launch_world"), "--",
+        "no-such-worker-command"], "isinstance(err, FileNotFoundError)"),
 }
 
 

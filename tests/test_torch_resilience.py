@@ -266,14 +266,6 @@ def test_fault_plan_rejects_like_jax(spec, error):
         FaultPlan(spec)
 
 
-@pytest.mark.parametrize("kind,item", [
-    ("stall_rank", 20), ("init_refuse", 20)])
-def test_unported_fault_kinds_name_their_item(kind, item):
-    JaxFaultPlan(f"{kind}@1")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        FaultPlan(f"{kind}@1")
-
-
 # ---- the OOM ladder ----------------------------------------------------
 
 def test_oom_rung_matches_jax(monkeypatch, jax_root_totals):

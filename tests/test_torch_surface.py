@@ -504,16 +504,11 @@ def _pushed():
                                       categorical_feature=["a"])
                  .construct(), "18", "cannot be resolved",
                  id="call4-18"),
-    pytest.param(lambda: tlgb.Dataset(np.zeros((3, 2)), label=[0, 1, 0],
-                                      params=CPU).free_host_bins(), "20",
-                 "item 20", id="call5-20"),
 ])
 def test_streaming_and_placement_are_refused(call, item, match):
     """Misuse of the streaming API (item 18, ported) is refused with the
-    JAX package's LightGBMError; placement (item 20) is still refused
-    with a NotImplementedError that names its item."""
-    exc = tlgb.LightGBMError if item == "18" else NotImplementedError
-    with pytest.raises(exc, match=match):
+    JAX package's LightGBMError."""
+    with pytest.raises(tlgb.LightGBMError, match=match):
         call()
 
 
@@ -530,15 +525,14 @@ def test_streaming_apis_construct(call):
 
 def test_booster_refusals_name_their_items(pair, tmp_path):
     X, y, _, tb = pair
-    # compile is in the port (item 19, first part); the network is not
+    # compile is in the port (item 19, first part), and so is the
+    # network (item 20): one machine joins nothing, as in the JAX package
     eager = tb.predict(X)
     cf = tb.compile()
     np.testing.assert_array_equal(cf.predict(X), eager)
     tb._compiled_forest = None
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tb.set_network("127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tb.free_network()
+    assert tb.set_network("127.0.0.1:1") is tb
+    assert tb.free_network() is tb
     # keep_training_booster is accepted and changes nothing
     a = tlgb.train({**P, **CPU}, tlgb.Dataset(X, label=y, params=CPU), 1,
                    keep_training_booster=True)

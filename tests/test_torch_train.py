@@ -345,7 +345,11 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
         "obs/recorder.py", "obs/trace.py", "resilience/__init__.py",
         "resilience/faults.py", "resilience/checkpoint.py",
         "resilience/store.py", "resilience/publisher.py",
-        "obs/jit_tracker.py", "serve/daemon.py")} <= scanned
+        "obs/jit_tracker.py", "serve/daemon.py", "resilience/watchdog.py",
+        "parallel/__init__.py", "parallel/mesh.py",
+        "parallel/distributed.py", "parallel/hostsync.py",
+        "parallel/spmd.py", "parallel/comms.py",
+        "parallel/data_parallel.py", "parallel/placement.py")} <= scanned
     for path in _py_files():
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
@@ -399,25 +403,6 @@ print("CLEAN")
     assert "CLEAN" in out.stdout
 
 
-def _tiny():
-    return tlgb.Dataset(np.zeros((4, 2)), label=[0, 1, 0, 1], params=CPU)
-
-
-def _tiny_booster():
-    X = np.random.RandomState(0).randn(100, 2)
-    return tlgb.train({"objective": "binary", "num_leaves": 3, "verbosity": -1,
-                       **CPU}, tlgb.Dataset(X, label=X[:, 0] > 0), 1)
-
-
-# the JAX package's public names the port has but refuses, each with the
-# ROADMAP.md Queue 1 item that brings it, and a call that must raise so
-REFUSED = {
-    "Dataset.free_host_bins": (20, lambda: _tiny().free_host_bins()),
-    "Booster.set_network": (20, lambda: _tiny_booster().set_network("a")),
-    "Booster.free_network": (20, lambda: _tiny_booster().free_network()),
-}
-
-
 # the JAX package's public Dataset methods that are hooks of its own
 # grower, not API: the port has none of them, and says here why
 INTERNAL = {
@@ -439,8 +424,8 @@ def _public(obj):
 def test_public_surface_covers_the_jax_package():
     """Every public name of the JAX package (its ``__all__``, its
     ``basic`` module's, and the methods of ``Dataset`` and ``Booster``)
-    is in the port, ported or in REFUSED, or a grower hook in INTERNAL
-    (which the port must not have)."""
+    is in the port, or a grower hook in INTERNAL (which the port must not
+    have)."""
     import lightgbm_tpu.basic as jax_basic
     import lightgbm_tpu_torch.basic as port_basic
     missing = (set(jlgb.__all__) - set(tlgb.__all__)) \
@@ -454,13 +439,6 @@ def test_public_surface_covers_the_jax_package():
         assert getattr(tlgb, name) is not None
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED))
-def test_refused_names_raise_naming_their_roadmap_item(name):
-    item, call = REFUSED[name]
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        call()
-
-
 def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     X = np.random.RandomState(0).randn(100, 3)
@@ -471,9 +449,6 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
 
 
 @pytest.mark.parametrize("params", [
-    {"tree_learner": "data"},
-    {"num_machines": 2},
-    {"shard_residency": "device"},
     {"chunk_rows": 8192},
     {"hist_method": "pallas"},
     {"reg_sqrt": True},
