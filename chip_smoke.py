@@ -65,6 +65,20 @@ Phases, in order; any failure exits non-zero:
              window; with --parent in turns); one profiled iteration
              (device events only); AUC against the same training with
              the kernels' plain versions forced;
+5'. cost   — cost attribution (obs/cost.py) of train's booster, from
+             the compile events its training emitted (no training of
+             its own): ops/grow_tree, ops/pallas_hist and ops/partition
+             each have an event with bytes and an optimal ms, each
+             within its declared max_signatures; K1's and K2's optimal
+             ms at the root window equal the kernels line's bound_ms;
+             each entry's optimal ms beside train's profiled iteration
+             (kernel names mapped to entries) and the ``stats`` cost
+             section of a telemetry file of the events, beside the
+             card's name and power limit. The port's lint, started in
+             two subprocesses beside the build: ``python -m
+             lightgbm_tpu_torch lint --strict`` must import no torch
+             (``-X importtime``) and end clean, and ``lint --ir
+             --strict`` on the CPU must end clean;
 6. train_quant — quantized-gradient training on the same data
              (use_quantized_grad, 4 bins, stochastic rounding, leaf
              renewal, seed 0): the same measurements but no profiled
@@ -94,12 +108,13 @@ Phases, in order; any failure exits non-zero:
              between device synchronizes), histogram wire bytes per
              split against comms.payload_bytes, the int8 quantization's
              ms (CUDA events) and each rank's allocator peak. Faults at
-             100,000 rows: stall_rank@2 under a 20 s watchdog (the
-             survivor exits 13 naming spmd/verify_step and rank 1;
-             nothing left running) beside a clean ``launch 2``, then
-             ``launch 2`` under init_refuse@1,rank_kill@3, whose model
-             must be byte-equal to the clean one's. With two cards or
-             more, world A again on NCCL, a rank per card;
+             100,000 rows, started first and run beside world A and the
+             twins: stall_rank@2 under a 20 s watchdog (the survivor
+             exits 13 naming spmd/verify_step and rank 1; nothing left
+             running) beside a clean ``launch 2``, and ``launch 2`` under
+             init_refuse@1,rank_kill@3, whose model must be byte-equal
+             to the clean one's. With two cards or more, world A again
+             on NCCL, a rank per card;
 6a. resilience — crash recovery, the guard, the OOM ladder and
              telemetry on the same Dataset and parameters: 2 iterations
              with the checkpoint and telemetry callbacks, then a resume
@@ -252,11 +267,17 @@ Phases, in order; any failure exits non-zero:
 6l. pipeline — `python -m lightgbm_tpu_torch pipeline --device-type
              cuda` at the main path's width (28 features, 255 leaves,
              binary, 3 generations of 5 rounds, ingest_chunk_rows
-             65,536), the JAX package's two slow acceptance runs. First
-             the in-process twins of run A's generation 0 and of its
-             uninterrupted continuation (launches counted: the phase's
-             K1 and K2 calls). Run A (tests/test_pipeline.py's chaos run;
-             500,000 rows a generation, 10.5M reduced) under
+             65,536), the JAX package's two slow acceptance runs. First,
+             after resilience, the in-process twins of run A's
+             generation 0 and of its uninterrupted continuation
+             (launches counted: the phase's K1 and K2 calls); then runs
+             A and B, one after the other, on the lane (a thread of its
+             own, then the examples' CLI runs of 9h) beside the phases
+             from train_valid to surface_examples (their figures are
+             taken beside them; the lane runs nothing on the card in
+             this process), held after surface_examples. Run A
+             (tests/test_pipeline.py's chaos run;
+             250,000 rows a generation, 10.5M reduced) under
              rank_kill@7, publish_torn@1 and serve_kill@12 at 15
              requests/s: no failure, 3 generations published, 2 swaps
              confirmed, the replica on the last sha, no client timeout,
@@ -266,7 +287,7 @@ Phases, in order; any failure exits non-zero:
              (killed and resumed) to the uninterrupted continuation; 64
              requests after the run, each reply's raw scores within 1e-6
              of the model it names. Run B (tests/test_fleet.py's;
-             200,000 rows; --swap-timeout 30, not 240: PIPE_B says
+             100,000 rows; --swap-timeout 30, not 240: PIPE_B says
              why) under store_outage@1 and publish_poison@2
              with a 60 requests/s spike on 1-3 replicas: scaled up and
              down, a peak of 2 or more, one rollback, the fleet on the
@@ -365,12 +386,12 @@ Phases, in order; any failure exits non-zero:
 9h. surface_examples — examples/generate_data.py's data; the four
              examples/*/train.conf through ``python3 -m
              lightgbm_tpu_torch config=train.conf num_trees=25`` (four
-             processes at once), then predict.conf or task=predict; predictions equal
+             processes at once), then predict.conf or task=predict, on
+             the lane after the pipeline's runs; predictions equal
              to a numpy walk of the model text (1e-5) and quality above
              tests/test_examples.py's floors; LGBMRegressor, LGBMRanker
              with group, LGBMClassifier with string labels and
-             class_weight="balanced" on the same data, in process while
-             the trainings run;
+             class_weight="balanced" on the same data, in process;
 10. report — the card's name and power limit, then one JSON line with
              every kernel's launches (by path), times, bound and library
              time.
@@ -411,13 +432,13 @@ import numpy as np
 # the range rule's "no upper bound" (K2's hi for a plain split)
 INT_MAX = 2 ** 31 - 1
 
-# H100 SXM published peaks (NVIDIA data sheet; dense, 700 W)
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-# scalar int32 adds: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (the
-# data sheet lists no scalar int32 rate; FP32's 67e12 counts an FMA as
-# two operations on 128 lanes)
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# H100 SXM published peaks and the kernels' bounds: one copy, in the
+# port's cost attribution (obs/cost.py), which the kernels line and the
+# cost phase both read
+from lightgbm_tpu_torch.obs.cost import (  # noqa: E402
+    H100_FP32_OPS_PER_S as FP32_OPS_PER_S,
+    H100_HBM_BYTES_PER_S as HBM_BYTES_PER_S,
+    H100_INT32_OPS_PER_S as INT32_OPS_PER_S, k1_bound, k2_bound)
 
 # trees in each small run (correctness, not timed)
 SMALL_TREES = 2
@@ -657,7 +678,9 @@ def numpy_predict_raw(text, X, K=1):
 
 
 def log(msg):
-    print(msg, flush=True)
+    # one write a line: the pipeline's runs log from a thread of their own
+    sys.stdout.write(f"{msg}\n")
+    sys.stdout.flush()
 
 
 def events_ms(fn, reps, torch):
@@ -949,15 +972,6 @@ def k1_plan(S, F, B, bin_bytes, int_path, pay_bytes, ops_per_s, num_sms):
                f"reread_bound_ms={reread:.5f}")
 
 
-def _k1_bound(S, F, bin_bytes, pay_bytes, B, ops_per_s):
-    """(bound_ms, bound_by): each input read once, the [F, B, 2] 4-byte
-    output written once; one add per (row, feature, channel)."""
-    nbytes = S * F * bin_bytes + S * pay_bytes + F * B * 2 * 4
-    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, S * F * 2 / ops_per_s
-    return 1e3 * max(bytes_s, ops_s), ("bytes" if bytes_s >= ops_s
-                                       else "operations")
-
-
 def phase_k1(torch, dev, root_rows, reps):
     from lightgbm_tpu_torch.ops.histogram import hist_plain, window_hist
     from lightgbm_tpu_torch.ops.partition import partition_window
@@ -1026,7 +1040,7 @@ def phase_k1(torch, dev, root_rows, reps):
                 torch.bincount(flat, weights=w, minlength=F * B)
 
         lib_ms, _ = timed_ms(library, max(3, reps // 3), torch, S)
-        bound_ms, bound_by = _k1_bound(S, F, rows.element_size(), 8, B,
+        bound_ms, bound_by = k1_bound(S, F, rows.element_size(), 8, B,
                                        FP32_OPS_PER_S)
         plan, plan_msg = k1_plan(S, F, B, rows.element_size(), False, 8,
                                  FP32_OPS_PER_S, sms)
@@ -1144,7 +1158,7 @@ def phase_k1_int(torch, dev, root_rows, reps):
         if not torch.equal(lib_out.reshape(F, B, 2), k):
             raise AssertionError(f"K1 int {label}: scatter_add_ != kernel")
         lib_ms, _ = timed_ms(library, max(3, reps // 3), torch, S)
-        bound_ms, bound_by = _k1_bound(S, F, rows.element_size(), 2, B,
+        bound_ms, bound_by = k1_bound(S, F, rows.element_size(), 2, B,
                                        INT32_OPS_PER_S)
         plan, plan_msg = k1_plan(S, F, B, rows.element_size(), True, 2,
                                  INT32_OPS_PER_S, sms)
@@ -1233,12 +1247,6 @@ def phase_k1_ragged(torch, dev):
                              "gradient channel NaN")
     log("[k1_ragged] a non-finite gradient -> NaN gradient channel, "
         "finite hessians")
-
-
-def _k2_bound(S, F, bin_bytes, pay_bytes):
-    """K2's bound: the window's rows (bins, payload, a 4-byte id) read
-    once and written once."""
-    return 1e3 * 2 * S * (F * bin_bytes + pay_bytes + 4) / HBM_BYTES_PER_S
 
 
 def _k2_pay(torch, dev, n, kind, gen):
@@ -1518,7 +1526,7 @@ def phase_k2(torch, dev, root_rows, reps):
         if timed:
             ms, method = timed_ms(run(partition_window), reps, torch, S)
             plain_ms, _ = timed_ms(run(partition_plain), reps, torch, S)
-            bound_ms = _k2_bound(S, F, bb, pb)
+            bound_ms = k2_bound(S, F, bb, pb)
             shapes.append(dict(shape=label, rows=S, features=F, payload=kind,
                                n_left=nl, path=plan.path,
                                plan=plan._asdict(), max_abs_err=0.0, ms=ms,
@@ -1687,7 +1695,7 @@ def phase_bundled_kernels(torch, dev, info, rules, tag, reps,
     # bincount reads its input's maximum back to the host: plain events
     lib_ms = events_ms(library, max(3, reps // 3), torch)
     del flat, weights
-    bound_ms, bound_by = _k1_bound(S, G, bb, 8, B, FP32_OPS_PER_S)
+    bound_ms, bound_by = k1_bound(S, G, bb, 8, B, FP32_OPS_PER_S)
     plan, plan_msg = k1_plan(S, G, B, bb, False, 8, FP32_OPS_PER_S, sms)
     out["k1"] = dict(shape=label, rows=S, features=G, bins=B, plan=plan,
                      held_to="plain", max_abs_err=float(err.max()),
@@ -1715,7 +1723,7 @@ def phase_bundled_kernels(torch, dev, info, rules, tag, reps,
         raise AssertionError(f"K1 int {label}: scatter_add_ != kernel")
     lib_ms = queued_ms(lib, max(3, reps // 3), torch)
     del lib, lib_out
-    bound_ms, bound_by = _k1_bound(S, G, bb, 2, B, INT32_OPS_PER_S)
+    bound_ms, bound_by = k1_bound(S, G, bb, 2, B, INT32_OPS_PER_S)
     plan, plan_msg = k1_plan(S, G, B, bb, True, 2, INT32_OPS_PER_S, sms)
     out["k1_int"] = dict(shape=label, rows=S, features=G, bins=B,
                          plan=plan, max_abs_err=0.0, ms=ms, method=method,
@@ -1772,7 +1780,7 @@ def phase_bundled_kernels(torch, dev, info, rules, tag, reps,
                 ms = queued_ms(lambda: call(partition_window), reps, torch)
                 plain_ms = queued_ms(lambda: call(partition_plain), reps,
                                      torch)
-                bound_ms = _k2_bound(S, G, bb, pb)
+                bound_ms = k2_bound(S, G, bb, pb)
                 out["k2"].append(dict(
                     shape=f"{label}_{kind}", rows=S, features=G,
                     payload=kind, n_left=int(res[2][0]), path=kp.path,
@@ -1930,7 +1938,7 @@ def phase_k2_turns(torch, dev, bins, tree, used, nan_bins, reps,
         check_nls(nls, f"plain {kind}")
         bound = {b: 0.0 for b, _, _ in K2_BUCKETS}
         for sp in splits:
-            bound[bucket_of(sp["cnt"])] += _k2_bound(sp["cnt"], F, bb, pb)
+            bound[bucket_of(sp["cnt"])] += k2_bound(sp["cnt"], F, bb, pb)
         for name, pw in impls:
             bufs = fresh(pay)
             nls = []
@@ -2202,7 +2210,14 @@ def phase_train(torch, lgb, dev, n_train, iters, reps, parent):
     torch.cuda.synchronize()
     construct_s = time.perf_counter() - t0
     log(f"[train] construct_s={construct_s:.3f}")
+    # the cost phase reads this booster's compile events alone: the
+    # kernel phases' signatures are forgotten and their events dropped
+    from lightgbm_tpu_torch.obs import cost
+    cost.drain_compile_events()
+    cost.clear_signatures()
     r = _drive(torch, lgb, dev, params, ds, Xv, yv, iters, "train")
+    r["compile_events"] = cost.drain_compile_events()
+    r["signatures"] = cost.signature_counts()
     _check_counts("train", r["counts"], r["leaves"], "hist")
     tree = r["bst"]._models[0]
     wins = replay_windows(tree)
@@ -3754,8 +3769,8 @@ def phase_serve_daemon(torch, lgb, dev, tr, serve_lat):
 PIPE_SEED = 7
 PIPE_ROUNDS = 5
 PIPE_CHUNK = 65_536
-PIPE_ROWS_A = 500_000
-PIPE_ROWS_B = 200_000
+PIPE_ROWS_A = 250_000
+PIPE_ROWS_B = 100_000
 PIPE_PARAM = "publish_backoff_sec=2"
 PIPE_WAIT_S = 420
 PIPE_FLAGS = ["--generations", "3", "--rounds", str(PIPE_ROUNDS),
@@ -4032,16 +4047,18 @@ def _serve_peaks(work):
     return out
 
 
-def phase_pipeline(torch, lgb, dev, card):
+def phase_pipeline_start(torch, lgb, dev, card):
     """``python -m lightgbm_tpu_torch pipeline --device-type cuda`` at
     the main path's width (28 features, 255 leaves, binary), run A and
     run B of docstring 6l, with the in-process twins of run A's first
     two generations. ``card``: nvidia-smi's name and power limit,
-    printed beside every figure."""
+    printed beside every figure.
+
+    The twins run here; runs A and B run on the lane (:class:`Lane`)
+    beside the in-process phases that follow: this returns the phase's
+    state and the lane's job, and :func:`phase_pipeline_finish` holds
+    the runs once the lane has ended."""
     from lightgbm_tpu_torch.ops import _cuda
-    from lightgbm_tpu_torch.resilience.elastic import replica_rpc
-    from lightgbm_tpu_torch.resilience.publisher import load_manifest
-    from lightgbm_tpu_torch.serve.compile import compile_forest
     t_phase = time.perf_counter()
     built = {p.name: p.stat().st_mtime_ns
              for p in _cuda.BUILD_DIR.glob("*.so")}
@@ -4070,6 +4087,122 @@ def phase_pipeline(torch, lgb, dev, card):
         f"leaves={leaves} launches={json.dumps(counts)} ({card})")
 
     root = tempfile.mkdtemp(prefix="pipeline_")
+    pipe = dict(out=out, root=root, twins_s=time.perf_counter() - t_phase)
+
+    def job():
+        _pipeline_runs(dev, card, root, text0, text1, built, out)
+    return pipe, job
+
+
+def phase_pipeline_finish(lgb, dev, pipe, lane, card):
+    """Hold the pipeline's runs A and B (:func:`phase_pipeline_start`),
+    once ``lane`` has ended: run A's replies against this process's
+    predictions, and the phase's seconds."""
+    if lane.error is not None:
+        raise lane.error
+    out = pipe["out"]
+    _pipeline_replies(lgb, dev, *out.pop("A_replies"))
+    out["phase_s"] = pipe["twins_s"] + out["runs_s"]
+    log(f"[pipeline] seconds {out['phase_s']:.1f}: the twins "
+        f"{pipe['twins_s']:.1f} s, then runs A and B {out['runs_s']:.1f} s "
+        f"on the lane, beside the phases that followed ({card})")
+    return out
+
+
+class Lane:
+    """Jobs run one after the other on a thread of their own, beside the
+    in-process phases: the pipeline's runs and the examples' CLI
+    processes, which wait on process starts and the clock rather than on
+    this process. A job runs nothing on the card in this process (a
+    profiled window of a phase beside it would count its kernels).
+    :meth:`join` waits for the jobs and raises what one raised;
+    :meth:`stop` kills the processes of a lane still running."""
+
+    def __init__(self, jobs, roots, clis):
+        import threading
+        self.jobs = jobs
+        # the work directories the jobs' processes name in their command
+        # lines, and the CLI runs they started (start_clis)
+        self.roots = roots
+        self.clis = clis
+        self.error = None
+        self.stopped = False
+        self.seconds = {}
+        self.t0 = time.perf_counter()
+        self.thread = threading.Thread(target=self._run, name="lane",
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        for name, job in self.jobs:
+            if self.stopped:
+                return
+            t0 = time.perf_counter()
+            try:
+                job()
+            except BaseException as exc:
+                self.error = exc
+                return
+            finally:
+                self.seconds[name] = time.perf_counter() - t0
+
+    def join(self, timeout):
+        """Wait for the jobs; returns this process's seconds of waiting."""
+        t0 = time.perf_counter()
+        self.thread.join(timeout=timeout)
+        if self.thread.is_alive():
+            left = self.stop()
+            raise AssertionError(
+                f"lane: {[n for n, _ in self.jobs]} still running "
+                f"{time.perf_counter() - self.t0:.1f} s after their start; "
+                f"killed {left}")
+        if self.error is not None:
+            raise self.error
+        return time.perf_counter() - t0
+
+    def stop(self):
+        """Kill whatever the jobs left running (a failure elsewhere ends
+        the smoke while they run)."""
+        self.stopped = True
+        if not self.thread.is_alive():
+            return []
+        for started in self.clis:
+            stop_clis(started)
+        return [pid for root in self.roots
+                for pid in _stop_run(root, [], wait_s=0)]
+
+
+def _pipeline_replies(lgb, dev, files, replies):
+    """Run A's 64 replies after the run, each against the raw prediction
+    in this process of the generation's model it names."""
+    from lightgbm_tpu_torch.serve.compile import compile_forest
+    boosters = {}
+    for g, path in files.items():
+        b = lgb.Booster(model_file=path, params={"device_type": dev.type})
+        boosters[compile_forest(b).model_id] = (g, b)
+    worst, named = 0.0, []
+    for X, rep in replies:
+        if rep.get("model") not in boosters:
+            raise AssertionError(f"pipeline run A: reply {rep}")
+        g, b = boosters[rep["model"]]
+        named.append(g)
+        worst = max(worst, float(np.abs(
+            np.asarray(rep["predictions"])
+            - b.predict(X, raw_score=True)).max()))
+    log(f"[pipeline] run A: 64 requests after the run, generations "
+        f"named {sorted(set(named))}, max abs err against the "
+        f"in-process raw prediction of the named model {worst:.3g}")
+    if worst > 1e-6 or set(named) != {2}:
+        raise AssertionError("pipeline run A: a reply is off")
+
+
+def _pipeline_runs(dev, card, root, text0, text1, built, out):
+    """Runs A and B of the pipeline phase and their checks, one after
+    the other, on the lane (:class:`Lane`); they fill ``out``."""
+    from lightgbm_tpu_torch.ops import _cuda
+    from lightgbm_tpu_torch.resilience.elastic import replica_rpc
+    from lightgbm_tpu_torch.resilience.publisher import load_manifest
+    t_runs = time.perf_counter()
     # ---- run A: rank_kill@7, publish_torn@1, serve_kill@12
     work = os.path.join(root, "a")
     summary, watch, run_s, ports = _run_pipeline("A", work, PIPE_A, dev, 1)
@@ -4109,31 +4242,20 @@ def phase_pipeline(torch, lgb, dev, card):
         if not (same0 and same1):
             raise AssertionError("pipeline run A: a published model differs "
                                  "from its in-process twin")
-        # 64 requests to the fleet, each held to the model it names
-        boosters = {}
-        for g, path in files.items():
-            b = lgb.Booster(model_file=path, params={"device_type": dev.type})
-            boosters[compile_forest(b).model_id] = (g, b)
+        # 64 requests to the fleet, each held to the model it names by
+        # phase_pipeline_finish: this thread runs nothing on the card (a
+        # profiled window of a phase beside it would count its kernels)
         rs = np.random.RandomState(PIPE_SEED)
-        worst, named = 0.0, []
+        replies = []
         for k in range(64):
             X = rs.uniform(-2, 2, size=(1 + k % 8, FEATURES)).astype(
                 np.float32).astype(np.float64)
             rep = replica_rpc(ports[k % len(ports)],
                               {"rows": X.tolist(), "raw": True}, timeout=30)
-            if not rep or "predictions" not in rep or \
-                    rep.get("model") not in boosters:
+            if not rep or "predictions" not in rep:
                 raise AssertionError(f"pipeline run A: reply {rep}")
-            g, b = boosters[rep["model"]]
-            named.append(g)
-            worst = max(worst, float(np.abs(
-                np.asarray(rep["predictions"])
-                - b.predict(X, raw_score=True)).max()))
-        log(f"[pipeline] run A: 64 requests after the run, generations "
-            f"named {sorted(set(named))}, max abs err against the "
-            f"in-process raw prediction of the named model {worst:.3g}")
-        if worst > 1e-6 or set(named) != {2}:
-            raise AssertionError("pipeline run A: a reply is off")
+            replies.append((X, rep))
+        out["A_replies"] = (files, replies)
         # telemetry: the generations, the relaunch, the replicas, swaps
         gens = _generation_times(work, 3)
         for g, v in gens.items():
@@ -4289,9 +4411,161 @@ def phase_pipeline(torch, lgb, dev, card):
         f"built them)")
     if after != built:
         raise AssertionError("pipeline: a generation rebuilt a kernel")
-    out["phase_s"] = time.perf_counter() - t_phase
-    log(f"[pipeline] seconds {out['phase_s']:.1f} ({card})")
-    return out
+    out["runs_s"] = time.perf_counter() - t_runs
+
+
+COST_ENTRIES = ("ops/grow_tree", "ops/pallas_hist", "ops/partition")
+# profiled kernel names by cost entry
+COST_KERNELS = {"ops/pallas_hist": ("hist_kernel", "hist_convert_kernel"),
+                "ops/partition": ("part_resident", "part_column",
+                                  "part_move")}
+
+
+def start_lint():
+    """Both lint runs in subprocesses, started beside the build (they
+    use the host's cores, never the card): ``lint --strict`` under ``-X
+    importtime`` (whose module list must hold no torch), and ``lint --ir
+    --strict`` on the CPU. :func:`phase_cost` waits for them."""
+    runs = {}
+    for tag, flags, extra in (
+            ("lint", ["-X", "importtime"], {}),
+            ("lint_ir", [], {"CUDA_VISIBLE_DEVICES": ""})):
+        log_path = tempfile.mkstemp(prefix=f"smoke_{tag}_",
+                                    suffix=".log")[1]
+        fh = open(log_path, "w")
+        cmd = [sys.executable, *flags, "-m", "lightgbm_tpu_torch", "lint",
+               *(["--ir"] if tag == "lint_ir" else []), "--strict"]
+        runs[tag] = dict(proc=subprocess.Popen(
+            cmd, stdout=fh, stderr=subprocess.STDOUT,
+            env=_smoke_env(extra)), fh=fh, path=log_path,
+            t0=time.perf_counter(), cmd=" ".join(cmd[1:]))
+    return runs
+
+
+def stop_lint(runs):
+    """Kill what is left of the lint runs (a failure path)."""
+    for r in runs.values():
+        if r["proc"].poll() is None:
+            r["proc"].kill()
+            r["proc"].wait()
+        r["fh"].close()
+
+
+def _finish_lint(runs, card):
+    """Wait for both lint runs; each must exit 0, and the plain one must
+    import no torch (``-X importtime`` lists every module it imported)."""
+    for tag, r in runs.items():
+        rc = r["proc"].wait(timeout=600)
+        r["fh"].close()
+        wall = time.perf_counter() - r["t0"]
+        with open(r["path"]) as fh:
+            text = fh.read()
+        os.unlink(r["path"])
+        lines = [ln for ln in text.splitlines()
+                 if not ln.startswith("import time:")]
+        torch_mods = sorted({ln.rsplit("|", 1)[-1].strip()
+                             for ln in text.splitlines()
+                             if ln.startswith("import time:")
+                             and ln.rsplit("|", 1)[-1].strip().split(
+                                 ".")[0] == "torch"})
+        log(f"[cost] {r['cmd']}: exit {rc}, ended within {wall:.1f} s "
+            f"of its start beside the build; "
+            f"{lines[-1] if lines else 'no output'}"
+            + (f"; torch modules imported: {len(torch_mods)}"
+               if tag == "lint" else "") + f" ({card})")
+        if rc != 0:
+            raise AssertionError(f"{r['cmd']} exited {rc}:\n"
+                                 + "\n".join(lines[-40:]))
+        if tag == "lint" and torch_mods:
+            raise AssertionError(f"{r['cmd']} imported torch: "
+                                 f"{torch_mods[:5]}")
+
+
+def phase_cost(torch, tr, k1, k2, lint_runs, card):
+    """Cost attribution (obs/cost.py) of the train phase's Higgs booster,
+    read from the compile events its training emitted (no training of
+    its own): the three entries of the main path each have an event
+    with bytes and an optimal ms, within their declared
+    ``max_signatures``; K1's and K2's optimal ms at the root window equal
+    the kernels line's ``bound_ms``; each entry's optimal ms beside the
+    measured ms of train's profiled iteration; the ``stats`` cost
+    section rendered from a telemetry file of the events. Then both lint
+    runs must have ended clean."""
+    from lightgbm_tpu_torch.obs.jit_tracker import jit_declarations
+    from lightgbm_tpu_torch.obs.recorder import (render_stats_table,
+                                                 summarize_events)
+    events = tr["compile_events"]
+    declared = jit_declarations()
+    by_entry = {}
+    for ev in events:
+        by_entry.setdefault(ev["entry"], []).append(ev)
+    for name in COST_ENTRIES:
+        evs = by_entry.get(name, [])
+        if not evs or any(ev["bytes_accessed"] is None
+                          or ev["optimal_ms"] is None for ev in evs):
+            raise AssertionError(f"cost: {name} has no event with bytes "
+                                 f"and optimal_ms ({len(evs)} events)")
+        n_sig = tr["signatures"].get(name, 0)
+        if n_sig > declared.get(name, 0) or n_sig != len(evs):
+            raise AssertionError(
+                f"cost: {name} saw {n_sig} signatures ({len(evs)} events) "
+                f"against max_signatures={declared.get(name)}")
+    # the root window is each kernel's largest call of the tree
+    checks = {}
+    for name, shapes in (("ops/pallas_hist", k1), ("ops/partition", k2)):
+        root = max(by_entry[name], key=lambda ev: ev["bytes_accessed"])
+        want = shapes[0]["bound_ms"]
+        checks[name] = (root["optimal_ms"], want)
+        if abs(root["optimal_ms"] - want) > 1e-9 * want:
+            raise AssertionError(f"cost: {name}'s root optimal_ms "
+                                 f"{root['optimal_ms']} != the kernels "
+                                 f"line's bound_ms {want}")
+    prof = tr["profile"]
+    log(f"[cost] train's booster (Higgs {tr['leaves'][0]} leaves): "
+        f"{len(events)} compile events, signatures "
+        f"{json.dumps({k: tr['signatures'].get(k, 0) for k in sorted(by_entry)})}"
+        f" against max_signatures "
+        f"{json.dumps({k: declared.get(k) for k in sorted(by_entry)})}; "
+        "device peaks of the events: "
+        f"{events[0]['device_kind']} {events[0]['peak_flops']:.4g} "
+        f"operations/s, {events[0]['peak_bytes_per_sec']:.4g} B/s ({card})")
+    for name, (got, want) in checks.items():
+        log(f"[cost] {name} root window: optimal_ms={got:.6f} = kernels "
+            f"line bound_ms={want:.6f} ({card})")
+    grow = by_entry["ops/grow_tree"][0]
+    log(f"[cost] ops/grow_tree (first tree: modelled K1 and K2, counted "
+        f"torch ops): flops={grow['flops']:.4g} "
+        f"bytes={grow['bytes_accessed']:.4g} optimal_ms="
+        f"{grow['optimal_ms']:.3f} first-call wall_ms={grow['wall_ms']} "
+        f"against the profiled iteration's device busy "
+        f"{prof['device_busy_ms']:.3f} ms and wall {prof['wall_ms']:.3f} "
+        f"ms: roofline share {grow['optimal_ms'] / prof['wall_ms']:.4f} "
+        f"of the wall ({card})")
+    for name, kernels in COST_KERNELS.items():
+        ms = sum(prof["kernels"].get(k, {}).get("ms", 0.0) for k in kernels)
+        calls = sum(prof["kernels"].get(k, {}).get("calls", 0)
+                    for k in kernels)
+        evs = by_entry[name]
+        log(f"[cost] {name}: {len(evs)} signatures, optimal_ms at each "
+            f"signature's first window "
+            f"{[round(ev['optimal_ms'], 6) for ev in evs]}; the profiled "
+            f"iteration's {'+'.join(kernels)}: {ms:.3f} device ms in "
+            f"{calls} kernels, {ms / max(calls, 1):.4f} ms a kernel ({card})")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "telemetry.jsonl")
+        with open(path, "w") as fh:
+            for ev in events:
+                fh.write(json.dumps(ev) + "\n")
+        table = render_stats_table(summarize_events(path))
+    section = table[table.index("xla cost attribution"):] \
+        if "xla cost attribution" in table else ""
+    if not section:
+        raise AssertionError("cost: the stats table has no cost section")
+    for line in section.splitlines():
+        log(f"[cost] stats: {line}")
+    _finish_lint(lint_runs, card)
+    return dict(events=len(events), signatures=tr["signatures"],
+                roots=checks)
 
 
 def profile_iteration(torch, bst, host=True):
@@ -4471,7 +4745,7 @@ def phase_k1_turns(torch, dev, bins, wins, reps, parent=None):
                                      sorted(kernels.items(),
                                             key=lambda kv: -kv[1])}
             t["replay_bound_ms"] = sum(
-                _k1_bound(window_rows(w), F, bins.element_size(),
+                k1_bound(window_rows(w), F, bins.element_size(),
                           8 if path == "float" else 2, B, ops)[0]
                 for w in wins)
             turns.append(t)
@@ -7029,15 +7303,10 @@ def _examples_sklearn(lgb, dev, dirs, out):
                              "wrong")
 
 
-def phase_surface_examples(torch, lgb, dev):
-    """The four ``examples/*/train.conf`` through ``python3 -m
-    lightgbm_tpu_torch config=train.conf num_trees=25`` (as
-    ``tests/test_examples.py`` trains them) on ``examples/
-    generate_data.py``'s data (the four trainings at once, then the four
-    predictions), predictions held to a numpy walk of the model text and
-    accuracy to ``tests/test_examples.py``'s floors; while the trainings
-    run, the sklearn wrappers on the same data
-    (:func:`_examples_sklearn`)."""
+def examples_prepare():
+    """``examples/generate_data.py``'s data for the four examples, each
+    with its ``.conf`` files, in a temporary directory: ``{"tmp": dir,
+    "dirs": {name: dir}}``."""
     import importlib.util
     import shutil
     spec = importlib.util.spec_from_file_location(
@@ -7045,44 +7314,63 @@ def phase_surface_examples(torch, lgb, dev):
         os.path.join(REPO, "examples", "generate_data.py"))
     gen = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(gen)
-    out = {"counts": {}}
-    with tempfile.TemporaryDirectory() as tmp:
-        dirs = {}
-        for name in EXAMPLES:
-            d = os.path.join(tmp, name)
-            os.makedirs(d)
-            for fn in os.listdir(os.path.join(REPO, "examples", name)):
-                if fn.endswith(".conf"):
-                    shutil.copy(os.path.join(REPO, "examples", name, fn), d)
-            gen.GENERATORS[name](d)
-            dirs[name] = d
+    tmp = tempfile.mkdtemp(prefix="examples_")
+    dirs = {}
+    for name in EXAMPLES:
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        for fn in os.listdir(os.path.join(REPO, "examples", name)):
+            if fn.endswith(".conf"):
+                shutil.copy(os.path.join(REPO, "examples", name, fn), d)
+        gen.GENERATORS[name](d)
+        dirs[name] = d
+    return {"tmp": tmp, "dirs": dirs, "started": []}
 
-        # num_trees=25, as tests/test_examples.py trains them; the
-        # sklearn wrappers run in this process meanwhile
-        dt = f"device_type={dev.type}"
-        t0 = time.perf_counter()
-        started = start_clis({
-            n: (["config=train.conf", "num_trees=25", dt], dirs[n])
-            for n in EXAMPLES})
-        try:
-            _examples_sklearn(lgb, dev, dirs, out)
-        except BaseException:
-            stop_clis(started)
-            raise
-        counts = {n: c for n, (_, c, _t) in wait_clis(started).items()}
-        train_s = time.perf_counter() - t0
-        pred_args = {}
-        for n, (stem, _) in EXAMPLES.items():
-            if os.path.exists(os.path.join(dirs[n], "predict.conf")):
-                pred_args[n] = ["config=predict.conf", dt]
-            else:
-                pred_args[n] = ["task=predict", f"data={stem}.test",
-                                "input_model=LightGBM_model.txt",
-                                "output_result=LightGBM_predict_result.txt",
-                                dt]
-        t0 = time.perf_counter()
-        run_clis({n: (a, dirs[n]) for n, a in pred_args.items()})
-        pred_s = time.perf_counter() - t0
+
+def examples_clis(dev, ex):
+    """The lane's job of surface_examples: the four trainings through
+    ``python3 -m lightgbm_tpu_torch config=train.conf num_trees=25`` (as
+    ``tests/test_examples.py`` trains them) at once, then the four
+    predictions; their launch counts and seconds go to ``ex``."""
+    dirs = ex["dirs"]
+    dt = f"device_type={dev.type}"
+    t0 = time.perf_counter()
+    started = start_clis({
+        n: (["config=train.conf", "num_trees=25", dt], dirs[n])
+        for n in EXAMPLES})
+    ex["started"].append(started)
+    ex["counts"] = {n: c for n, (_, c, _t) in wait_clis(started).items()}
+    ex["train_s"] = time.perf_counter() - t0
+    pred_args = {}
+    for n, (stem, _) in EXAMPLES.items():
+        if os.path.exists(os.path.join(dirs[n], "predict.conf")):
+            pred_args[n] = ["config=predict.conf", dt]
+        else:
+            pred_args[n] = ["task=predict", f"data={stem}.test",
+                            "input_model=LightGBM_model.txt",
+                            "output_result=LightGBM_predict_result.txt",
+                            dt]
+    t0 = time.perf_counter()
+    started = start_clis({n: (a, dirs[n]) for n, a in pred_args.items()})
+    ex["started"].append(started)
+    wait_clis(started)
+    ex["pred_s"] = time.perf_counter() - t0
+
+
+def phase_surface_examples(torch, lgb, dev, ex, lane):
+    """The sklearn wrappers on ``examples/generate_data.py``'s data
+    (:func:`_examples_sklearn`) in this process; then, once ``lane`` has
+    ended, the four examples' CLI trainings and predictions
+    (:func:`examples_clis`, run on the lane): predictions held to a numpy
+    walk of the model text and accuracy to ``tests/test_examples.py``'s
+    floors."""
+    import shutil
+    out = {"counts": {}}
+    dirs = ex["dirs"]
+    try:
+        _examples_sklearn(lgb, dev, dirs, out)
+        wait_s = lane.join(timeout=2 * PIPE_WAIT_S + 900)
+        counts = ex["counts"]
         for n, (stem, floor) in EXAMPLES.items():
             d = dirs[n]
             with open(os.path.join(d, "LightGBM_model.txt")) as f:
@@ -7110,10 +7398,13 @@ def phase_surface_examples(torch, lgb, dev):
             if err > 1e-5 or not q > floor:
                 raise AssertionError(f"surface_examples {n}: predictions "
                                      "or quality wrong")
-        log(f"[surface_examples] the four CLI trainings at once (the "
-            f"sklearn wrappers in process meanwhile) {train_s:.2f} s, the "
-            f"four predictions {pred_s:.2f} s")
-
+        log(f"[surface_examples] the four CLI trainings at once "
+            f"{ex['train_s']:.2f} s, the four predictions "
+            f"{ex['pred_s']:.2f} s, on the lane after the pipeline's runs "
+            f"(lane: {json.dumps({k: round(v, 1) for k, v in lane.seconds.items()})} s; "
+            f"this process waited {wait_s:.1f} s for it)")
+    finally:
+        shutil.rmtree(ex["tmp"], ignore_errors=True)
     return out
 
 
@@ -7433,7 +7724,17 @@ def _dist_faults_start(work, device_type):
             "LIGHTGBM_TPU_SMOKE_DEVICE": device_type}
     if device_type == "cuda":
         base["CUDA_VISIBLE_DEVICES"] = "0"
-    runs = {"t0": time.perf_counter()}
+    import threading
+    runs = {"t0": time.perf_counter(), "ends": {}}
+
+    def watch(tag, proc):
+        # the time each run ends: the phase waits for them only after
+        # world A and its twins
+        def wait():
+            proc.wait()
+            runs["ends"][tag] = time.perf_counter()
+        threading.Thread(target=wait, daemon=True).start()
+
     sdir = os.path.join(work, "stall")
     os.makedirs(sdir)
     port = _free_port()
@@ -7453,6 +7754,7 @@ def _dist_faults_start(work, device_type):
              sdir], env=env, stdout=log_f, stderr=subprocess.STDOUT,
             start_new_session=True))
         log_f.close()
+    watch("stall", runs["stall"][0])
     for tag, fault, flags in (
             ("clean", "", ("--max-restarts", "0")),
             ("faulted", "init_refuse@1,rank_kill@3",
@@ -7460,6 +7762,9 @@ def _dist_faults_start(work, device_type):
               str(DIST_RESTART_DEADLINE + 5)))):
         d = os.path.join(work, tag)
         os.makedirs(d)
+        # the supervisor's output to a file: nothing reads a pipe while
+        # world A runs
+        log_f = open(os.path.join(work, f"{tag}.out"), "wb")
         runs[tag] = (d, subprocess.Popen(
             _launch_cmd(2, d, ["--dist-chaos", d], *flags),
             env=_smoke_env(dict(
@@ -7467,7 +7772,9 @@ def _dist_faults_start(work, device_type):
                 LIGHTGBM_TPU_COLLECTIVE_TIMEOUT=str(DIST_RESTART_DEADLINE),
                 LIGHTGBM_TPU_FAULT_INJECT=fault,
                 LIGHTGBM_TPU_FAULT_RANK="1")),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            stdout=log_f, stderr=subprocess.STDOUT))
+        log_f.close()
+        watch(tag, runs[tag][1])
     return runs
 
 
@@ -7480,11 +7787,12 @@ def _dist_faults_finish(runs):
     import signal
     out = {}
     stall = runs["stall"]
+    left_s = DIST_DEADLINE + 120 - (time.perf_counter() - runs["t0"])
     try:
-        rc0 = stall[0].wait(timeout=DIST_DEADLINE + 120)
+        rc0 = stall[0].wait(timeout=max(1.0, left_s))
     except subprocess.TimeoutExpired:
         rc0 = None
-    stall_s = time.perf_counter() - runs["t0"]
+    stall_s = runs["ends"].get("stall", time.perf_counter()) - runs["t0"]
     alive1 = stall[1].poll() is None
     for p in stall:
         if p.poll() is None:
@@ -7497,7 +7805,8 @@ def _dist_faults_finish(runs):
                                       if p.poll() is None])
     log(f"[dist] stall_rank@2: survivor rc={rc0} after {stall_s:.1f} s "
         f"(deadline {DIST_DEADLINE} s; start-up included, beside the "
-        f"launch runs); the stalled rank was alive until killed: {alive1}")
+        f"launch runs and world A); the stalled rank was alive until "
+        f"killed: {alive1}")
     if rc0 != 13 or "WORKER ABORT" not in text0 \
             or "spmd/verify_step" not in text0 or "rank 1" not in text0:
         raise AssertionError(f"dist: the survivor of stall_rank@2 did not "
@@ -7508,9 +7817,14 @@ def _dist_faults_finish(runs):
     done = {}
     for tag in ("clean", "faulted"):
         d, proc = runs[tag]
-        text = _communicate(proc, 300)
+        try:
+            proc.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            _stop_launch(proc)
+            raise
+        text = _tail(os.path.join(os.path.dirname(d), f"{tag}.out"), 20000)
         done[tag] = (d, proc.returncode, text,
-                     time.perf_counter() - runs["t0"])
+                     runs["ends"].get(tag, time.perf_counter()) - runs["t0"])
     (cd, crc, ctext, cs), (fd, frc, ftext, fs) = done["clean"], \
         done["faulted"]
     if crc != 0:
@@ -7619,14 +7933,14 @@ def phase_dist(torch, lgb, dev, tr, iters):
         f"{time.perf_counter() - t0:.2f} s")
     spec = dict(paths, rows=n, iters=iters, small_rows=DIST_SMALL_ROWS,
                 device_type=dt, leaves=DIST_LEAVES)
-    # world A and the smaller worlds: two ranks on card 0
-    ranks, wall, out = _dist_world(work, "gloo", spec,
-                                   {"CUDA_VISIBLE_DEVICES": "0"}
-                                   if dt == "cuda" else {})
-    # the fault runs start now and run beside the twin
+    # the fault runs start first and run beside world A and the twins
     fault_runs = _dist_faults_start(work, dt)
     faults = None
     try:
+        # world A and the smaller worlds: two ranks on card 0
+        ranks, wall, out = _dist_world(work, "gloo", spec,
+                                       {"CUDA_VISIBLE_DEVICES": "0"}
+                                       if dt == "cuda" else {})
         twins, twin_construct = _dist_twins(torch, lgb, dt, Xt, yt, Xv, yv,
                                             iters, work)
         _dist_checks(ranks, twins, out, twin_construct, wall)
@@ -7763,8 +8077,8 @@ def _dist_checks(ranks, twins, out, twin_construct, wall):
             f"iter_s={[round(s, 4) for s in r['iter_s']]}")
     log(f"[dist] quantize one [{FEATURES}, {BINS}, 2] histogram to int8: "
         f"{r0['quantize_ms']} ms (CUDA events, plain torch)")
-    log(f"[dist] twin construct_s={twin_construct:.2f} (beside the fault "
-        "runs' start-up)")
+    log(f"[dist] twin construct_s={twin_construct:.2f} (beside what is "
+        "left of the fault runs)")
 
 
 def card_name():
@@ -7858,27 +8172,55 @@ def main(argv=None):
             f"{now - t_start:.1f} s)")
         t_last[0] = now
 
-    phase_build(torch)
-    done("build")
-    k1 = phase_k1(torch, dev, args.rows, args.reps)
-    done("k1")
-    k1i = phase_k1_int(torch, dev, args.rows, args.reps)
-    done("k1_int")
-    phase_k1_ragged(torch, dev)
-    done("k1_ragged")
-    k2, k2_alt = phase_k2(torch, dev, args.rows, args.reps)
-    done("k2")
-    parent = load_parent(args.parent) if args.parent else None
-    tr = phase_train(torch, lgb, dev, args.rows, args.iters, args.reps,
-                     parent)
-    turns = tr["turns"]
-    done("train")
+    # the lint runs use the host's cores beside the build and the kernel
+    # phases; the cost phase waits for them
+    lint_runs = start_lint()
+    try:
+        phase_build(torch)
+        done("build")
+        k1 = phase_k1(torch, dev, args.rows, args.reps)
+        done("k1")
+        k1i = phase_k1_int(torch, dev, args.rows, args.reps)
+        done("k1_int")
+        phase_k1_ragged(torch, dev)
+        done("k1_ragged")
+        k2, k2_alt = phase_k2(torch, dev, args.rows, args.reps)
+        done("k2")
+        parent = load_parent(args.parent) if args.parent else None
+        tr = phase_train(torch, lgb, dev, args.rows, args.iters, args.reps,
+                         parent)
+        turns = tr["turns"]
+        done("train")
+        phase_cost(torch, tr, k1, k2, lint_runs, card_name())
+    finally:
+        stop_lint(lint_runs)
+    done("cost")
     trq = phase_train_quant(torch, lgb, dev, tr, args.iters)
     done("train_quant")
     dst = phase_dist(torch, lgb, dev, tr, min(args.iters, 2))
     done("dist")
     trs = phase_resilience(torch, lgb, dev, tr, trq, args.iters)
     done("resilience")
+    pipe, pipe_job = phase_pipeline_start(torch, lgb, dev, card_name())
+    ex = examples_prepare()
+    # the pipeline's runs, then the examples' CLI runs, beside the
+    # in-process phases from train_valid on
+    lane = Lane([("pipeline", pipe_job),
+                 ("examples", lambda: examples_clis(dev, ex))],
+                [pipe["root"]], ex["started"])
+    done("pipeline_start")
+    try:
+        return _after_lane_start(torch, lgb, dev, args, done, tr, trq, dst,
+                                 trs, turns, k1, k1i, k2, k2_alt, pipe, ex,
+                                 lane)
+    finally:
+        lane.stop()
+
+
+def _after_lane_start(torch, lgb, dev, args, done, tr, trq, dst, trs,
+                      turns, k1, k1i, k2, k2_alt, pipe, ex, lane):
+    """The phases after the lane started, the wait for it, and the
+    report (``done`` logs a phase's seconds on main's clock)."""
     tv = phase_train_valid(torch, lgb, dev, tr, min(args.iters, 1))
     done("train_valid")
     tg = phase_train_goss(torch, lgb, dev, tr, min(args.iters, 3))
@@ -7895,8 +8237,6 @@ def main(argv=None):
     done("serve")
     phase_serve_daemon(torch, lgb, dev, tr, sv["latency"])
     done("serve_daemon")
-    pl = phase_pipeline(torch, lgb, dev, card_name())
-    done("pipeline")
     sh = phase_surface_higgs(torch, lgb, dev, tr, min(args.iters, 3))
     for key in ("ds", "Xt", "target", "target_valid"):
         del tr[key]
@@ -7929,8 +8269,10 @@ def main(argv=None):
     done("small categorical and monotone runs")
     phase_small_rf_cv(torch, lgb, dev)
     done("small rf and cv runs")
-    se = phase_surface_examples(torch, lgb, dev)
+    se = phase_surface_examples(torch, lgb, dev, ex, lane)
     done("surface_examples")
+    pl = phase_pipeline_finish(lgb, dev, pipe, lane, card_name())
+    done("pipeline_finish")
 
     print(card_name(), flush=True)
 

@@ -27,8 +27,9 @@ supervisor (``resilience/elastic.py``: a fleet of serve replicas, or a
 supervised world of training ranks) and ``pipeline --workdir DIR
 [--device-type cuda|cpu] ...`` the train -> publish -> serve loop
 (``pipeline.py``); ``python -m lightgbm_tpu_torch launch`` and
-``pipeline`` parse without importing torch. The JAX package's ``lint``
-raises, naming the ROADMAP.md item that brings it.
+``pipeline`` parse without importing torch. ``lint [--ir] [--strict]
+...`` is the port's static analyzer (``analysis/cli.py``; ``python -m
+lightgbm_tpu_torch lint`` imports no torch but under ``--ir``).
 
     python -m lightgbm_tpu_torch stats telemetry.jsonl
     python -m lightgbm_tpu_torch checkpoints ckpt/
@@ -49,10 +50,6 @@ from .engine import train as train_fn
 from .log import log_info, log_warning
 
 __all__ = ["main", "parse_args", "load_config_file"]
-
-# the JAX package's subcommands that the port does not have yet
-_SUBCOMMANDS = {"lint": "21 (its last entry)"}
-
 
 def load_config_file(path: str) -> Dict[str, str]:
     """The ``key = value`` pairs of a config file."""
@@ -387,10 +384,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     if argv[0] == "pipeline":
         from .pipeline import main as pipeline_main
         return pipeline_main(argv[1:])
-    if argv[0] in _SUBCOMMANDS:
-        raise NotImplementedError(
-            f"the {argv[0]!r} subcommand is not in the port yet (ROADMAP.md "
-            f"Queue 1 item {_SUBCOMMANDS[argv[0]]})")
+    if argv[0] == "lint":
+        from .analysis.cli import main as lint_main
+        return lint_main(argv[1:])
     try:
         params = parse_args(argv)
         cfg = Config.from_params(params)

@@ -155,6 +155,7 @@ import torch
 
 from ..config import Config
 from ..log import log_info, log_warning
+from ..obs.jit_tracker import register_jit
 from ..resilience.faults import (FaultPlan, InjectedResourceExhausted,
                                  append_fault_event, is_resource_exhausted,
                                  nf_clamp)
@@ -259,6 +260,22 @@ def tree_values(tree: Tree, dataset, bundle=None) -> torch.Tensor:
     lv = torch.as_tensor(np.asarray(tree.leaf_value, np.float32),
                          device=dev)
     return lv[leaves]
+
+
+def _binned_signature(args, kwargs) -> tuple:
+    """A binned walk's cost signature: the dataset's rows and columns,
+    its device and whether the walk runs on the bundled matrix (a
+    tree's size is its data, as the JAX walk pads it to ``num_leaves``)."""
+    dataset = args[1]
+    bundle = args[2] if len(args) > 2 else kwargs.get("bundle")
+    return (dataset.num_data(), len(dataset.feat_num_bins()),
+            str(dataset.device), bundle is not None)
+
+
+_tree_leaves = register_jit("gbdt/tree_leaves_binned", _tree_leaves,
+                            max_signatures=8, signature=_binned_signature)
+tree_values = register_jit("gbdt/tree_values_binned", tree_values,
+                           max_signatures=8, signature=_binned_signature)
 
 
 def _linear_values(tree: Tree, dataset, leaves: torch.Tensor):
@@ -821,7 +838,8 @@ class GBDTBooster:
         return mask
 
     # -- one iteration ---------------------------------------------------
-    def train_one_iter(self, custom_grad: Optional[np.ndarray] = None,
+    def train_one_iter(self,  # tpulint: hot
+                       custom_grad: Optional[np.ndarray] = None,
                        custom_hess: Optional[np.ndarray] = None) -> bool:
         """One boosting iteration (K trees); True when no tree could grow
         (the constant trees are kept and training should stop).

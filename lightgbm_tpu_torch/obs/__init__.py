@@ -18,10 +18,13 @@ for one training process on one card.
   (``python -m lightgbm_tpu_torch trace <dir>``);
 - :mod:`.jit_tracker` — :class:`RecompileWatcher`: the port has no jit
   cache, so it counts what takes its place, kernel builds by ``nvcc``
-  and new padded row shapes of the compiled forest's walk.
-
-The JAX package's XLA cost attribution (``obs/cost.py``) is ROADMAP.md
-Queue 1 item 21's rest.
+  and new padded row shapes of the compiled forest's walk;
+  ``jit_tracker.register_jit`` wraps an entry point for cost attribution
+  and declares its ``max_signatures`` (:func:`jit_declarations`);
+- :mod:`.cost` — cost attribution: one ``{"event": "compile"}`` record
+  per entry point and new call signature, with the kernels' modelled and
+  the torch ops' counted flops and bytes against the card's peaks
+  (``stats`` prints them as its cost section).
 """
 
 # the registry is bound here, eagerly and torch-free, so that the
@@ -50,6 +53,11 @@ _LAZY = {
     "set_current_trace": "trace", "span": "trace",
     "span_events_snapshot": "trace", "RecompileWatcher": "jit_tracker",
     "jit_cache_sizes": "jit_tracker", "total_recompiles": "jit_tracker",
+    "register_jit": "jit_tracker", "jit_declarations": "jit_tracker",
+    "CostTracked": "cost", "drain_compile_events": "cost",
+    "compile_events_snapshot": "cost", "device_peaks": "cost",
+    "roofline_optimal_ms": "cost", "cost_wrap_enabled": "cost",
+    "DEVICE_PEAKS": "cost",
 }
 
 __all__ = [
@@ -69,6 +77,10 @@ __all__ = [
     "span_events_snapshot", "new_trace_id", "new_span_id",
     "current_context", "set_current_trace",
     "RecompileWatcher", "jit_cache_sizes", "total_recompiles",
+    "register_jit", "jit_declarations",
+    "CostTracked", "drain_compile_events", "compile_events_snapshot",
+    "device_peaks", "roofline_optimal_ms", "cost_wrap_enabled",
+    "DEVICE_PEAKS",
 ]
 
 

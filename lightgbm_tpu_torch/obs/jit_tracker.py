@@ -16,21 +16,56 @@ names:
 
 :class:`RecompileWatcher` turns the counts into per-interval deltas for
 the serving daemon's ``stats`` reply and ``{"event": "serve"}`` lines.
-This module imports no torch.
+
+:func:`register_jit` (the JAX package's name) wraps an entry point in
+:class:`~lightgbm_tpu_torch.obs.cost.CostTracked` for cost attribution
+and records its declared ``max_signatures`` (:func:`jit_declarations`),
+the most distinct call signatures it may see in a process; ``lint --ir``
+(TPL014) demands the declaration at every site. Cost signatures are not
+compiles: they never enter :func:`jit_cache_sizes`, so the daemon's
+recompile deltas keep their meaning. This module imports no torch.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Set, Tuple
+from typing import Callable, Dict, Optional, Set, Tuple
 
 __all__ = ["note_build", "note_shape", "shape_count", "jit_cache_sizes",
-           "total_recompiles", "RecompileWatcher"]
+           "total_recompiles", "RecompileWatcher", "register_jit",
+           "jit_declarations"]
 
 _lock = threading.Lock()
 # ---- guarded by _lock ----
 _builds: Dict[str, int] = {}          # entry -> builds in this process
 _shapes: Dict[str, Set[tuple]] = {}   # entry -> distinct padded shapes
+_declared: Dict[str, int] = {}        # entry -> declared max_signatures
+
+
+def register_jit(name: str, fn: Callable,
+                 max_signatures: Optional[int] = None,
+                 signature: Optional[Callable] = None,
+                 work: Optional[Callable] = None) -> Callable:
+    """Wrap entry point ``fn`` for cost attribution under entry ``name``
+    and return the wrapper, so definition sites rebind: ``fn =
+    register_jit("name", fn, max_signatures=N)``. ``signature`` and
+    ``work`` are :class:`~lightgbm_tpu_torch.obs.cost.CostTracked`'s. A
+    repeated declaration keeps the largest one."""
+    from .cost import CostTracked
+    if max_signatures is not None:
+        with _lock:
+            prev = _declared.get(name)
+            _declared[name] = max_signatures if prev is None \
+                else max(prev, max_signatures)
+    if isinstance(fn, CostTracked):
+        return fn
+    return CostTracked(name, fn, signature=signature, work=work)
+
+
+def jit_declarations() -> Dict[str, int]:
+    """Declared ``max_signatures`` per entry name."""
+    with _lock:
+        return dict(_declared)
 
 
 def note_build(name: str) -> None:

@@ -149,12 +149,13 @@ class TelemetryRecorder:
             self._write_line({"event": "ingest", **stats})
 
     def close(self) -> None:
-        """Drain the fault and span events still queued (a raise unwinds
+        """Drain the fault, compile and span events still queued (a raise unwinds
         before the next ``record_iteration``, and its fault line must
         not be lost with it), close the file and restore the Timer. Every
         step runs under ``finally``."""
         try:
             self._drain_fault_events()
+            self._drain_compile_events()
             self._drain_span_events()
         finally:
             try:
@@ -244,6 +245,14 @@ class TelemetryRecorder:
                 pass
             self._file = None
 
+    def _drain_compile_events(self) -> None:
+        """Move pending cost-attribution records (obs/cost.py: one per
+        entry point and new call signature) into the stream, through the
+        same locked snapshot-and-clear as fault events."""
+        from .cost import drain_compile_events
+        for ev in drain_compile_events():
+            self._write_line(ev)
+
     def _drain_span_events(self) -> None:
         """Move pending trace spans (obs/trace.py) into the stream."""
         from .trace import drain_span_events
@@ -305,7 +314,8 @@ class TelemetryRecorder:
         record_iteration_spans(event, self._last_iter_mono, now_mono)
         self._last_iter_mono = now_mono
         self._drain_fault_events()   # fault lines precede their iteration
-        self._drain_span_events()    # and so do the spans it was timed by
+        self._drain_compile_events()  # so do the signatures it ran
+        self._drain_span_events()    # and the spans it was timed by
         self._write_line(event)
         self.events_written += 1
         return event
@@ -313,6 +323,7 @@ class TelemetryRecorder:
     def _feed_registry(self, event: dict) -> None:
         reg = self.registry
         reg.counter("iterations").inc()
+        reg.counter("jit_recompiles").inc(event["recompiles"]["delta"])
         for label, v in event["phases"].items():
             # a world's phases carry the ranks' mean (and min/max)
             reg.histogram("phase_seconds", phase=label).observe(
@@ -539,13 +550,11 @@ def summarize_events(path: str) -> dict:
             "spans": spans}
 
 
-#: jit entry point -> Timer phase whose per-call mean is the measured
-#: counterpart of the entry's cost-model-optimal ms (the live roofline
-#: of docs/ROOFLINE.md). Entries without a phase (predict paths) still
-#: list their cost numbers, just without a measured column.
+#: entry point -> the port's Timer phase (``utils/timer.py``) whose
+#: per-call mean is the measured counterpart of the entry's optimal ms.
+#: Entries without a phase (the kernels, the predict paths) still list
+#: their cost numbers, just without a measured column.
 ENTRY_PHASES = {
-    "gbdt/fused_iter": "boosting/fused_iter",
-    "gbdt/fused_scan": "boosting/fused_scan",
     "ops/grow_tree": "tree_learner/grow",
     "parallel/dp_grow": "tree_learner/grow",
     "ranking/lambdarank_grads": "boosting/gradients",

@@ -192,6 +192,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..obs.jit_tracker import register_jit
 from .histogram import subtract_histogram, window_hist
 from .partition import RangeRules, go_left, partition_window
 from .predict import predict_leaf_binned
@@ -859,9 +860,18 @@ class Grower:
         return rec
 
     # -- growing ---------------------------------------------------------
-    def grow(self, grad: torch.Tensor, hess: torch.Tensor,
+    def grow(self, grad: torch.Tensor, hess: torch.Tensor,  # tpulint: hot
              noise: torch.Tensor = None, row_weight: torch.Tensor = None,
              feature_mask=None, node_uniform=None, cegb_state=None):
+        """Grow one tree (:meth:`_grow`) through its cost-attribution
+        entry: ``ops/grow_tree``, or ``parallel/dp_grow`` in a world."""
+        entry = _grow_tree if self.dist is None else _dp_grow
+        return entry(self, grad, hess, noise, row_weight, feature_mask,
+                     node_uniform, cegb_state)
+
+    def _grow(self, grad: torch.Tensor, hess: torch.Tensor,  # tpulint: hot
+              noise: torch.Tensor = None, row_weight: torch.Tensor = None,
+              feature_mask=None, node_uniform=None, cegb_state=None):
         """Grow one tree on f32 ``[n]`` gradients/hessians. ``noise`` is
         the ``[n, 2]`` uniform draw of stochastic rounding when quantized
         (None: round to nearest). ``row_weight``: f32 ``[n]`` bagging or
@@ -1099,7 +1109,7 @@ class Grower:
         t["split_cat_mask"][:nn] = self._host(cat_masks)
         return cat_masks
 
-    def _split(self, st, leaf: int, r: np.ndarray) -> None:
+    def _split(self, st, leaf: int, r: np.ndarray) -> None:  # tpulint: hot
         """Split leaf slot ``leaf`` by its host record ``r``: K2 moves its
         window, K1 builds the smaller child's histogram, the per-leaf
         state follows, and the children (or, after a split that changes
@@ -1526,6 +1536,20 @@ class Grower:
         sums = sums.to(torch.float32)
         out = leaf_output(sums[:, 0], sums[:, 1], self.cfg.split)
         return out.cpu().numpy()
+
+
+def _grow_signature(args, kwargs) -> tuple:
+    """A tree's cost signature: ``(n, F, B, num_leaves, payload dtype)``
+    and the device."""
+    g = args[0]
+    return (g.n, g.F, g.cfg.num_bins, g.cfg.num_leaves,
+            "int8" if g.cfg.quantized else "float32", str(g.dev))
+
+
+_grow_tree = register_jit("ops/grow_tree", Grower._grow, max_signatures=8,
+                          signature=_grow_signature)
+_dp_grow = register_jit("parallel/dp_grow", Grower._grow, max_signatures=8,
+                        signature=_grow_signature)
 
 
 def _identity(h):

@@ -27,7 +27,9 @@ the hessian ratio, as in the JAX package.
 
 ``window_hist.launches`` and ``window_hist.int_launches`` count the
 kernel's launches on the float and the int path (one per call on a CUDA
-tensor).
+tensor). ``window_hist`` is the cost-attribution entry ``ops/pallas_hist``
+(``obs/cost.py``): its signature is the launch plan without the row
+count, its cost K1's model of the window (``cost.k1_work``).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..obs.jit_tracker import register_jit
 from . import _cuda
 
 __all__ = ["window_hist", "hist_from_rows", "hist_from_rows_int",
@@ -250,6 +253,51 @@ def window_hist(bins: torch.Tensor, payload: torch.Tensor, num_bins: int,
 # kernel launches on CUDA tensors: float path / int path
 window_hist.launches = 0
 window_hist.int_launches = 0
+
+_HIST_ARGS = ("bins", "payload", "num_bins", "start", "cnt", "n_left",
+              "side", "pay_absmax")
+_sms = {}
+
+
+def _hist_call(args, kwargs) -> dict:
+    a = dict(zip(_HIST_ARGS, args))
+    a.update(kwargs)
+    return a
+
+
+def _hist_signature(args, kwargs) -> tuple:
+    """A K1 call's cost signature: the launch plan without its block
+    count (the one field that grows with the window's rows); on the CPU,
+    the shapes and dtypes the plain version runs on."""
+    a = _hist_call(args, kwargs)
+    bins, payload = a["bins"], a["payload"]
+    F, B = bins.shape[1], a["num_bins"]
+    head = (bins.device.type, F, B, str(bins.dtype), str(payload.dtype))
+    if bins.device.type != "cuda" or _Force.plain or a["cnt"] == 0:
+        return head
+    idx = bins.device.index
+    if idx not in _sms:
+        _sms[idx] = _num_sms(bins.device)
+    plan = launch_plan(a["cnt"], F, B, bins.element_size(), _sms[idx],
+                       payload.dtype == torch.int8)
+    return head + tuple(plan._replace(nblocks=0))
+
+
+def _hist_work(args, kwargs, out) -> tuple:
+    """K1's work item for ``obs/cost.py``: the window and its left
+    count, whose rows the model costs."""
+    a = _hist_call(args, kwargs)
+    bins, payload = a["bins"], a["payload"]
+    side = a.get("side", 0)
+    return ("k1", bins.shape[1], bins.element_size(),
+            2 * payload.element_size(), a["num_bins"],
+            payload.dtype == torch.int8, a["start"], a["cnt"], side,
+            a.get("n_left") if side else None)
+
+
+window_hist = register_jit("ops/pallas_hist", window_hist,
+                           max_signatures=16, signature=_hist_signature,
+                           work=_hist_work)
 
 
 def hist_from_rows(rows: torch.Tensor, payload: torch.Tensor,

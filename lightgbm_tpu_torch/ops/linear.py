@@ -35,6 +35,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..obs.jit_tracker import register_jit
+
 __all__ = ["branch_features_per_leaf", "fit_leaf_linear",
            "linear_leaf_values", "CHUNK_ELEMS"]
 
@@ -104,6 +106,18 @@ def linear_leaf_values(const: torch.Tensor, coef: torch.Tensor,
             s = s + term[:, j]
         out[a:b] = torch.where(nanrow, fallback[lv], const[lv] + s)
     return out
+
+
+def _linear_signature(args, kwargs) -> tuple:
+    """The linear walk's cost signature: the rows' shape and device (a
+    forest's leaf count and features per leaf are its data)."""
+    X = args[5] if len(args) > 5 else kwargs["X"]
+    return tuple(X.shape), str(X.dtype), str(X.device)
+
+
+linear_leaf_values = register_jit("gbdt/linear_eval", linear_leaf_values,
+                                  max_signatures=8,
+                                  signature=_linear_signature)
 
 
 def fit_leaf_linear(raw: torch.Tensor, row_leaf: torch.Tensor,

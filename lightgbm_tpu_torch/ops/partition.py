@@ -30,6 +30,10 @@ grower (``ops/grow.py`` ``part_apply``).
 ``partition_window.kernels`` the kernels they launched (one on the
 resident path, two on the streaming path),
 ``partition_window.member_launches`` the calls with a membership rule.
+``partition_window`` is the cost-attribution entry ``ops/partition``
+(``obs/cost.py``): its signature is the plan's path, threads and ring
+depth (the fields that do not grow with the window's rows), its cost
+K2's model of the window (``cost.k2_work``).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs.jit_tracker import register_jit
 from . import _cuda
 from .histogram import SMEM_BLOCK, SMEM_RESERVED, SMEM_SM, THREADS_SM, \
     _Force, _num_sms
@@ -426,6 +431,51 @@ def _launch(bins_src, bins_dst, pay_src, pay_dst, ids_src, ids_dst, begin,
 partition_window.launches = 0
 partition_window.kernels = 0
 partition_window.member_launches = 0
+
+_PART_ARGS = ("bins_src", "bins_dst", "pay_src", "pay_dst", "ids_src",
+              "ids_dst", "begin", "cnt", "col", "lo", "hi", "nan_pos", "dl",
+              "bits")
+_sms: Dict[Optional[int], int] = {}
+
+
+def _part_call(args, kwargs) -> dict:
+    a = dict(zip(_PART_ARGS, args))
+    a.update(kwargs)
+    return a
+
+
+def _part_pay_bytes(pay) -> int:
+    return 0 if pay is None else 2 * pay.element_size()
+
+
+def _part_signature(args, kwargs) -> tuple:
+    """A K2 call's cost signature: the payload and rule kinds, and on a
+    CUDA tensor the plan's path, threads and ring depth."""
+    a = _part_call(args, kwargs)
+    bins, pay = a["bins_src"], a["pay_src"]
+    F, bb = bins.shape[1], bins.element_size()
+    head = (bins.device.type, F, bb, None if pay is None else str(pay.dtype),
+            a["ids_src"] is not None, a.get("bits") is not None)
+    if bins.device.type != "cuda" or _Force.plain or a["cnt"] == 0:
+        return head
+    idx = bins.device.index
+    if idx not in _sms:
+        _sms[idx] = _num_sms(bins.device)
+    plan = partition_plan(a["cnt"], F, bb, _part_pay_bytes(pay), _sms[idx])
+    return head + (plan.path, plan.threads, plan.stages)
+
+
+def _part_work(args, kwargs, out) -> tuple:
+    """K2's work item for ``obs/cost.py``: the window's rows."""
+    a = _part_call(args, kwargs)
+    bins = a["bins_src"]
+    return ("k2", bins.shape[1], bins.element_size(),
+            _part_pay_bytes(a["pay_src"]), a["cnt"])
+
+
+partition_window = register_jit("ops/partition", partition_window,
+                                max_signatures=24,
+                                signature=_part_signature, work=_part_work)
 
 
 def _compact(A: torch.Tensor, key: torch.Tensor) -> Tuple[torch.Tensor,

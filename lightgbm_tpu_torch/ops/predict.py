@@ -30,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..obs.jit_tracker import register_jit
 from .partition import RangeRules, go_left
 
 __all__ = ["StackedTrees", "predict_leaf_binned", "predict_leaf_raw",
@@ -162,3 +163,7 @@ def predict_leaf_raw(trees: StackedTrees, X: torch.Tensor) -> torch.Tensor:
 
     return _walk(T, n, X.device, decide, trees.left_child,
                  trees.right_child, trees.depth)
+
+
+predict_leaf_raw = register_jit("prediction/forest_leaves", predict_leaf_raw,
+                                max_signatures=16)

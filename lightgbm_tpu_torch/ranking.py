@@ -38,6 +38,7 @@ import torch
 from .config import Config
 from .metrics import Metric
 from .objectives import Objective
+from .obs.jit_tracker import register_jit
 
 __all__ = ["QueryBucket", "LambdarankNDCG", "RankXENDCG",
            "create_ranking_objective", "ndcg_at_k", "map_at_k",
@@ -184,6 +185,10 @@ def _lambdarank_grads(score: torch.Tensor, buckets: List[QueryBucket],
         g = g * weight
         h = h * weight
     return g, h
+
+
+_lambdarank_grads = register_jit("ranking/lambdarank_grads",
+                                 _lambdarank_grads, max_signatures=8)
 
 
 class LambdarankNDCG(Objective):

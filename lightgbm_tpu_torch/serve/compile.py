@@ -181,7 +181,7 @@ class CompiledForest:
         return out
 
     # -- prediction ----------------------------------------------------
-    def _walk(self, chunk: np.ndarray) -> np.ndarray:
+    def _walk(self, chunk: np.ndarray) -> np.ndarray:  # tpulint: hot
         """``[b, K]`` float32 raw scores of one padded chunk."""
         st = self._stacked
         jit_tracker.note_shape(_ENTRY, (chunk.shape[0], chunk.shape[1],
@@ -301,6 +301,21 @@ class CompiledForest:
         else:
             self._stacked = None     # drop the old forest first
             self._stacked = _upload(host_stacked, self.device)
+
+
+def _walk_signature(args, kwargs) -> tuple:
+    """The walk's cost signature: its padded ``(rows, features, trees,
+    K)`` shape, the one ``jit_tracker.note_shape`` counts, and device."""
+    forest, chunk = args[0], args[1]
+    return (chunk.shape[0], chunk.shape[1],
+            int(forest._stacked.leaf_value.shape[0]), forest.K,
+            str(forest.device))
+
+
+# the warmup's power-of-two buckets, each at most once per forest shape
+CompiledForest._walk = jit_tracker.register_jit(
+    _ENTRY, CompiledForest._walk, max_signatures=2 * n_serve_buckets(),
+    signature=_walk_signature)
 
 
 def compile_forest(booster, num_iteration: Optional[int] = None,

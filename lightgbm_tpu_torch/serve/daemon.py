@@ -294,12 +294,15 @@ class ServeState:
 
     def emit_serve_event(self) -> None:
         """One ``{"event": "serve"}`` JSONL line, after the process's
-        fault events (``swap_failure``, ``canary_refused``, ...) and
-        span events drained since the last one. An unwritable file
+        fault events (``swap_failure``, ``canary_refused``, ...), compile
+        events and span events drained since the last one. An unwritable file
         stops the stream, never serving."""
+        from ..obs.cost import drain_compile_events
         from ..obs.trace import drain_span_events
         from ..resilience.faults import FAULT_EVENTS, drain_events
-        events = drain_events(FAULT_EVENTS) + drain_span_events()
+        # the walk's new signatures carry their cost attribution in
+        events = drain_events(FAULT_EVENTS) + drain_compile_events() \
+            + drain_span_events()
         payload = {"event": "serve", **self.stats()}
         with self._lock:
             fh = self._telemetry_file

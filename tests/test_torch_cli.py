@@ -5,7 +5,7 @@ against the JAX package's on the CPU: config parsing; the four
 to a small size) giving the same trees and prediction files through
 both CLIs, and the JAX CLI's model predicting the same in the port's;
 ``convert_model``'s text (and the compiled code's scores); refit,
-save_binary and snapshots; the refused subcommands; ``python -m
+save_binary and snapshots; ``lint``; ``python -m
 lightgbm_tpu_torch`` in a fresh interpreter; and the plots' data under
 matplotlib's Agg backend. (That ``import lightgbm_tpu_torch`` loads
 neither the sklearn wrappers nor matplotlib is checked in
@@ -245,12 +245,14 @@ def test_refit_save_binary_and_snapshots_match_jax(binary_files):
                         params={"device_type": "cpu"}).num_trees() == 6
 
 
-@pytest.mark.parametrize("sub,item", [("lint", "21")])
-def test_jax_subcommands_name_their_items(sub, item):
-    """``lint`` raises naming its ROADMAP.md item."""
-    argv = {"lint": ["x"]}[sub]
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        port_cli.main([sub, *argv])
+def test_lint_runs_through_the_cli(capsys):
+    """``lint`` is the port's analyzer (``analysis/cli.py``): through the
+    CLI it ends clean on the tree, and a JAX rule without a port rule is
+    a usage error naming its ROADMAP.md entry."""
+    assert port_cli.main(["lint", "--strict"]) == 0
+    assert "0 findings" in capsys.readouterr().out
+    assert port_cli.main(["lint", "--rule", "TPL004"]) == 2
+    assert "ROADMAP.md Queue 3" in capsys.readouterr().err
 
 
 def test_cli_errors_and_help(capsys):
